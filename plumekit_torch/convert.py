@@ -1,0 +1,115 @@
+"""Carry U-Net weights between the JAX package's flax variables and the
+port's ``state_dict``.
+
+Flax keeps conv kernels HWIO, the port OIHW. Flax's ``ConvTranspose``
+applies its kernel flipped relative to the output patch
+(``out[2i+di, 2j+dj] = x[i, j] @ k[1-di, 1-dj]``, see
+``plumekit/models/fused_forward.py:58-71``), while torch's
+``ConvTranspose2d`` does not, so the spatial axes are flipped on the way.
+BatchNorm ``scale/bias/mean/var`` become ``weight/bias/running_mean/
+running_var``. Both directions use plain numpy arrays on the flax side: a
+nested dict ``{"params": ..., "batch_stats": ...}``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_NORM_LEAVES = {"BatchNorm_0": {"scale": "weight", "bias": "bias"},
+                "GroupNorm_0": {"scale": "weight", "bias": "bias"}}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _tensor(a):
+    """A float32 tensor owning a copy of ``a``."""
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _conv_in(k):
+    return _tensor(np.asarray(k, np.float32).transpose(3, 2, 0, 1))
+
+
+def _conv_out(w):
+    return w.detach().cpu().numpy().transpose(2, 3, 1, 0).copy()
+
+
+def _block_index(name: str) -> int:
+    return int(name.rsplit("_", 1)[1])
+
+
+def from_flax(variables) -> dict:
+    """flax ``UNet`` variables (nested dict of arrays) → port state_dict."""
+    sd = {}
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    for name, sub in params.items():
+        if name.startswith("DoubleConv_"):
+            pre = f"blocks.{_block_index(name)}"
+            for j in (0, 1):
+                conv = sub[f"Conv_{j}"]
+                sd[f"{pre}.conv.{j}.weight"] = _conv_in(conv["kernel"])
+                if "bias" in conv:
+                    sd[f"{pre}.conv.{j}.bias"] = _tensor(conv["bias"])
+                for norm, leaves in sub.get(f"_Norm_{j}", {}).items():
+                    for src, dst in _NORM_LEAVES[norm].items():
+                        sd[f"{pre}.norm.{j}.{dst}"] = _tensor(leaves[src])
+                bn = stats.get(name, {}).get(f"_Norm_{j}", {}).get(
+                    "BatchNorm_0")
+                if bn is not None:
+                    for src, dst in _STAT_LEAVES.items():
+                        sd[f"{pre}.norm.{j}.{dst}"] = _tensor(bn[src])
+                    sd[f"{pre}.norm.{j}.num_batches_tracked"] = torch.tensor(0)
+        elif name.startswith("ConvTranspose_"):
+            k = np.asarray(sub["kernel"], np.float32)[::-1, ::-1]
+            sd[f"ups.{_block_index(name)}.weight"] = _tensor(
+                k.transpose(2, 3, 0, 1))
+            sd[f"ups.{_block_index(name)}.bias"] = _tensor(sub["bias"])
+        elif name == "head":
+            sd["head.weight"] = _conv_in(sub["kernel"])
+            sd["head.bias"] = _tensor(sub["bias"])
+        else:
+            raise ValueError(f"unexpected flax parameter group {name!r}")
+    return sd
+
+
+def to_flax(state_dict: dict, norm: str = "batch") -> dict:
+    """Inverse of :func:`from_flax`: port state_dict → flax variables."""
+    params: dict = {}
+    stats: dict = {}
+    norm_name = {"batch": "BatchNorm_0", "group": "GroupNorm_0"}.get(norm)
+    for key, value in state_dict.items():
+        parts = key.split(".")
+        if parts[0] == "blocks":
+            block = params.setdefault(f"DoubleConv_{parts[1]}", {})
+            j, leaf = parts[3], parts[4]
+            if parts[2] == "conv":
+                conv = block.setdefault(f"Conv_{j}", {})
+                conv["kernel" if leaf == "weight" else "bias"] = (
+                    _conv_out(value) if leaf == "weight"
+                    else value.detach().cpu().numpy().copy())
+            elif leaf in ("weight", "bias"):
+                block.setdefault(f"_Norm_{j}", {}).setdefault(
+                    norm_name, {})["scale" if leaf == "weight" else "bias"] = \
+                    value.detach().cpu().numpy().copy()
+            elif leaf in ("running_mean", "running_var"):
+                stats.setdefault(f"DoubleConv_{parts[1]}", {}).setdefault(
+                    f"_Norm_{j}", {}).setdefault("BatchNorm_0", {})[
+                    "mean" if leaf == "running_mean" else "var"] = \
+                    value.detach().cpu().numpy().copy()
+        elif parts[0] == "ups":
+            v = value.detach().cpu().numpy()
+            ct = params.setdefault(f"ConvTranspose_{parts[1]}", {})
+            if parts[2] == "weight":
+                ct["kernel"] = v.transpose(2, 3, 0, 1)[::-1, ::-1].copy()
+            else:
+                ct["bias"] = v.copy()
+        elif parts[0] == "head":
+            params.setdefault("head", {})[
+                "kernel" if parts[1] == "weight" else "bias"] = (
+                _conv_out(value) if parts[1] == "weight"
+                else value.detach().cpu().numpy().copy())
+    variables = {"params": params}
+    if stats:
+        variables["batch_stats"] = stats
+    return variables
