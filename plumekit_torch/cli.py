@@ -1,11 +1,19 @@
-"""Command-line entry point of the port: ``predict_model``.
+"""Command-line entry points of the port: ``build_features`` and
+``predict_model``.
 
-Usage: ``plumekit-torch predict_model --root R [--fused]`` or
-``python -m plumekit_torch.cli predict_model ...``. It reads the granules
-under ``<root>/raw/plume_identification/maiac`` and writes
-``<root>/processed/predictions/<name>_pred.npz`` (``probs``, ``mask``,
-``threshold``) as ``plumekit predict_model`` does. The device is the card
-unless ``--device`` says otherwise.
+Usage: ``plumekit-torch <command> --root R ...`` or
+``python -m plumekit_torch.cli <command> ...``. Both read the granules
+under ``<root>/raw/plume_identification/maiac``:
+
+* ``build_features --detector rg`` writes ``<base>_aod.csv`` and
+  ``<base>_extent.csv`` under ``raw/plume_identification/dataframes/full``
+  and ``<base>_masks.npz`` under ``interim/plume_masks``, resuming through
+  ``raw/plume_identification/logs/rg_log.txt``, as ``plumekit
+  build_features`` does;
+* ``predict_model`` writes ``<root>/processed/predictions/<name>_pred.npz``
+  (``probs``, ``mask``, ``threshold``) as ``plumekit predict_model`` does.
+
+The device is the card unless ``--device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -203,6 +211,92 @@ def cmd_predict_model(args) -> int:
     return 0
 
 
+#: build_features options of the JAX CLI that this port does not run yet,
+#: with the ROADMAP.md item (queue A) that ports each
+UNPORTED_DETECTORS = {"gaussian": "11. The other detectors",
+                      "basic": "11. The other detectors"}
+
+
+def cmd_build_features(args) -> int:
+    """Identify plumes in every granule with the rg detector → per-granule
+    ``_aod.csv``, ``_extent.csv`` and ``_masks.npz``, resumable through the
+    work log (the reference's ``plume_identifier_rg.main()`` loop)."""
+    from plumekit_torch.config.identify import RGIdentifyConfig
+    from plumekit_torch.identify import rg as rg_mod
+    from plumekit_torch.io.dates import granule_date
+    from plumekit_torch.io.fires import load_fire_csv, n_fires
+    from plumekit_torch.io.granule import GRANULE_EXTENSIONS, load_granule
+    from plumekit_torch.train.checkpoint import WorkLog
+
+    if args.detector in UNPORTED_DETECTORS:
+        logger.error("--detector %s is not ported to plumekit_torch yet "
+                     "(ROADMAP.md, queue A: '%s')", args.detector,
+                     UNPORTED_DETECTORS[args.detector])
+        return 1
+    if args.batch_scenes < 1:
+        logger.error("--batch-scenes must be >= 1, got %d", args.batch_scenes)
+        return 1
+    if args.batch_scenes > 1:
+        logger.error("--batch-scenes > 1 is not ported to plumekit_torch yet "
+                     "(ROADMAP.md, queue A: '12. Multi-scene identify')")
+        return 1
+    if args.plot:
+        logger.error("--plot is not ported to plumekit_torch yet (ROADMAP.md,"
+                     " queue A: '20. Prediction quicklooks')")
+        return 1
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        logger.error("%s", e)
+        return 1
+
+    paths = PathsConfig(root=args.root)
+    maiac_dir = paths.ensure("maiac_dir")
+    log = WorkLog(os.path.join(paths.ensure("log_dir"),
+                               f"{args.detector}_log.txt"))
+    fire_csv = os.path.join(paths.resolve("fires_dir"), "fires.csv")
+    if not os.path.exists(fire_csv):
+        logger.error("no fire table at %s — place a VIIRS fire CSV there",
+                     fire_csv)
+        return 1
+    fires = load_fire_csv(fire_csv)
+    default_date = fires["date_time"][0] if n_fires(fires) else None
+    aod_dir = paths.ensure("aod_df_dir")
+    hull_dir = paths.ensure("hull_df_dir")
+
+    done = log.items()
+    n_done = 0
+    for fname in sorted(os.listdir(maiac_dir)):
+        if not fname.endswith(GRANULE_EXTENSIONS):
+            continue
+        if fname in done:
+            logger.info("%s already processed, continuing...", fname)
+            continue
+        granule = load_granule(os.path.join(maiac_dir, fname))
+        # MAIAC names carry the acquisition date; synthetic granules fall
+        # back to the fire table's first date
+        date = granule_date(fname, default=default_date)
+        aod_table, hull_table, out = rg_mod.identify(
+            granule.first_layer(), granule.lat, granule.lon, date, fires,
+            RGIdentifyConfig(), device=device)
+        base = os.path.splitext(fname)[0]
+        aod_table.to_csv(os.path.join(aod_dir, base + "_aod.csv"))
+        if not args.no_masks:
+            masks = rg_mod.plume_masks(out)
+            if masks:
+                np.savez_compressed(
+                    os.path.join(paths.ensure("plume_mask_dir"),
+                                 base + "_masks.npz"),
+                    **{str(pid): m for pid, m in masks.items()})
+        # the hull CSV last: the log and the CSV mark a granule as done
+        hull_table.to_csv(os.path.join(hull_dir, base + "_extent.csv"))
+        log.mark(fname)
+        n_done += 1
+        logger.info("%s: %d plumes", base, len(set(hull_table.column("id"))))
+    logger.info("processed %d granules", n_done)
+    return 0
+
+
 def _add_serving_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),
                    help="workspace root")
@@ -253,6 +347,25 @@ def build_parser() -> argparse.ArgumentParser:
     pr = sub.add_parser("predict_model", help="sliding-window inference")
     _add_serving_args(pr)
     pr.set_defaults(fn=cmd_predict_model)
+
+    bf = sub.add_parser("build_features",
+                        help="rg weak labeller over every granule → CSVs "
+                             "and plume masks")
+    bf.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),
+                    help="workspace root")
+    bf.add_argument("--detector", choices=["rg", "gaussian", "basic"],
+                    default="rg",
+                    help="detector (only rg is ported; the others exit 1)")
+    bf.add_argument("--device", default="cuda",
+                    help="torch device of the sweep (default: cuda; the CPU "
+                         "runs the kernels' plain versions)")
+    bf.add_argument("--no-masks", action="store_true",
+                    help="skip the per-plume mask npz (hull CSVs only)")
+    bf.add_argument("--batch-scenes", type=int, default=1,
+                    help="scenes per sweep (only 1 is ported; more exits 1)")
+    bf.add_argument("--plot", action="store_true",
+                    help="annotated scene PNGs (not ported yet: exits 1)")
+    bf.set_defaults(fn=cmd_build_features)
     return p
 
 

@@ -4,7 +4,8 @@ Each ``.cu`` file there is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, loaded with :mod:`ctypes`. The
 library lands in ``build/plumekit_torch/`` beside the package, named by a
 hash of its source, so an edited source rebuilds and an unchanged one loads
-at once. Nothing here runs when the package is imported.
+at once. :func:`load_libraries` compiles several sources side by side.
+Nothing here runs when the package is imported.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "plumekit_torch"
@@ -38,25 +40,45 @@ def _nvcc() -> str:
                        "build only where the CUDA toolkit is installed")
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` (if its hash has no library yet) and load it."""
-    if source in _LOADED:
-        return _LOADED[source]
+def _lib_path(source: str) -> Path:
     src = CSRC_DIR / source
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"{src.stem}-{digest}.so"
-    if not lib_path.exists():
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def load_libraries(sources: Iterable[str]) -> Dict[str, ctypes.CDLL]:
+    """Compile each ``csrc/<source>`` whose hash has no library yet, one
+    ``nvcc`` per source, all started together, then load every library."""
+    sources = list(sources)
+    builds = []
+    for source in sources:
+        lib_path = _lib_path(source)
+        if source in _LOADED or lib_path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        builds.append((source, proc, tmp, lib_path, time.perf_counter()))
+    failed = []
+    for source, proc, tmp, lib_path, t0 in builds:
+        _out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+            failed.append(f"nvcc failed on {CSRC_DIR / source}:\n{err}")
+            continue
         os.replace(tmp, lib_path)
         BUILD_LOG[source] = {"seconds": time.perf_counter() - t0,
-                             "ptxas": proc.stderr}
-    lib = ctypes.CDLL(str(lib_path))
-    _LOADED[source] = lib
-    return lib
+                             "ptxas": err}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for source in sources:
+        if source not in _LOADED:
+            _LOADED[source] = ctypes.CDLL(str(_lib_path(source)))
+    return {source: _LOADED[source] for source in sources}
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` (if its hash has no library yet) and load it."""
+    return load_libraries([source])[source]

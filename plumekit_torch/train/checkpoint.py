@@ -73,3 +73,29 @@ def load_weights(ckpt_dir: str, model: torch.nn.Module) -> bool:
     state = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(state)
     return True
+
+
+class WorkLog:
+    """Processed-item log with the reference's resume semantics
+    (``plume_identifier_rg.py:557-568``), as ``plumekit.train.checkpoint.
+    WorkLog``: one item per line, membership by exact line."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def done(self, item: str) -> bool:
+        return item in self.items()
+
+    def items(self) -> set:
+        try:
+            with open(self.path) as f:
+                return set(f.read().splitlines())
+        except OSError:
+            return set()
+
+    def mark(self, item: str) -> None:
+        with open(self.path, "a") as f:
+            f.write(item + "\n")
+            f.flush()
+            os.fsync(f.fileno())

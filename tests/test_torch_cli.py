@@ -29,6 +29,17 @@ SERVE = ["--tile", "32", "--overlap", "8", "--batch-tiles", "4"]
 PROB_TOL = 1e-4   # fp32 forwards and stitching, sums in another order
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Plain PyTorch on these small planes gains nothing from torch's
+    thread pool, and under parallel test workers sharing the host's cores
+    the pool's waiting threads slow every op many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _granule(seed, name, size=64):
     rng = np.random.default_rng(seed)
     aod = rng.random((size, size)).astype(np.float32)
@@ -163,3 +174,147 @@ def test_missing_cuda_is_an_error_not_a_fallback(tmp_path, caplog):
     with caplog.at_level(logging.ERROR):
         assert cli.main(["predict_model", "--root", str(tmp_path)]) == 1
     assert "CUDA is not available" in caplog.text
+
+
+# ---------------------------------------------------------------- build_features
+
+def _identify_root(tmp_path, name="root"):
+    """A 256² synthetic root as ``plumekit make_dataset`` lays it out: two
+    granules with plumes, null holes and plume-less fires, one fire CSV."""
+    from plumekit_torch.io.synthetic import (SyntheticSceneConfig,
+                                             make_scene, write_fire_csv)
+
+    root = str(tmp_path / name)
+    maiac = os.path.join(root, "raw", "plume_identification", "maiac")
+    fires_dir = os.path.join(root, "raw", "fires")
+    os.makedirs(maiac)
+    os.makedirs(fires_dir)
+    tables = []
+    for seed in (22, 25):
+        scene = make_scene(SyntheticSceneConfig(
+            size=256, n_plumes=3, seed=seed, background_level=0.2,
+            background_noise=0.05, plume_amplitude=(0.6, 0.8),
+            plume_sigma_major=(9.0, 14.0), plume_sigma_minor=(1.8, 2.6),
+            extra_fires=2, null_blobs=1))
+        torch_granule.save_granule(
+            os.path.join(maiac, scene.granule.name + ".npz"), scene.granule)
+        tables.append(scene.fires)
+    write_fire_csv(os.path.join(fires_dir, "fires.csv"),
+                   {k: np.concatenate([t[k] for t in tables])
+                    for k in tables[0]})
+    return root
+
+
+def _feature_outputs(root):
+    """{relative path: parsed content} of every build_features output."""
+    import pandas as pd
+
+    out = {}
+    full = os.path.join(root, "raw", "plume_identification", "dataframes",
+                        "full")
+    for sub in ("aod", "hull"):
+        for f in sorted(os.listdir(os.path.join(full, sub))):
+            out[f"{sub}/{f}"] = pd.read_csv(os.path.join(full, sub, f))
+    masks = os.path.join(root, "interim", "plume_masks")
+    for f in sorted(os.listdir(masks)) if os.path.isdir(masks) else []:
+        with np.load(os.path.join(masks, f)) as d:
+            out[f"masks/{f}"] = {k: d[k] for k in d.files}
+    return out
+
+
+def test_build_features_rg_matches_jax_cli(tmp_path):
+    """``build_features --detector rg --device cpu`` writes the JAX CLI's
+    CSVs (compared by value: integers exact, AOD mean/sd rtol 1e-5, as
+    the sweep's float32 sums run in another order) and the same masks."""
+    import shutil
+
+    root = _identify_root(tmp_path)
+    jax_root = str(tmp_path / "jax_root")
+    shutil.copytree(root, jax_root)
+    assert jax_main(["build_features", "--root", jax_root, "--detector",
+                     "rg"]) == 0
+    assert cli.main(["build_features", "--root", root, "--detector", "rg",
+                     "--device", "cpu"]) == 0
+    want, got = _feature_outputs(jax_root), _feature_outputs(root)
+    assert sorted(got) == sorted(want)
+    assert any(k.startswith("masks/") for k in got), "no plume accepted"
+    for k, w in want.items():
+        g = got[k]
+        if k.startswith("masks/"):
+            assert sorted(g) == sorted(w)
+            for pid in w:
+                np.testing.assert_array_equal(g[pid], w[pid])
+            continue
+        assert list(g.columns) == list(w.columns) and len(g) == len(w), k
+        for col in w.columns:
+            if col in ("plume_aod_mean", "plume_aod_sd"):
+                np.testing.assert_allclose(g[col], w[col], rtol=1e-5, atol=0)
+            else:
+                np.testing.assert_array_equal(g[col].to_numpy(),
+                                              w[col].to_numpy(), err_msg=k)
+
+
+def test_build_features_resumes_from_its_log(tmp_path, caplog):
+    root = _identify_root(tmp_path)
+    argv = ["build_features", "--root", root, "--device", "cpu",
+            "--no-masks"]
+    assert cli.main(argv) == 0
+    log = os.path.join(root, "raw", "plume_identification", "logs",
+                       "rg_log.txt")
+    with open(log) as f:
+        done = f.read().splitlines()
+    assert done == ["SYNTH.00000022.npz", "SYNTH.00000025.npz"]
+    assert not os.path.exists(os.path.join(root, "interim", "plume_masks"))
+    aod_csv = os.path.join(root, "raw", "plume_identification",
+                           "dataframes", "full", "aod",
+                           "SYNTH.00000022_aod.csv")
+    os.remove(aod_csv)
+    with caplog.at_level(logging.INFO):
+        assert cli.main(argv) == 0
+    assert "already processed" in caplog.text
+    assert not os.path.exists(aod_csv)
+    with open(log) as f:
+        assert f.read().splitlines() == done
+
+
+@pytest.mark.parametrize("flags", [
+    ["--detector", "gaussian"], ["--detector", "basic"],
+    ["--batch-scenes", "2"], ["--plot"]])
+def test_build_features_unported_flag_exits_1(tmp_path, caplog, flags):
+    with caplog.at_level(logging.ERROR):
+        rc = cli.main(["build_features", "--root", str(tmp_path),
+                       "--device", "cpu"] + flags)
+    assert rc == 1
+    assert "not ported" in caplog.text and "ROADMAP.md" in caplog.text
+
+
+def test_build_features_without_cuda_or_fires_exits_1(tmp_path, caplog):
+    with caplog.at_level(logging.ERROR):
+        assert cli.main(["build_features", "--root", str(tmp_path),
+                         "--device", "cpu"]) == 1
+        assert "no fire table" in caplog.text
+        if not torch.cuda.is_available():
+            assert cli.main(["build_features", "--root",
+                             str(tmp_path)]) == 1
+            assert "CUDA is not available" in caplog.text
+
+
+def test_build_features_empty_fire_table_writes_empty_tables(tmp_path):
+    """A fire CSV without rows labels no plume: both CSVs hold only their
+    header and no mask file is written."""
+    root = str(tmp_path / "root")
+    maiac = os.path.join(root, "raw", "plume_identification", "maiac")
+    os.makedirs(maiac)
+    os.makedirs(os.path.join(root, "raw", "fires"))
+    torch_granule.save_granule(os.path.join(maiac, "g0.npz"),
+                               _granule(3, "g0"))
+    with open(os.path.join(root, "raw", "fires", "fires.csv"), "w") as f:
+        f.write("latitude,longitude,frp,acq_date\n")
+    assert cli.main(["build_features", "--root", root, "--device",
+                     "cpu"]) == 0
+    full = os.path.join(root, "raw", "plume_identification", "dataframes",
+                        "full")
+    for sub, name in (("aod", "g0_aod.csv"), ("hull", "g0_extent.csv")):
+        with open(os.path.join(full, sub, name)) as f:
+            assert len(f.read().splitlines()) == 1
+    assert not os.path.exists(os.path.join(root, "interim", "plume_masks"))
