@@ -1,7 +1,7 @@
 """Smoke run of plumekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
-``nvcc`` per source, all at once) and drives the port's two paths:
+``nvcc`` per source, all at once) and drives the port's three paths:
 
 * serving: K6 (fused double conv) against its plain PyTorch version at
   every U-Net block shape, the flagship U-Net (``UNetConfig()``: base 32,
@@ -14,11 +14,26 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   the rg sweep per scene at 1200² and 8192² with the kernels and with the
   plain versions, split by phase; then ``build_features --detector rg``
   over four synthetic 1200² granules, one of which must equal a
-  ``--device cpu`` run.
+  ``--device cpu`` run, and ``--batch-scenes 4`` over the same granules,
+  which must equal the serial run;
+* the basic and gaussian detectors: K2 (mask-stack CCL) against its plain
+  version, bit for bit, on the bench scene's opened stack (where it must
+  also equal K1 on the raw AOD), a ragged stack at both connectivities,
+  independent masks, a fire raster, a serpentine, empty and full levels
+  and basic's mask at 8192²; ``basic.identify`` and
+  ``gaussian.identify_granule`` at 1200² with the kernels and with the
+  plain versions, split by phase; then ``build_features --detector basic``
+  and ``--detector gaussian`` over four 1200² granules each, one of which
+  must equal a ``--device cpu`` run.
 
-Any failed check raises; there is no CPU fallback. The last line of
-standard output is ``{"ok": true, "device": {...}}``; the line before it is
-the kernel table as JSON. Details also go to ``chiprun_out/chip_smoke.json``.
+Every kernel's time stands beside its bound: the bytes it must move (each
+input read once, each output written once) over the card's memory rate,
+or its operations over the card's peak rate for their type, whichever is
+larger, at the data sheet's rates and again at the copy rate measured in
+this run. Any failed check raises; there is no CPU fallback. The last line
+of standard output is ``{"ok": true, "device": {...}}``; the line before it
+is the kernel table as JSON. Details also go to ``chip_smoke.json`` in the
+output directory that :func:`main` makes.
 """
 
 from __future__ import annotations
@@ -53,13 +68,15 @@ from plumekit_torch.models.fused_forward import make_fused_apply  # noqa: E402
 from plumekit_torch.models.kernels import fused_conv  # noqa: E402
 from plumekit_torch.train.checkpoint import (  # noqa: E402
     save_model_config, save_weights)
-from plumekit_torch.config.identify import RGIdentifyConfig  # noqa: E402
+from plumekit_torch.config.identify import (  # noqa: E402
+    BasicIdentifyConfig, GaussianIdentifyConfig, RGIdentifyConfig)
 from plumekit_torch.geo.sinusoidal import (  # noqa: E402
     grid_from_extent, wgs84_to_sinusoidal)
-from plumekit_torch.identify import pipeline, rg  # noqa: E402
+from plumekit_torch.identify import basic, gaussian, pipeline, rg  # noqa: E402
 from plumekit_torch.io.synthetic import (  # noqa: E402
     SyntheticSceneConfig, make_fire_table, make_scene, write_fire_csv)
 from plumekit_torch.ops.kernels import ccl_sweep, label_counts  # noqa: E402
+from plumekit_torch.ops.morphology import binary_opening_cross  # noqa: E402
 
 SEED = 0
 DEV = torch.device("cuda")
@@ -93,6 +110,40 @@ SWATH_FIRES = 64
 # order on the two devices, so rtol 1e-5
 FLOAT_COLUMNS = ("plume_aod_mean", "plume_aod_sd")
 FEATURE_RTOL = 1e-5
+BASIC = BasicIdentifyConfig()         # one mask at AOD >= 0.2, win_half 10
+GAUSS = GaussianIdentifyConfig()      # 3 sets of 25 thresholds, 64 raw fires
+# the basic detector's scenes: the bench scene over a clean background
+# (tests/test_identify_basic_parity.py's statistics), since its one mask at
+# AOD >= 0.2 percolates over the bench scene's background of 0.2
+BASIC_SCENE = dict(BENCH_SCENE, background_level=0.05, background_noise=0.02,
+                   plume_amplitude=(0.5, 0.8), plume_sigma_minor=(2.0, 3.0))
+# the gaussian scenes: the bench scene with two orbit layers, null blobs
+# and 7-9 fires at every plume (over the detector's 20-fire gate)
+GAUSS_SCENE = dict(BENCH_SCENE, n_layers=2, null_blobs=3)
+# the data sheet's rates of an H100 SXM at its 700 W limit: device memory,
+# dense bf16 in the tensor cores, 32-bit arithmetic outside them (taken
+# for K3's integer compares too)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_OPS_PER_S = 989e12
+PEAK_32BIT_OPS_PER_S = 67e12
+
+
+def bound(n_bytes, n_ops=0, ops_per_s=PEAK_32BIT_OPS_PER_S):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``n_bytes`` or to do ``n_ops`` operations, whichever is larger."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def measured_copy_rate():
+    """Bytes per second of a 1 GiB device-to-device copy (read plus
+    write): the memory rate this card reaches in this run."""
+    src = torch.empty(1 << 30, dtype=torch.uint8, device=DEV)
+    dst = torch.empty_like(src)
+    ms = time_ms(lambda: dst.copy_(src))
+    return 2 * src.numel() / (ms / 1e3)
 
 
 def block_shapes(cfg: UNetConfig, tile: int):
@@ -173,8 +224,10 @@ def check_kernel(rng, batch):
                 x, pw1, s1, b1, pw2, s2, b2))
             row["ref_fp32_ms"] = time_ms(
                 lambda: fused_conv.double_conv3x3_bn_relu_ref(*args), reps=3)
-            row["tflops"] = (2 * 9 * b * h * w * (cin * cmid + cmid * cout)
-                             / row["ms"] / 1e9)
+            row["ops"] = 2 * 9 * b * h * w * (cin * cmid + cmid * cout)
+            row["bytes"] = sum(a.numel() * a.element_size() for a in args) \
+                + got.numel() * got.element_size()
+            row["tflops"] = row["ops"] / row["ms"] / 1e9
         rows.append(row)
         print(f"K6 {cin:>3}->{cmid:>3}->{cout:>3} {b:>3}x{h}x{w}: "
               f"max|err| {max_abs:.4g} (err/bound {worst:.3f})"
@@ -485,14 +538,17 @@ def check_ccl(name, aod, thresholds, connectivity=2):
     big = h * w >= 4096**2
     ms = time_ms(lambda: ccl_sweep.multi_threshold_ccl_fused(
         aod, th, connectivity), reps=5 if big else 10)
+    bound_ms, bound_by = bound(4 * (aod.numel() + t_count + got.numel()))
     row = {"scene": name, "h": h, "w": w, "levels": t_count,
            "connectivity": connectivity, "equal": equal,
            "wrong_pixels": wrong, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
            "gpix_levels_per_s": t_count * h * w / ms / 1e6,
            "components": components, "foreground_share": fg}
     print(f"K1 {name} {h}x{w} T={t_count} conn={connectivity}: "
           f"{'equal' if equal else f'{wrong} pixels differ'}; kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.1f} ms; components per level "
+          f"{ms:.3f} ms (bound {bound_ms:.4f} ms by {bound_by}), plain "
+          f"{plain_ms:.1f} ms; components per level "
           f"{components[0]}..{components[-1]}", flush=True)
     if not equal:
         raise AssertionError(f"K1 disagrees with its plain version on {name}")
@@ -516,12 +572,17 @@ def check_counts(name, labels, f_count, rng):
         lambda: label_counts.fire_label_counts_ref(labels, labs))
     err = int((got - ref).abs().max())
     ms = time_ms(lambda: label_counts.fire_label_counts(labels, labs))
+    # one compare per pixel, level and lab; labels and labs in, counts out
+    bound_ms, bound_by = bound(4 * (labels.numel() + 2 * labs.numel()),
+                               labels.numel() * f_count)
     row = {"scene": name, "h": h, "w": w, "levels": t_count, "F": f_count,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
            "gb_per_s": labels.numel() * 4 / ms / 1e6}
     print(f"K3 {name} {h}x{w} T={t_count} F={f_count}: max|err| {err}; "
-          f"kernel {ms:.3f} ms ({row['gb_per_s']:.0f} GB/s), plain "
-          f"{plain_ms:.1f} ms", flush=True)
+          f"kernel {ms:.3f} ms ({row['gb_per_s']:.0f} GB/s; bound "
+          f"{bound_ms:.4f} ms by {bound_by}), plain {plain_ms:.1f} ms",
+          flush=True)
     if err:
         raise AssertionError(f"K3 disagrees with its plain version on {name}"
                              f" at F={f_count}")
@@ -573,14 +634,26 @@ def swath_scene(n):
     return aod.cpu().numpy(), lat, lon, fires["date_time"][0], fires
 
 
-def identify_split(scene, plain):
-    """One rg.identify on the card, timed by phase: host fire prep
-    (subset, clustering, location), K1, K3, the per-fire phase (the rest
-    of the sweep: uploads, window lookups, threshold index, per-fire
-    assessment, masks) and host post-processing (readback, hulls,
-    tables). ``plain`` swaps the plain versions in for K1 and K3."""
-    aod, lat, lon, date, fires = scene
-    clock = dict.fromkeys(("host_prep", "k1", "k3", "host_post"), 0.0)
+class Patched:
+    """Swap module attributes for the length of a ``with`` block."""
+
+    def __init__(self, patches):
+        self.patches = patches
+
+    def __enter__(self):
+        self.saved = {key: getattr(*key) for key in self.patches}
+        for (mod, attr), fn in self.patches.items():
+            setattr(mod, attr, fn)
+
+    def __exit__(self, *exc):
+        for (mod, attr), fn in self.saved.items():
+            setattr(mod, attr, fn)
+
+
+def phase_clock(keys):
+    """(clock, timed): ``timed(key, fn)`` wraps ``fn`` so that each call,
+    synchronised on both sides, adds its seconds to ``clock[key]``."""
+    clock = dict.fromkeys(keys, 0.0)
 
     def timed(key, fn):
         def run(*args, **kwargs):
@@ -591,7 +664,17 @@ def identify_split(scene, plain):
             clock[key] += time.perf_counter() - t0
             return out
         return run
+    return clock, timed
 
+
+def identify_split(scene, plain):
+    """One rg.identify on the card, timed by phase: host fire prep
+    (subset, clustering, location), K1, K3, the per-fire phase (the rest
+    of the sweep: uploads, window lookups, threshold index, per-fire
+    assessment, masks) and host post-processing (readback, hulls,
+    tables). ``plain`` swaps the plain versions in for K1 and K3."""
+    aod, lat, lon, date, fires = scene
+    clock, timed = phase_clock(("host_prep", "k1", "k3", "host_post"))
     patches = {
         (pipeline, "multi_threshold_ccl_fused"): timed("k1", (
             ccl_sweep.multi_threshold_ccl_ref if plain
@@ -603,19 +686,13 @@ def identify_split(scene, plain):
         (rg, "_to_host"): timed("host_post", rg._to_host),
         (rg, "_scene_results"): timed("host_post", rg._scene_results),
     }
-    saved = {key: getattr(*key) for key in patches}
-    try:
-        for (mod, attr), fn in patches.items():
-            setattr(mod, attr, fn)
+    with Patched(patches):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         aod_table, hull_table, out = rg.identify(aod, lat, lon, date, fires,
                                                  RG, device=DEV)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-    finally:
-        for (mod, attr), fn in saved.items():
-            setattr(mod, attr, fn)
     ms = {k: v * 1e3 for k, v in clock.items()}
     ms["per_fire"] = total * 1e3 - sum(ms.values())
     ms["total"] = total * 1e3
@@ -711,21 +788,20 @@ def assert_features_equal(got, want, base):
         raise AssertionError(f"{base}: masks differ between card and CPU")
 
 
-def features_path(tmp):
-    """``build_features --detector rg`` over four synthetic 1200² granules
-    and one fire table on the card: K1 and K3 must launch and plumes must
-    be accepted; the first granule's CSVs and masks must equal a
-    ``--device cpu`` run."""
-    root = os.path.join(tmp, "features")
+def feature_root(tmp, name, scene_kw):
+    """A root of FEATURE_GRANULES synthetic 1200² granules (seeds 0-3,
+    centres 15° of longitude apart, so that each sees only its own fires)
+    and one fire table; and a second root that holds the first granule
+    only, for the ``--device cpu`` run. Returns (root, cpu_root, names)."""
+    root = os.path.join(tmp, name)
     maiac = os.path.join(root, "raw", "plume_identification", "maiac")
     fires_dir = os.path.join(root, "raw", "fires")
     os.makedirs(maiac)
     os.makedirs(fires_dir)
     tables, names = [], []
     for seed in range(FEATURE_GRANULES):
-        # granules 15° of longitude apart, so that each sees its own fires
         scene = make_scene(SyntheticSceneConfig(
-            seed=SEED + seed, center_lon=-60.0 + 15.0 * seed, **BENCH_SCENE))
+            seed=SEED + seed, center_lon=-60.0 + 15.0 * seed, **scene_kw))
         save_granule(os.path.join(maiac, scene.granule.name + ".npz"),
                      scene.granule)
         tables.append(scene.fires)
@@ -733,19 +809,37 @@ def features_path(tmp):
     write_fire_csv(os.path.join(fires_dir, "fires.csv"),
                    {k: np.concatenate([t[k] for t in tables])
                     for k in tables[0]})
-    cpu_root = os.path.join(tmp, "features_cpu")
+    cpu_root = os.path.join(tmp, name + "_cpu")
     shutil.copytree(root, cpu_root, ignore=lambda d, files: [
         f for f in files if f.endswith(".npz") and f != names[0] + ".npz"])
+    return root, cpu_root, names
 
-    ccl_sweep.LAUNCHES = label_counts.LAUNCHES = 0
+
+def build_features(root, *flags):
+    """(seconds, exit code) of one ``build_features`` call."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rc = cli.main(["build_features", "--root", root, "--detector", "rg"])
+    rc = cli.main(["build_features", "--root", root, *flags])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {"k1": ccl_sweep.LAUNCHES, "k3": label_counts.LAUNCHES}
     if rc != 0:
-        raise AssertionError(f"build_features exited {rc}")
+        raise AssertionError(f"build_features {flags} exited {rc}")
+    return secs
+
+
+def features_path(tmp):
+    """``build_features --detector rg`` over four synthetic 1200² granules
+    and one fire table on the card: K1 and K3 must launch and plumes must
+    be accepted; the first granule's CSVs and masks must equal a
+    ``--device cpu`` run; ``--batch-scenes 4`` over the same granules must
+    write what the serial run wrote."""
+    root, cpu_root, names = feature_root(tmp, "features", BENCH_SCENE)
+    batch_root = os.path.join(tmp, "features_batch")
+    shutil.copytree(root, batch_root)
+
+    ccl_sweep.LAUNCHES = label_counts.LAUNCHES = 0
+    secs = build_features(root, "--detector", "rg")
+    launches = {"k1": ccl_sweep.LAUNCHES, "k3": label_counts.LAUNCHES}
     if not (launches["k1"] > 0 and launches["k3"] > 0):
         raise AssertionError(f"build_features did not launch K1 and K3: "
                              f"{launches}")
@@ -754,27 +848,319 @@ def features_path(tmp):
     if not sum(plumes.values()):
         raise AssertionError("build_features accepted no plume")
 
-    t0 = time.perf_counter()
-    rc = cli.main(["build_features", "--root", cpu_root, "--detector", "rg",
-                   "--device", "cpu"])
-    cpu_s = time.perf_counter() - t0
-    if rc != 0:
-        raise AssertionError(f"build_features --device cpu exited {rc}")
+    cpu_s = build_features(cpu_root, "--detector", "rg", "--device", "cpu")
     assert_features_equal(outputs[names[0]], read_features(cpu_root, names[0]),
                           names[0])
+
+    batch_s = build_features(batch_root, "--detector", "rg",
+                             "--batch-scenes", str(FEATURE_GRANULES))
+    for n in names:
+        assert_features_equal(read_features(batch_root, n), outputs[n], n)
     res = {"granules": FEATURE_GRANULES, "granule_px": BENCH_SCENE["size"],
            "seconds": secs, "s_per_granule": secs / FEATURE_GRANULES,
            "launches": launches, "plumes": plumes,
-           "cpu_seconds_one_granule": cpu_s}
+           "cpu_seconds_one_granule": cpu_s, "batch_scenes_seconds": batch_s}
     print(f"build_features {FEATURE_GRANULES}x{BENCH_SCENE['size']}^2 on the "
           f"card: {secs:.2f} s ({secs / FEATURE_GRANULES:.3f} s/granule), "
           f"launches {launches}, plumes {plumes}; {names[0]} equals the "
-          f"--device cpu run ({cpu_s:.2f} s)", flush=True)
+          f"--device cpu run ({cpu_s:.2f} s); --batch-scenes "
+          f"{FEATURE_GRANULES} equals the serial run ({batch_s:.2f} s)",
+          flush=True)
     return res
 
 
+# ----------------------------------------- the basic and gaussian detectors
+
+def check_masks(name, masks, connectivity=2, same_as=None):
+    """K2 vs its plain version (connected_components per level): equal
+    labels; kernel time over repeated launches, plain time of the
+    comparison call. ``same_as``: labels it must also equal."""
+    got = ccl_sweep.multi_threshold_ccl(masks, connectivity, nested=False)
+    torch.cuda.synchronize()
+    ref, plain_ms = timed_once(
+        lambda: ccl_sweep.multi_threshold_ccl_masks_ref(masks, connectivity))
+    equal = torch.equal(got, ref)
+    wrong = 0 if equal else int((got != ref).sum())
+    del ref
+    if same_as is not None and not torch.equal(got, same_as):
+        raise AssertionError(f"K2 on {name} differs from K1 on the raw AOD")
+    t_count, h, w = got.shape
+    ids = torch.arange(1, h * w + 1, dtype=torch.int32, device=DEV)
+    components = [int((got[t].view(-1) == ids).sum()) for t in range(t_count)]
+    fg = [float(masks[t].float().mean()) for t in range(t_count)]
+    ms = time_ms(lambda: ccl_sweep.multi_threshold_ccl(
+        masks, connectivity, nested=False), reps=5 if h * w >= 4096**2 else 10)
+    bound_ms, bound_by = bound(masks.numel() + got.numel() * 4)
+    row = {"scene": name, "h": h, "w": w, "levels": t_count,
+           "connectivity": connectivity, "equal": equal,
+           "wrong_pixels": wrong, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "gpix_levels_per_s": t_count * h * w / ms / 1e6,
+           "components": components, "foreground_share": fg}
+    print(f"K2 {name} {h}x{w} T={t_count} conn={connectivity}: "
+          f"{'equal' if equal else f'{wrong} pixels differ'}; kernel "
+          f"{ms:.3f} ms (bound {bound_ms:.4f} ms by {bound_by}), plain "
+          f"{plain_ms:.1f} ms; components per level {components[0]}.."
+          f"{components[-1]}, foreground {fg[0]:.3f}..{fg[-1]:.3f}",
+          flush=True)
+    if not equal:
+        raise AssertionError(f"K2 disagrees with its plain version on {name}")
+    return row
+
+
+def opened_stack(aod, thresholds):
+    th = torch.from_numpy(np.asarray(thresholds, np.float32)).to(DEV)
+    return binary_opening_cross(aod[None] > th[:, None, None]).contiguous()
+
+
+def check_mask_kernel(rng):
+    """K2 on the opened stack of the bench scene (also equal to K1 on the
+    raw AOD), basic's mask of its own 1200² scene (sparse) and of the
+    bench scene (percolating), a ragged stack at both connectivities,
+    independent random masks, a fire raster, a serpentine, an empty and a
+    full level, and basic's mask at 8192²."""
+    bench = make_scene(SyntheticSceneConfig(seed=SEED, **BENCH_SCENE))
+    aod = torch.from_numpy(bench.granule.first_layer()).to(DEV)
+    k1 = ccl_sweep.multi_threshold_ccl_fused(
+        aod, torch.from_numpy(THRESHOLDS).to(DEV))
+    rows = [check_masks("bench_1200_opened", opened_stack(aod, THRESHOLDS),
+                        same_as=k1)]
+    del k1
+    limit = torch.tensor(BASIC.aod_min_limit, device=DEV)
+    clean = torch.from_numpy(make_scene(SyntheticSceneConfig(
+        seed=SEED, **BASIC_SCENE)).granule.first_layer()).to(DEV)
+    for name, plane in (("basic_scene_1200_mask", clean),
+                        ("bench_1200_basic_mask", aod)):
+        rows.append(check_masks(name, binary_opening_cross(
+            plane >= limit)[None].contiguous()))
+    ragged = opened_stack(device_scene(1201, 997, SEED + 1)[0], THRESHOLDS)
+    for conn in (2, 1):
+        rows.append(check_masks("ragged_opened", ragged, conn))
+    del ragged
+    independent = torch.from_numpy(rng.random((4, 1024, 1024)) < 0.45).to(DEV)
+    rows.append(check_masks("independent_1024", independent))
+    raster = torch.zeros((1, 1200, 1200), dtype=torch.bool, device=DEV)
+    fires = rng.integers(16, 1184, (16, 2))
+    for r, c in fires:                       # 16 clusters of 4 fires
+        for dr, dc in ((0, 0), (0, 1), (1, 1), (2, 2)):
+            raster[0, r + dr, c + dc] = True
+    rows.append(check_masks("fire_raster_1200", raster))
+    rows.append(check_masks("serpentine_1024",
+                            (serpentine(1024, 1024) > 0.5)[None].contiguous()))
+    edge = torch.zeros((2, 1200, 1200), dtype=torch.bool, device=DEV)
+    edge[1] = True
+    rows.append(check_masks("empty_and_full_1200", edge))
+    del edge, independent, raster
+    swath = device_scene(8192, 8192, SEED + 8192)[0]
+    rows.append(check_masks("basic_mask_8192", binary_opening_cross(
+        swath >= limit)[None].contiguous()))
+    del swath
+    torch.cuda.empty_cache()
+    return rows
+
+
+def plain_masks(opened, connectivity=2, nested=True):
+    return ccl_sweep.multi_threshold_ccl_masks_ref(opened, connectivity)
+
+
+def basic_split(scene, plain):
+    """One basic.identify on the card, timed by phase: host fire prep, K2,
+    the rest of the device program (ratio screen, threshold, opening,
+    windows, per-fire compares) and host post-processing. ``plain`` swaps
+    the plain version in for K2."""
+    aod, lat, lon, date, fires = scene
+    clock, timed = phase_clock(("host_prep", "k2", "host_post"))
+    patches = {
+        (basic, "_prep_fires"): timed("host_prep", basic._prep_fires),
+        (basic, "multi_threshold_ccl"): timed("k2", (
+            plain_masks if plain else ccl_sweep.multi_threshold_ccl)),
+        (basic, "_to_host"): timed("host_post", basic._to_host),
+    }
+    with Patched(patches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plumes, image = basic.identify(aod, lat, lon, date, fires, BASIC,
+                                       device=DEV)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    ms = {k: v * 1e3 for k, v in clock.items()}
+    ms["device_rest"] = total * 1e3 - sum(ms.values())
+    ms["total"] = total * 1e3
+    return ms, (plumes, image)
+
+
+def gaussian_split(scene, plain):
+    """One gaussian.identify_granule on the card, timed by phase: host
+    fire location, in-painting, clustering (the raster, K2 and the
+    per-fire centroid sums), K1, K3, the per-fire phase (the rest of the
+    three sweeps per layer) and host post-processing (readback, hulls,
+    tables). ``plain`` swaps the plain versions in for K1, K2 and K3."""
+    granule, fires, date = scene
+    clock, timed = phase_clock(("host_prep", "inpaint", "clustering", "k1",
+                                "k3", "host_post"))
+    patches = {
+        (gaussian, "load_fires"): timed("host_prep", gaussian.load_fires),
+        (gaussian, "nearest_fill"): timed("inpaint", gaussian.nearest_fill),
+        (gaussian, "cluster_fire_centroids"): timed(
+            "clustering", gaussian.cluster_fire_centroids),
+        (pipeline, "multi_threshold_ccl_fused"): timed("k1", (
+            ccl_sweep.multi_threshold_ccl_ref if plain
+            else ccl_sweep.multi_threshold_ccl_fused)),
+        (pipeline, "fire_label_counts"): timed("k3", (
+            label_counts.fire_label_counts_ref if plain
+            else label_counts.fire_label_counts)),
+        (gaussian, "_to_host"): timed("host_post", gaussian._to_host),
+        (gaussian, "build_scene_dataframes"): timed(
+            "host_post", gaussian.build_scene_dataframes),
+    }
+    if plain:
+        # raster_cluster_centroids looks its K2 entry up at call time
+        patches[(ccl_sweep, "multi_threshold_ccl")] = plain_masks
+    with Patched(patches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = gaussian.identify_granule(granule, fires, date, GAUSS,
+                                          device=DEV)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    ms = {k: v * 1e3 for k, v in clock.items()}
+    ms["per_fire"] = total * 1e3 - sum(ms.values())
+    ms["total"] = total * 1e3
+    return ms, table.rows
+
+
+def detector_split():
+    """ms per scene of basic.identify (its 1200² scene) and per
+    granule of gaussian.identify_granule (1200², two layers, null blobs),
+    with the kernels and with the plain versions, in turns; the two must
+    give the same plumes."""
+    bench = make_scene(SyntheticSceneConfig(seed=SEED, **BASIC_SCENE))
+    g = bench.granule
+    aod = g.first_layer().copy()
+    aod[aod < 0] = 0.0                      # as the api hands it to basic
+    gscene = make_scene(SyntheticSceneConfig(seed=SEED, **GAUSS_SCENE))
+    located = gaussian.load_fires(gscene.granule.lat, gscene.granule.lon,
+                                  gscene.fires,
+                                  gscene.fires["date_time"][0], GAUSS)[0]
+    if len(located) < GAUSS.min_fires_per_scene:
+        raise AssertionError(f"gaussian scene has {len(located)} fires")
+    runs = {
+        "basic_1200": (basic_split, (aod, g.lat, g.lon,
+                                     bench.fires["date_time"][0],
+                                     bench.fires)),
+        "gaussian_1200x2": (gaussian_split, (gscene.granule, gscene.fires,
+                                             gscene.fires["date_time"][0])),
+    }
+    res = {}
+    for name, (split, scene) in runs.items():
+        timings = {"kernels": [], "plain": []}
+        results = {}
+        before = ccl_sweep.MASK_LAUNCHES
+        torch.cuda.reset_peak_memory_stats()
+        for plain in (False, True, True, False):
+            ms, result = split(scene, plain)
+            key = "plain" if plain else "kernels"
+            timings[key].append(ms)
+            results.setdefault(key, result)
+            print(f"identify {name} ({key}): "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+                  + " ms", flush=True)
+        k2_launches = ccl_sweep.MASK_LAUNCHES - before
+        if k2_launches <= 0:
+            raise AssertionError(f"{name}: K2 was not launched")
+        if name == "basic_1200":
+            (kd, ki), (pd_, pi) = results["kernels"], results["plain"]
+            same = kd == pd_ and np.array_equal(ki, pi)
+            found = len(kd)
+        else:
+            same = results["kernels"] == results["plain"]
+            found = len({(r[0], r[-1]) for r in results["kernels"]})
+        if not same:
+            raise AssertionError(f"{name}: kernels and plain versions give "
+                                 "different plumes")
+        if not found:
+            raise AssertionError(f"{name}: no plume found")
+        res[name] = {"runs": timings, "plumes": found,
+                     "k2_launches": k2_launches,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if name != "basic_1200":
+            res[name]["located_fires"] = int(len(located))
+        print(f"identify {name}: {found} plumes, K2 launches {k2_launches}, "
+              f"peak {res[name]['peak_gb']:.2f} GB", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def read_extent(root, base):
+    """The ``<base>_extent.csv`` of a basic or gaussian run: header and
+    rows of strings."""
+    from plumekit_torch.config import PathsConfig
+
+    path = os.path.join(PathsConfig(root=root).resolve("hull_df_dir"),
+                        base + "_extent.csv")
+    with open(path) as f:
+        return list(csv.reader(f))
+
+
+def assert_extent_equal(got, want, base):
+    """Card and CPU extent CSVs: ids, pixel coordinates, bounding boxes and
+    the datetime exact; hull latitudes and longitudes are read from the
+    same grid, rtol 1e-5."""
+    if got[0] != want[0] or len(got) != len(want):
+        raise AssertionError(f"{base}: header or row count differ "
+                             f"({len(got)} vs {len(want)} rows)")
+    for j, col in enumerate(want[0]):
+        g, w = [r[j] for r in got[1:]], [r[j] for r in want[1:]]
+        if col == "datetime":
+            ok = g == w
+        elif col in ("hull_lats", "hull_lons"):
+            ok = np.allclose(np.asarray(g, float), np.asarray(w, float),
+                             rtol=FEATURE_RTOL, atol=0.0)
+        else:
+            ok = np.array_equal(np.asarray(g, float), np.asarray(w, float))
+        if not ok:
+            raise AssertionError(f"{base} {col}: card {g} vs CPU {w}")
+
+
+def detector_features_path(tmp, detector, scene_kw):
+    """``build_features --detector basic|gaussian`` over four synthetic
+    1200² granules on the card: the detector's kernels must launch and
+    plumes must be found; the first granule's CSV must equal a
+    ``--device cpu`` run."""
+    root, cpu_root, names = feature_root(tmp, detector, scene_kw)
+    ccl_sweep.LAUNCHES = ccl_sweep.MASK_LAUNCHES = label_counts.LAUNCHES = 0
+    secs = build_features(root, "--detector", detector)
+    launches = {"k1": ccl_sweep.LAUNCHES, "k2": ccl_sweep.MASK_LAUNCHES,
+                "k3": label_counts.LAUNCHES}
+    needed = ("k2",) if detector == "basic" else ("k1", "k2", "k3")
+    if not all(launches[k] > 0 for k in needed):
+        raise AssertionError(f"build_features --detector {detector} did not "
+                             f"launch {needed}: {launches}")
+    outputs = {n: read_extent(root, n) for n in names}
+    id_cols = 1 if detector == "basic" else 2      # id, or id and datetime
+    plumes = {n: len({(r[0], r[-1])[:id_cols] for r in o[1:]})
+              for n, o in outputs.items()}
+    if not sum(plumes.values()):
+        raise AssertionError(f"build_features --detector {detector} found "
+                             "no plume")
+    cpu_s = build_features(cpu_root, "--detector", detector, "--device",
+                           "cpu")
+    assert_extent_equal(outputs[names[0]], read_extent(cpu_root, names[0]),
+                        names[0])
+    res = {"granules": FEATURE_GRANULES, "granule_px": scene_kw["size"],
+           "seconds": secs, "s_per_granule": secs / FEATURE_GRANULES,
+           "launches": launches, "plumes": plumes,
+           "cpu_seconds_one_granule": cpu_s}
+    print(f"build_features --detector {detector} {FEATURE_GRANULES}x"
+          f"{scene_kw['size']}^2 on the card: {secs:.2f} s "
+          f"({secs / FEATURE_GRANULES:.3f} s/granule), launches {launches}, "
+          f"plumes {plumes}; {names[0]} equals the --device cpu run "
+          f"({cpu_s:.2f} s)", flush=True)
+    return res
+
 
 def main() -> int:
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True
@@ -815,10 +1201,39 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
         features = features_path(tmp)
 
+    # the basic and gaussian detectors: K2
+    mask_rows = check_mask_kernel(rng)
+    detectors = detector_split()
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        basic_features = detector_features_path(tmp, "basic", BASIC_SCENE)
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        gaussian_features = detector_features_path(tmp, "gaussian",
+                                                   GAUSS_SCENE)
+
     timed = [r for r in kernel_rows if "ms" in r]
+    # each block has its own bound; the forward's is their sum, named by
+    # whichever kind bounds the larger share of it
+    k6_bound = [bound(r["bytes"], r["ops"], PEAK_BF16_OPS_PER_S)
+                for r in timed]
+    k6_share = {kind: sum(b for b, by in k6_bound if by == kind)
+                for kind in ("bytes", "operations")}
     bench_ccl = next(r for r in ccl_rows if r["scene"] == "bench_1200")
+    swath_ccl = next(r for r in ccl_rows if r["scene"] == "synthetic_8192")
     bench_counts = next(r for r in count_rows
                         if r["scene"] == "bench_1200" and r["F"] == 16)
+    basic_mask = next(r for r in mask_rows
+                      if r["scene"] == "basic_scene_1200_mask")
+
+    def ccl_entry(name, replaces, row, launches, errors, **extra):
+        return {"name": name, "route": "cuda",
+                "source": "plumekit_torch/csrc/ccl_sweep.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["wrong_pixels"] for r in errors),
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": None,
+                "at": f"{row['h']}x{row['w']}, T={row['levels']}", **extra}
+
     kernels = [{
         "name": "fused_double_conv3x3_bn_relu", "route": "cuda",
         "source": "plumekit_torch/csrc/fused_double_conv.cu",
@@ -826,23 +1241,45 @@ def main() -> int:
         "launches": served["k6_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": sum(r["ms"] for r in timed),
-        "plain_ms": sum(r["plain_ms"] for r in timed)}, {
-        "name": "multi_threshold_ccl_fused", "route": "cuda",
-        "source": "plumekit_torch/csrc/ccl_sweep.cu",
-        "replaces": "plumekit/ops/pallas/ccl_sweep.py:544",
-        "also_replaces": "plumekit/ops/pallas/ccl_banded.py:321 "
-                         "(multi_threshold_ccl_banded, K4: the same kernel)",
-        "launches": features["launches"]["k1"],
-        "max_abs_err": max(r["wrong_pixels"] for r in ccl_rows),
-        "ms": bench_ccl["ms"], "plain_ms": bench_ccl["plain_ms"],
-        "at": "1200x1200, T=20"}, {
+        # the fp32-accumulated version the kernel is held against
+        "plain_ms": sum(r["ref_fp32_ms"] for r in timed),
+        "bound_ms": sum(b for b, _ in k6_bound),
+        "bound_by": max(k6_share, key=k6_share.get),
+        # two cuDNN bf16 convolutions with scale, shift and ReLU per block
+        "library_ms": sum(r["plain_ms"] for r in timed),
+        "at": f"the 9 blocks of one forward, batch {batch}"},
+        ccl_entry("multi_threshold_ccl_fused",
+                  "plumekit/ops/pallas/ccl_sweep.py:544", bench_ccl,
+                  features["launches"]["k1"]
+                  + gaussian_features["launches"]["k1"], ccl_rows),
+        ccl_entry("multi_threshold_ccl",
+                  "plumekit/ops/pallas/ccl_sweep.py:468", basic_mask,
+                  basic_features["launches"]["k2"]
+                  + gaussian_features["launches"]["k2"], mask_rows), {
         "name": "fire_label_counts", "route": "cuda",
         "source": "plumekit_torch/csrc/label_counts.cu",
         "replaces": "plumekit/ops/pallas/label_counts.py:83",
-        "launches": features["launches"]["k3"],
+        "launches": features["launches"]["k3"]
+        + gaussian_features["launches"]["k3"],
         "max_abs_err": max(r["max_abs_err"] for r in count_rows),
         "ms": bench_counts["ms"], "plain_ms": bench_counts["plain_ms"],
-        "at": "1200x1200, T=20, F=16"}]
+        "bound_ms": bench_counts["bound_ms"],
+        "bound_by": bench_counts["bound_by"], "library_ms": None,
+        "at": "1200x1200, T=20, F=16"},
+        # K4 is K1's kernel under its other entry name: the same launch
+        # count, timed where the TPU needs the banded kernel
+        ccl_entry("multi_threshold_ccl_banded",
+                  "plumekit/ops/pallas/ccl_banded.py:321", swath_ccl,
+                  features["launches"]["k1"]
+                  + gaussian_features["launches"]["k1"], ccl_rows,
+                  same_kernel_as="multi_threshold_ccl_fused")]
+    copy_rate = measured_copy_rate()
+    for k in kernels:
+        k["bound_at_copy_rate_ms"] = k["bound_ms"] * (
+            PEAK_BYTES_PER_S / copy_rate if k["bound_by"] == "bytes" else 1.0)
+    print(f"device-to-device copy rate {copy_rate / 1e9:.1f} GB/s "
+          f"({100 * copy_rate / PEAK_BYTES_PER_S:.1f}% of the data sheet's "
+          f"{PEAK_BYTES_PER_S / 1e9:.0f} GB/s)")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "torch": torch.__version__,
@@ -852,8 +1289,15 @@ def main() -> int:
                    "kernel_rows": kernel_rows, "forward": forward,
                    "serving": served, "ccl_rows": ccl_rows,
                    "count_rows": count_rows, "identify": sweeps,
-                   "build_features": features, "kernels": kernels},
+                   "build_features": features, "mask_rows": mask_rows,
+                   "detectors": detectors,
+                   "build_features_basic": basic_features,
+                   "build_features_gaussian": gaussian_features,
+                   "copy_rate_gb_per_s": copy_rate / 1e9,
+                   "seconds": time.perf_counter() - t_start,
+                   "kernels": kernels},
                   f, indent=1)
+    print(f"chip_smoke took {time.perf_counter() - t_start:.0f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,22 @@
-"""Command-line entry points of the port: ``build_features`` and
-``predict_model``.
+"""Command-line entry points of the port: ``build_features``,
+``identify`` and ``predict_model``.
 
 Usage: ``plumekit-torch <command> --root R ...`` or
-``python -m plumekit_torch.cli <command> ...``. Both read the granules
-under ``<root>/raw/plume_identification/maiac``:
+``python -m plumekit_torch.cli <command> ...``. ``build_features`` and
+``predict_model`` read the granules under
+``<root>/raw/plume_identification/maiac``:
 
 * ``build_features --detector rg`` writes ``<base>_aod.csv`` and
   ``<base>_extent.csv`` under ``raw/plume_identification/dataframes/full``
   and ``<base>_masks.npz`` under ``interim/plume_masks``, resuming through
   ``raw/plume_identification/logs/rg_log.txt``, as ``plumekit
-  build_features`` does;
+  build_features`` does; ``--batch-scenes G`` identifies groups of G
+  same-shape granules. ``--detector basic`` writes one bounding-box row
+  per plume and ``--detector gaussian`` the hull vertices of every orbit
+  layer with a ``datetime`` column, both to ``<base>_extent.csv``, each
+  with a work log of its own;
+* ``identify GRANULE FIRES --detector D`` prints one granule's
+  plume count and, with ``--out``, writes its hull table;
 * ``predict_model`` writes ``<root>/processed/predictions/<name>_pred.npz``
   (``probs``, ``mask``, ``threshold``) as ``plumekit predict_model`` does.
 
@@ -211,34 +218,26 @@ def cmd_predict_model(args) -> int:
     return 0
 
 
-#: build_features options of the JAX CLI that this port does not run yet,
-#: with the ROADMAP.md item (queue A) that ports each
-UNPORTED_DETECTORS = {"gaussian": "11. The other detectors",
-                      "basic": "11. The other detectors"}
-
-
 def cmd_build_features(args) -> int:
-    """Identify plumes in every granule with the rg detector → per-granule
-    ``_aod.csv``, ``_extent.csv`` and ``_masks.npz``, resumable through the
-    work log (the reference's ``plume_identifier_rg.main()`` loop)."""
-    from plumekit_torch.config.identify import RGIdentifyConfig
+    """Identify plumes in every granule with the chosen detector, one CSV
+    set per granule, resumable through the detector's work log (the
+    reference's ``plume_identifier_rg.main()`` loop)."""
+    from plumekit_torch.config.identify import (BasicIdentifyConfig,
+                                                GaussianIdentifyConfig,
+                                                RGIdentifyConfig)
+    from plumekit_torch.identify import gaussian as gaussian_mod
     from plumekit_torch.identify import rg as rg_mod
+    from plumekit_torch.identify.api import identify as api_identify
     from plumekit_torch.io.dates import granule_date
     from plumekit_torch.io.fires import load_fire_csv, n_fires
     from plumekit_torch.io.granule import GRANULE_EXTENSIONS, load_granule
     from plumekit_torch.train.checkpoint import WorkLog
 
-    if args.detector in UNPORTED_DETECTORS:
-        logger.error("--detector %s is not ported to plumekit_torch yet "
-                     "(ROADMAP.md, queue A: '%s')", args.detector,
-                     UNPORTED_DETECTORS[args.detector])
-        return 1
     if args.batch_scenes < 1:
         logger.error("--batch-scenes must be >= 1, got %d", args.batch_scenes)
         return 1
-    if args.batch_scenes > 1:
-        logger.error("--batch-scenes > 1 is not ported to plumekit_torch yet "
-                     "(ROADMAP.md, queue A: '12. Multi-scene identify')")
+    if args.batch_scenes > 1 and args.detector != "rg":
+        logger.error("--batch-scenes applies to the rg detector only")
         return 1
     if args.plot:
         logger.error("--plot is not ported to plumekit_torch yet (ROADMAP.md,"
@@ -265,20 +264,33 @@ def cmd_build_features(args) -> int:
     hull_dir = paths.ensure("hull_df_dir")
 
     done = log.items()
-    n_done = 0
+    todo = []
     for fname in sorted(os.listdir(maiac_dir)):
         if not fname.endswith(GRANULE_EXTENSIONS):
             continue
         if fname in done:
             logger.info("%s already processed, continuing...", fname)
             continue
-        granule = load_granule(os.path.join(maiac_dir, fname))
+        todo.append(fname)
+
+    def decode(fname):
         # MAIAC names carry the acquisition date; synthetic granules fall
         # back to the fire table's first date
-        date = granule_date(fname, default=default_date)
-        aod_table, hull_table, out = rg_mod.identify(
-            granule.first_layer(), granule.lat, granule.lon, date, fires,
-            RGIdentifyConfig(), device=device)
+        return (load_granule(os.path.join(maiac_dir, fname)),
+                granule_date(fname, default=default_date))
+
+    n_done = 0
+
+    def finish(fname, hull_table):
+        # the hull CSV last: the log and the CSV mark a granule as done
+        nonlocal n_done
+        base = os.path.splitext(fname)[0]
+        hull_table.to_csv(os.path.join(hull_dir, base + "_extent.csv"))
+        log.mark(fname)
+        n_done += 1
+        logger.info("%s: %d plumes", base, len(set(hull_table.column("id"))))
+
+    def write_rg(fname, aod_table, hull_table, out):
         base = os.path.splitext(fname)[0]
         aod_table.to_csv(os.path.join(aod_dir, base + "_aod.csv"))
         if not args.no_masks:
@@ -288,12 +300,82 @@ def cmd_build_features(args) -> int:
                     os.path.join(paths.ensure("plume_mask_dir"),
                                  base + "_masks.npz"),
                     **{str(pid): m for pid, m in masks.items()})
-        # the hull CSV last: the log and the CSV mark a granule as done
-        hull_table.to_csv(os.path.join(hull_dir, base + "_extent.csv"))
-        log.mark(fname)
-        n_done += 1
-        logger.info("%s: %d plumes", base, len(set(hull_table.column("id"))))
+        finish(fname, hull_table)
+
+    if args.batch_scenes > 1:
+        # groups of same-shape scenes; a change of shape flushes the group
+        buf = []
+
+        def flush():
+            if not buf:
+                return
+            results = rg_mod.identify_batch(
+                [(g.first_layer(), g.lat, g.lon, d) for _, g, d in buf],
+                fires, RGIdentifyConfig(), device=device)
+            for (fname, _g, _d), result in zip(buf, results):
+                write_rg(fname, *result)
+            buf.clear()
+
+        for fname in todo:
+            granule, date = decode(fname)
+            if buf and granule.shape != buf[0][1].shape:
+                flush()
+            buf.append((fname, granule, date))
+            if len(buf) == args.batch_scenes:
+                flush()
+        flush()
+        logger.info("processed %d granules", n_done)
+        return 0
+
+    for fname in todo:
+        granule, date = decode(fname)
+        if args.detector == "rg":
+            write_rg(fname, *rg_mod.identify(
+                granule.first_layer(), granule.lat, granule.lon, date, fires,
+                RGIdentifyConfig(), device=device))
+        elif args.detector == "basic":
+            # the api zeroes negative AOD and lays out the bbox rows
+            finish(fname, api_identify(granule, fires, date,
+                                       BasicIdentifyConfig(),
+                                       device=device).aod_stats)
+        else:
+            finish(fname, gaussian_mod.identify_granule(
+                granule, fires, date, GaussianIdentifyConfig(),
+                device=device))
     logger.info("processed %d granules", n_done)
+    return 0
+
+
+def cmd_identify(args) -> int:
+    """One granule through any detector: prints ``<n> plumes`` and, with
+    ``--out``, writes the hull table if it has rows."""
+    from plumekit_torch.config.identify import (BasicIdentifyConfig,
+                                                GaussianIdentifyConfig,
+                                                RGIdentifyConfig)
+    from plumekit_torch.identify.api import identify
+    from plumekit_torch.io.dates import granule_date
+    from plumekit_torch.io.fires import load_fire_csv, n_fires
+    from plumekit_torch.io.granule import load_granule
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        logger.error("%s", e)
+        return 1
+    cfg = {"rg": RGIdentifyConfig(), "gaussian": GaussianIdentifyConfig(),
+           "basic": BasicIdentifyConfig()}[args.detector]
+    granule = load_granule(args.granule)
+    fires = load_fire_csv(args.fires)
+    # the granule's file name dates the scene, as in build_features; the
+    # fire table's first row is only the fallback
+    date = granule_date(
+        os.path.basename(args.granule),
+        default=fires["date_time"][0] if n_fires(fires) else None)
+    plumes = identify(granule, fires, date, cfg, device=device)
+    print(f"{len(plumes)} plumes")
+    if args.out and len(plumes.hulls):
+        plumes.hulls.to_csv(args.out)
+        logger.info("wrote %s", args.out)
     return 0
 
 
@@ -349,23 +431,34 @@ def build_parser() -> argparse.ArgumentParser:
     pr.set_defaults(fn=cmd_predict_model)
 
     bf = sub.add_parser("build_features",
-                        help="rg weak labeller over every granule → CSVs "
-                             "and plume masks")
+                        help="a fire-driven detector over every granule → "
+                             "CSVs and (rg) plume masks")
     bf.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),
                     help="workspace root")
     bf.add_argument("--detector", choices=["rg", "gaussian", "basic"],
                     default="rg",
-                    help="detector (only rg is ported; the others exit 1)")
+                    help="detector (default rg, the weak labeller)")
     bf.add_argument("--device", default="cuda",
-                    help="torch device of the sweep (default: cuda; the CPU "
-                         "runs the kernels' plain versions)")
+                    help="torch device of the detector (default: cuda; the "
+                         "CPU runs the kernels' plain versions)")
     bf.add_argument("--no-masks", action="store_true",
                     help="skip the per-plume mask npz (hull CSVs only)")
     bf.add_argument("--batch-scenes", type=int, default=1,
-                    help="scenes per sweep (only 1 is ported; more exits 1)")
+                    help="same-shape scenes per identify group (rg only)")
     bf.add_argument("--plot", action="store_true",
                     help="annotated scene PNGs (not ported yet: exits 1)")
     bf.set_defaults(fn=cmd_build_features)
+
+    idp = sub.add_parser("identify", help="identify plumes in one granule")
+    idp.add_argument("granule", help="granule file (.npz, .h5)")
+    idp.add_argument("fires", help="VIIRS fire CSV")
+    idp.add_argument("--detector", choices=["rg", "gaussian", "basic"],
+                     default="rg")
+    idp.add_argument("--device", default="cuda",
+                     help="torch device of the detector (default: cuda)")
+    idp.add_argument("--out", default=None,
+                     help="CSV path for the hull table")
+    idp.set_defaults(fn=cmd_identify)
     return p
 
 

@@ -1,7 +1,9 @@
-"""The rg detector's config of ``plumekit/config/identify.py``: the same
+"""The detectors' configs of ``plumekit/config/identify.py``: the same
 fields and defaults, so both packages sweep the same thresholds with the
-same gates (reference: ``plume_identifier_rg.py:35-44``). The other
-detectors' configs come with their detectors (ROADMAP.md, item 11)."""
+same gates (reference: ``plume_identifier_basic.py:32-37``,
+``plume_identifier_rg.py:35-44``,
+``plume_identifier_gaussian_profile.py:34-44``,
+``plume_indetifier_blob.py:40-48``)."""
 
 from __future__ import annotations
 
@@ -47,6 +49,19 @@ class BaseIdentifyConfig:
 
 
 @dataclass(frozen=True)
+class BasicIdentifyConfig(BaseIdentifyConfig):
+    """Fixed-threshold detector (``plume_identifier_basic.py``)."""
+
+    win_half: int = 10
+    min_frp: float = 10.0
+    cluster_dist_km: float = 10.0
+    aod_ratio_limit: float = 3.0
+    aod_min_limit: float = 0.2
+    max_plume_pixels: int = 10000
+    min_plume_pixels: int = 100
+
+
+@dataclass(frozen=True)
 class RGIdentifyConfig(BaseIdentifyConfig):
     """Threshold-sweep / region-growth detector (``plume_identifier_rg.py``)."""
 
@@ -63,3 +78,42 @@ class RGIdentifyConfig(BaseIdentifyConfig):
     max_peaks: int = 1
     n_transect: int = 1000
 
+
+@dataclass(frozen=True)
+class GaussianIdentifyConfig(BaseIdentifyConfig):
+    """Multi-scale multi-orbit detector
+    (``plume_identifier_gaussian_profile.py``)."""
+
+    threshold_steps: Tuple[float, ...] = (0.02, 0.03, 0.04)
+    threshold_maxes: Tuple[float, ...] = (0.5, 0.75, 1.0)
+    min_plume_pixels: int = 100
+    max_plume_pixels: int = 2000
+    max_lim: float = 0.1
+    null_value: float = -999.0
+    max_invalid_frac: float = 0.2
+    min_axis_ratio: float = 8.0
+    max_peaks: int = 3
+    #: ``remove_small_objects(min_size=3)`` on the fire raster
+    min_fire_cluster_px: int = 3
+    min_fires_per_scene: int = 20
+    #: square buffer dilation of the accepted mask
+    dilate_plume_px: int = 5
+    n_transect: int = 1000
+
+    def threshold_sets(self) -> Tuple[Tuple[float, ...], ...]:
+        return tuple(_descending_thresholds(s, m) for s, m
+                     in zip(self.threshold_steps, self.threshold_maxes))
+
+
+@dataclass(frozen=True)
+class BlobIdentifyConfig:
+    """LoG/DoG/DoH blob baseline (``plume_indetifier_blob.py:40-48``)."""
+
+    min_sigma: float = 1.0
+    max_sigma: float = 30.0
+    num_sigma: int = 10
+    threshold_log: float = 0.1
+    threshold_dog: float = 0.1
+    threshold_doh: float = 0.01
+    #: pairwise disc-overlap share above which the smaller-sigma blob goes
+    overlap: float = 0.5

@@ -1,12 +1,18 @@
-// Multi-threshold connected-component labelling with the mask opening
-// built in-kernel: the K1 and K4 kernels of the identify sweep.
+// Multi-threshold connected-component labelling: the K1 and K4 kernels of
+// the identify sweep (the mask opening built in-kernel) and the K2 kernel
+// that labels a stack of ready-made masks.
 //
 // Replaces the Pallas TPU kernels multi_threshold_ccl_fused
-// (plumekit/ops/pallas/ccl_sweep.py:544) and multi_threshold_ccl_banded
-// (plumekit/ops/pallas/ccl_banded.py:321). Both compute, for an (H, W)
-// float32 AOD plane and T thresholds,
+// (plumekit/ops/pallas/ccl_sweep.py:544), multi_threshold_ccl_banded
+// (plumekit/ops/pallas/ccl_banded.py:321) and multi_threshold_ccl
+// (plumekit/ops/pallas/ccl_sweep.py:468). The first two compute, for an
+// (H, W) float32 AOD plane and T thresholds,
 //
 //   out[t] = 8- (or 4-) connected labels of binary_opening_cross(aod > th[t])
+//
+// and the third, for a (T, H, W) stack of one-byte masks,
+//
+//   out[t] = 8- (or 4-) connected labels of masks[t]
 //
 // with 0 for background and each component labelled by its smallest flat
 // pixel id r * W + c, plus one. The TPU kernels keep the label plane in
@@ -24,7 +30,10 @@
 //                memory, erodes (a neighbour outside the image counts as
 //                foreground) and dilates (outside counts as background),
 //                then runs union-find on the tile in shared memory and
-//                writes each pixel's tile root (as a global id + 1).
+//                writes each pixel's tile root (as a global id + 1). The
+//                mask-stack front end (K2) reads the tile's foreground
+//                from its mask plane instead: no threshold, no opening, no
+//                halo, then the same union-find and the same roots.
 //   2. border:   pixels on a tile's top row and side columns unite with
 //                their neighbours in other tiles, in global memory.
 //   3. finalize: every pixel's parent becomes its root.
@@ -40,6 +49,9 @@
 // halo). The border pass touches 1/16 + 2/32 of the pixels. The design
 // keeps the threshold mask, the opening and the first round of unions in
 // shared memory so that no (T, H, W) mask or opened stack is ever written.
+// K2 reads one byte and writes four per pixel and level in its local pass
+// and shares the other two passes; its callers label one mask (T = 1), so
+// its three launches weigh as much as its traffic up to about 2000^2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,6 +109,44 @@ __device__ void unite_global(int* plane, int a, int b) {
     }
 }
 
+// ------------------------------------------------------------- tile pass
+// Union-find over one TW x TH tile in shared memory, given each thread's
+// foreground flag; writes each inside pixel's tile root to `plane` as a
+// global id + 1 (0 for background). Every thread of the block calls it.
+__device__ __forceinline__ void label_tile(int* s_lab, bool fg, bool inside,
+                                           int r0, int c0, int r, int c,
+                                           int W, int conn8, int* plane) {
+    const int lx = threadIdx.x, ly = threadIdx.y;
+    const int tid = ly * TW + lx;
+    s_lab[tid] = fg ? tid : -1;
+    __syncthreads();
+
+    if (fg) {
+        if (lx > 0 && s_lab[tid - 1] >= 0) unite_shared(s_lab, tid, tid - 1);
+        if (ly > 0) {
+            if (s_lab[tid - TW] >= 0) unite_shared(s_lab, tid, tid - TW);
+            if (conn8) {
+                if (lx > 0 && s_lab[tid - TW - 1] >= 0)
+                    unite_shared(s_lab, tid, tid - TW - 1);
+                if (lx < TW - 1 && s_lab[tid - TW + 1] >= 0)
+                    unite_shared(s_lab, tid, tid - TW + 1);
+            }
+        }
+    }
+    __syncthreads();
+
+    if (inside) {
+        int v = 0;
+        if (fg) {
+            // local ids are row-major within the tile, so the smallest
+            // local id is also the smallest global id of the tile's piece
+            const int root = find_shared(s_lab, tid);
+            v = (r0 + root / TW) * W + (c0 + root % TW) + 1;
+        }
+        plane[(size_t)r * W + c] = v;
+    }
+}
+
 // ------------------------------------------------------------------ local
 __global__ void __launch_bounds__(TW * TH)
 ccl_local(const float* __restrict__ aod, const float* __restrict__ th,
@@ -139,33 +189,21 @@ ccl_local(const float* __restrict__ aod, const float* __restrict__ th,
     const bool fg = inside &&
         (s_e[ey][ex] | s_e[ey - 1][ex] | s_e[ey + 1][ex] |
          s_e[ey][ex - 1] | s_e[ey][ex + 1]);
-    s_lab[tid] = fg ? tid : -1;
-    __syncthreads();
+    label_tile(s_lab, fg, inside, r0, c0, r, c, W, conn8,
+               out + (size_t)t * H * W);
+}
 
-    if (fg) {
-        if (lx > 0 && s_lab[tid - 1] >= 0) unite_shared(s_lab, tid, tid - 1);
-        if (ly > 0) {
-            if (s_lab[tid - TW] >= 0) unite_shared(s_lab, tid, tid - TW);
-            if (conn8) {
-                if (lx > 0 && s_lab[tid - TW - 1] >= 0)
-                    unite_shared(s_lab, tid, tid - TW - 1);
-                if (lx < TW - 1 && s_lab[tid - TW + 1] >= 0)
-                    unite_shared(s_lab, tid, tid - TW + 1);
-            }
-        }
-    }
-    __syncthreads();
-
-    if (inside) {
-        int v = 0;
-        if (fg) {
-            // local ids are row-major within the tile, so the smallest
-            // local id is also the smallest global id of the tile's piece
-            const int root = find_shared(s_lab, tid);
-            v = (r0 + root / TW) * W + (c0 + root % TW) + 1;
-        }
-        out[(size_t)t * H * W + (size_t)r * W + c] = v;
-    }
+// the mask-stack front end (K2): a tile's foreground is its mask bytes
+__global__ void __launch_bounds__(TW * TH)
+ccl_local_masks(const unsigned char* __restrict__ masks,
+                int* __restrict__ out, int H, int W, int conn8) {
+    __shared__ int s_lab[TH * TW];
+    const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
+    const int r = r0 + threadIdx.y, c = c0 + threadIdx.x;
+    const bool inside = r < H && c < W;
+    const size_t plane = (size_t)blockIdx.z * H * W;
+    const bool fg = inside && masks[plane + (size_t)r * W + c] != 0;
+    label_tile(s_lab, fg, inside, r0, c0, r, c, W, conn8, out + plane);
 }
 
 // ----------------------------------------------------------------- border
@@ -226,6 +264,29 @@ int pk_ccl_sweep(const float* aod, const float* thresholds, int* out,
     dim3 block(TW, TH);
     dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, T);
     ccl_local<<<grid, block, 0, s>>>(aod, thresholds, out, H, W, conn8);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ccl_border<<<grid, block, 0, s>>>(out, H, W, conn8);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ccl_finalize<<<grid, block, 0, s>>>(out, H, W);
+    return (int)cudaGetLastError();
+}
+
+// masks: (T, H, W) one byte per pixel, nonzero = foreground; out: (T, H, W)
+// int32, both contiguous on the device. Same checks, passes and return
+// value as pk_ccl_sweep.
+int pk_ccl_masks(const unsigned char* masks, int* out, int T, int H, int W,
+                 int connectivity, void* stream) {
+    if (T < 1 || H < 1 || W < 1 || T > 65535 ||
+        (long long)H * W >= 0x7fffffffLL || (H + TH - 1) / TH > 65535 ||
+        (connectivity != 1 && connectivity != 2))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int conn8 = connectivity == 2;
+    dim3 block(TW, TH);
+    dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, T);
+    ccl_local_masks<<<grid, block, 0, s>>>(masks, out, H, W, conn8);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ccl_border<<<grid, block, 0, s>>>(out, H, W, conn8);

@@ -53,8 +53,10 @@ def load_libraries(sources: Iterable[str]) -> Dict[str, ctypes.CDLL]:
     sources = list(sources)
     builds = []
     for source in sources:
+        if source in _LOADED:
+            continue
         lib_path = _lib_path(source)
-        if source in _LOADED or lib_path.exists():
+        if lib_path.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
@@ -80,5 +82,8 @@ def load_libraries(sources: Iterable[str]) -> Dict[str, ctypes.CDLL]:
 
 
 def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` (if its hash has no library yet) and load it."""
-    return load_libraries([source])[source]
+    """Compile ``csrc/<source>`` (if its hash has no library yet) and load
+    it. Every kernel launch comes through here, so a library that is
+    already loaded is returned without reading or hashing its source."""
+    lib = _LOADED.get(source)
+    return lib if lib is not None else load_libraries([source])[source]

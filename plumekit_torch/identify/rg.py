@@ -17,7 +17,9 @@ import numpy as np
 import torch
 
 from plumekit_torch.config.identify import RGIdentifyConfig
-from plumekit_torch.identify.locate import locate_fires_in_image, pad_fires
+from plumekit_torch.device import resolve_device
+from plumekit_torch.identify.locate import (fire_bucket,
+                                            locate_fires_in_image, pad_fires)
 from plumekit_torch.identify.pipeline import (SweepStatics,
                                               make_sweep_identifier,
                                               validate_descending_thresholds)
@@ -111,17 +113,9 @@ def _to_host(out: dict) -> dict:
     return host
 
 
-def identify(aod: np.ndarray, lat: np.ndarray, lon: np.ndarray,
-             date_to_find, fires, cfg: RGIdentifyConfig = RGIdentifyConfig(),
-             device="cpu"):
-    """Identify one scene (``plume_identifier_rg.py:460-506`` call order)
-    with the sweep on ``device``. Returns ``(aod_table, hull_table,
-    device_out)``; the tables carry the reference's column names, and no
-    plume gives empty tables."""
-    f_rows, f_cols, f_valid = _prep_fires(lat, lon, date_to_find, fires, cfg)
-    thresholds = validate_descending_thresholds(cfg.thresholds)
-    device = torch.device(device)
-    fn = make_sweep_identifier(_statics(cfg))
+def _sweep_scene(fn, aod, thresholds, f_rows, f_cols, f_valid, device):
+    """One scene through the sweep program ``fn`` on ``device``, back as
+    numpy."""
     aod_t = torch.from_numpy(np.ascontiguousarray(aod, np.float32)).to(device)
     with torch.inference_mode():
         out = fn(aod_t, aod_t, torch.zeros(aod.shape, dtype=torch.bool,
@@ -130,8 +124,55 @@ def identify(aod: np.ndarray, lat: np.ndarray, lon: np.ndarray,
                  torch.from_numpy(f_rows).to(device),
                  torch.from_numpy(f_cols).to(device),
                  torch.from_numpy(f_valid).to(device))
-        out = _to_host(out)
+        return _to_host(out)
+
+
+def identify(aod: np.ndarray, lat: np.ndarray, lon: np.ndarray,
+             date_to_find, fires, cfg: RGIdentifyConfig = RGIdentifyConfig(),
+             device="cuda"):
+    """Identify one scene (``plume_identifier_rg.py:460-506`` call order)
+    with the sweep on ``device``. Returns ``(aod_table, hull_table,
+    device_out)``; the tables carry the reference's column names, and no
+    plume gives empty tables."""
+    device = resolve_device(device)
+    f_rows, f_cols, f_valid = _prep_fires(lat, lon, date_to_find, fires, cfg)
+    thresholds = validate_descending_thresholds(cfg.thresholds)
+    fn = make_sweep_identifier(_statics(cfg))
+    out = _sweep_scene(fn, aod, thresholds, f_rows, f_cols, f_valid, device)
     return _scene_results(out, lat, lon)
+
+
+def identify_batch(scenes, fires, cfg: RGIdentifyConfig = RGIdentifyConfig(),
+                   device="cuda"):
+    """A group of same-shape scenes, ``(aod, lat, lon, date_to_find)``
+    each, as the JAX package's ``identify_batch``: all scenes share one
+    power-of-two fire capacity, that of the scene with the most fires, and
+    every scene's tables and masks equal those of :func:`identify`. The
+    JAX program maps one compiled sweep over the group; eager PyTorch has
+    nothing to compile, so the scenes go through the sweep one after the
+    other. Returns a list of ``(aod_table, hull_table, device_out)``."""
+    scenes = list(scenes)
+    if not scenes:
+        raise ValueError("identify_batch got no scenes")
+    shapes = {s[0].shape for s in scenes}
+    if len(shapes) != 1:
+        raise ValueError(
+            f"identify_batch needs same-shape scenes, got {sorted(shapes)}")
+    device = resolve_device(device)
+    preps = [_prep_fires(lat, lon, date, fires, cfg, capacity=cfg.max_fires)
+             for _aod, lat, lon, date in scenes]
+    # valid fires sit in the leading slots, so cutting to the shared
+    # bucket loses none
+    shared = fire_bucket(max(int(p[2].sum()) for p in preps), cfg.max_fires)
+    thresholds = validate_descending_thresholds(cfg.thresholds)
+    fn = make_sweep_identifier(_statics(cfg))
+    results = []
+    for (aod, lat, lon, _date), prep in zip(scenes, preps):
+        out = _sweep_scene(fn, aod, thresholds,
+                           *(np.ascontiguousarray(a[:shared]) for a in prep),
+                           device)
+        results.append(_scene_results(out, lat, lon))
+    return results
 
 
 def _scene_results(out: dict, lat, lon):

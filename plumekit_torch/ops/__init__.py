@@ -1,3 +1,3 @@
-"""Device ops of the identify sweep: morphology, connected components,
-region statistics, geometry, transects (plain PyTorch), host-side fire
+"""Device ops of the detectors: morphology, connected components, region
+statistics, geometry, transects, in-painting (plain PyTorch), fire
 clustering, and the hand-written kernels under :mod:`.kernels`."""

@@ -1,11 +1,15 @@
-"""Fire clustering of the rg detector (numpy/scipy copy of the host half of
-``plumekit/ops/cluster.py``).
+"""Fire clustering (``plumekit/ops/cluster.py``).
 
-The reference runs DBSCAN over fire lat/lon with the haversine metric,
-``min_samples=1`` and eps = cluster_dist_km / 6371 radians
-(``plume_identifier_rg.py:61-66``). With ``min_samples=1`` DBSCAN is the
-connected components of the eps-neighbourhood graph: a cKDTree in
-unit-sphere chord space plus union-find gives it exactly.
+basic and rg: the reference runs DBSCAN over fire lat/lon with the
+haversine metric, ``min_samples=1`` and eps = cluster_dist_km / 6371
+radians (``plume_identifier_rg.py:61-66``). With ``min_samples=1`` DBSCAN is
+the connected components of the eps-neighbourhood graph: a cKDTree in
+unit-sphere chord space plus union-find gives it exactly, on the host.
+
+gaussian: rasterise the fires onto the grid, label 8-connected, drop
+clusters under 3 px and take integer centroids
+(``plume_identifier_gaussian_profile.py:126-139, 480-483``), on the device
+with a fixed fire capacity (:func:`raster_cluster_centroids`).
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 #: sphere radius (km) that converts eps_km to radians
 #: (``plume_identifier_rg.py:63``)
@@ -88,3 +93,62 @@ def mean_cluster_positions(fires, eps_km: float) -> Tuple[np.ndarray,
     k = int(labels.max()) + 1 if labels.size else 0
     return (_group_mean(np.asarray(fires["latitude"], np.float64), labels, k),
             _group_mean(np.asarray(fires["longitude"], np.float64), labels, k))
+
+
+#: (F, H, W) elements per chunk of the per-fire reductions
+CHUNK_ELEMENTS = 1 << 26
+
+
+def raster_cluster_centroids(shape: Tuple[int, int], rows: torch.Tensor,
+                             cols: torch.Tensor, valid: torch.Tensor,
+                             min_size: int):
+    """Fire clustering of the gaussian detector on the device of ``rows``.
+
+    Rasterise the valid fires onto ``shape``, label 8-connected (the K2
+    entry), drop clusters smaller than ``min_size`` px, and return one
+    integer centroid per cluster (float32 mean, truncated, as the
+    reference's ``.astype(int)``) packed into (F,) int32 arrays with a
+    validity mask: the cluster's first fire carries it. Padding slots are
+    never written to the raster. The per-fire (F, H, W) compares run in
+    chunks; the sums are integers, so the result does not depend on the
+    chunking.
+    """
+    from plumekit_torch.ops.kernels.ccl_sweep import multi_threshold_ccl
+
+    h, w = shape
+    device = rows.device
+    grid = torch.zeros((h, w), dtype=torch.bool, device=device)
+    grid[rows[valid].long(), cols[valid].long()] = True
+    labels = multi_threshold_ccl(grid[None], connectivity=2,
+                                 nested=False)[0]
+
+    safe_r = torch.where(valid, rows, 0).long()
+    safe_c = torch.where(valid, cols, 0).long()
+    fire_labels = torch.where(valid, labels[safe_r, safe_c], 0)
+    lab_eff = torch.where(fire_labels != 0, fire_labels, -1)
+
+    f_count = rows.shape[0]
+    rr = torch.arange(h, device=device)
+    cc = torch.arange(w, device=device)
+    cnt = torch.zeros(f_count, dtype=torch.int64, device=device)
+    sum_r = torch.zeros_like(cnt)
+    sum_c = torch.zeros_like(cnt)
+    step = max(1, CHUNK_ELEMENTS // (h * w))
+    for i in range(0, f_count, step):
+        on = labels[None] == lab_eff[i:i + step, None, None]
+        per_row, per_col = on.sum(2), on.sum(1)
+        cnt[i:i + step] = per_row.sum(1)
+        sum_r[i:i + step] = (per_row * rr).sum(1)
+        sum_c[i:i + step] = (per_col * cc).sum(1)
+
+    alive = (fire_labels != 0) & (cnt >= min_size)
+    eq = fire_labels[:, None] == fire_labels[None, :]
+    earlier = torch.tril(eq, diagonal=-1).any(1)
+    is_rep = alive & ~earlier
+
+    n = torch.clamp(cnt, min=1).to(torch.float32)
+    cr = (sum_r.to(torch.float32) / n).to(torch.int32)
+    ccol = (sum_c.to(torch.float32) / n).to(torch.int32)
+    zero = torch.zeros_like(cr)
+    return torch.where(is_rep, cr, zero), torch.where(is_rep, ccol, zero), \
+        is_rep

@@ -1,5 +1,5 @@
-"""Multi-threshold connected components with the mask opening built
-in-kernel: K1 and K4.
+"""Multi-threshold connected components: K1 and K4 (the mask opening built
+in-kernel) and K2 (a stack of ready-made masks).
 
 Replaces the Pallas TPU kernels ``multi_threshold_ccl_fused``
 (``plumekit/ops/pallas/ccl_sweep.py:544``) and
@@ -12,9 +12,16 @@ beyond); on the card it lives in device memory at every size, so one CUDA
 kernel, ``plumekit_torch/csrc/ccl_sweep.cu`` (block-based union-find, all T
 levels in one launch), serves both names.
 
-:func:`multi_threshold_ccl_fused` runs the plain version for a tensor on
-the CPU and the CUDA kernel for a tensor on the card; it never falls back
-from the kernel.
+K2 replaces ``multi_threshold_ccl`` (``plumekit/ops/pallas/ccl_sweep.py:468``):
+(T, H, W) bool masks in, (T, H, W) int32 labels out, each level
+``connected_components(masks[t])`` bit for bit. The same source holds its
+kernel: the border and finalize passes of K1 behind a local pass that reads
+its tile's foreground from the mask plane. The basic detector and the
+gaussian detector's fire clustering label one mask each through it.
+
+:func:`multi_threshold_ccl_fused` and :func:`multi_threshold_ccl` run the
+plain version for a tensor on the CPU and the CUDA kernel for a tensor on
+the card; they never fall back from the kernel.
 """
 
 from __future__ import annotations
@@ -26,8 +33,10 @@ import torch
 from plumekit_torch.ops.ccl import connected_components
 from plumekit_torch.ops.morphology import binary_opening_cross
 
-#: launches of the CUDA kernel since import (or since a caller reset it)
+#: launches of the K1/K4 kernel since import (or since a caller reset it)
 LAUNCHES = 0
+#: launches of the K2 kernel (the mask-stack front end), likewise
+MASK_LAUNCHES = 0
 
 
 def multi_threshold_ccl_ref(aod: torch.Tensor, thresholds: torch.Tensor,
@@ -42,6 +51,16 @@ def multi_threshold_ccl_ref(aod: torch.Tensor, thresholds: torch.Tensor,
     return out
 
 
+def multi_threshold_ccl_masks_ref(opened: torch.Tensor,
+                                  connectivity: int = 2) -> torch.Tensor:
+    """Plain version of K2: :func:`connected_components` per level."""
+    out = torch.empty(tuple(opened.shape), dtype=torch.int32,
+                      device=opened.device)
+    for t in range(opened.shape[0]):
+        out[t] = connected_components(opened[t], connectivity)
+    return out
+
+
 def _library():
     from plumekit_torch.cuda_build import load_library
 
@@ -51,6 +70,9 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.pk_ccl_masks.argtypes = [ctypes.c_void_p] * 2 \
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.pk_ccl_masks.restype = ctypes.c_int
         lib.pk_ccl_error_string.argtypes = [ctypes.c_int]
         lib.pk_ccl_error_string.restype = ctypes.c_char_p
     return lib
@@ -96,6 +118,49 @@ def multi_threshold_ccl_fused(aod: torch.Tensor, thresholds: torch.Tensor,
         raise RuntimeError("CCL sweep kernel launch failed: "
                            + lib.pk_ccl_error_string(err).decode())
     LAUNCHES += 1
+    return out
+
+
+def multi_threshold_ccl(opened: torch.Tensor, connectivity: int = 2,
+                        nested: bool = True) -> torch.Tensor:
+    """(T, H, W) int32 labels of the (T, H, W) bool masks ``opened``, each
+    level labelled on its own.
+
+    ``nested`` is the JAX entry's promise that every mask contains the one
+    before it, which lets the TPU kernel start a level from the previous
+    level's labels. The levels are independent here, so the argument
+    changes nothing and is kept only so that calls read as the JAX
+    package's do.
+    """
+    del nested
+    if opened.dim() != 3 or opened.dtype != torch.bool:
+        raise ValueError("want (T, H, W) bool masks, got "
+                         f"{tuple(opened.shape)} {opened.dtype}")
+    if connectivity not in (1, 2):
+        raise ValueError(f"connectivity must be 1 or 2, got {connectivity}")
+    if opened.device.type == "cpu":
+        return multi_threshold_ccl_masks_ref(opened, connectivity)
+    if opened.device.type != "cuda":
+        raise ValueError(f"no kernel for device {opened.device}")
+    if not opened.is_contiguous():
+        raise ValueError("the kernel takes a contiguous (T, H, W) mask stack")
+    t_count, h, w = opened.shape
+    if h * w >= 2**31 - 1 or not 1 <= t_count <= 65535 or h < 1 or w < 1:
+        raise ValueError(f"stack {t_count}x{h}x{w} is beyond the kernel's "
+                         "int32 ids and grid")
+    out = torch.empty((t_count, h, w), dtype=torch.int32,
+                      device=opened.device)
+    lib = _library()
+    global MASK_LAUNCHES
+    with torch.cuda.device(opened.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        # a bool tensor stores one byte per element, 0 or 1
+        err = lib.pk_ccl_masks(opened.data_ptr(), out.data_ptr(), t_count,
+                               h, w, connectivity, stream)
+    if err != 0:
+        raise RuntimeError("CCL mask-stack kernel launch failed: "
+                           + lib.pk_ccl_error_string(err).decode())
+    MASK_LAUNCHES += 1
     return out
 
 

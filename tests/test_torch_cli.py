@@ -1,6 +1,8 @@
-"""plumekit_torch's granule files and ``predict_model`` against the JAX
-package's: files read across packages, and the two CLIs serve the same
-weights to the same prediction files."""
+"""plumekit_torch's granule files and command-line entry points against the
+JAX package's: files read across packages, the two ``predict_model`` serve
+the same weights to the same prediction files, and ``build_features`` (rg,
+basic, gaussian, ``--batch-scenes``) and ``identify`` write and print what
+the JAX CLI does on the same 256² roots."""
 
 import json
 import logging
@@ -178,8 +180,8 @@ def test_missing_cuda_is_an_error_not_a_fallback(tmp_path, caplog):
 
 # ---------------------------------------------------------------- build_features
 
-def _identify_root(tmp_path, name="root"):
-    """A 256² synthetic root as ``plumekit make_dataset`` lays it out: two
+def _identify_root(tmp_path, name="root", seeds=(22, 25), **scene_kw):
+    """A 256² synthetic root as ``plumekit make_dataset`` lays it out:
     granules with plumes, null holes and plume-less fires, one fire CSV."""
     from plumekit_torch.io.synthetic import (SyntheticSceneConfig,
                                              make_scene, write_fire_csv)
@@ -190,12 +192,13 @@ def _identify_root(tmp_path, name="root"):
     os.makedirs(maiac)
     os.makedirs(fires_dir)
     tables = []
-    for seed in (22, 25):
-        scene = make_scene(SyntheticSceneConfig(
-            size=256, n_plumes=3, seed=seed, background_level=0.2,
-            background_noise=0.05, plume_amplitude=(0.6, 0.8),
-            plume_sigma_major=(9.0, 14.0), plume_sigma_minor=(1.8, 2.6),
-            extra_fires=2, null_blobs=1))
+    kw = dict(size=256, n_plumes=3, background_level=0.2,
+              background_noise=0.05, plume_amplitude=(0.6, 0.8),
+              plume_sigma_major=(9.0, 14.0), plume_sigma_minor=(1.8, 2.6),
+              extra_fires=2, null_blobs=1)
+    kw.update(scene_kw)
+    for seed in seeds:
+        scene = make_scene(SyntheticSceneConfig(seed=seed, **kw))
         torch_granule.save_granule(
             os.path.join(maiac, scene.granule.name + ".npz"), scene.granule)
         tables.append(scene.fires)
@@ -214,7 +217,12 @@ def _feature_outputs(root):
                         "full")
     for sub in ("aod", "hull"):
         for f in sorted(os.listdir(os.path.join(full, sub))):
-            out[f"{sub}/{f}"] = pd.read_csv(os.path.join(full, sub, f))
+            out[f"{sub}/{f}"] = pd.read_csv(os.path.join(full, sub, f),
+                                            dtype={"datetime": str})
+    logs = os.path.join(root, "raw", "plume_identification", "logs")
+    for f in sorted(os.listdir(logs)):
+        with open(os.path.join(logs, f)) as fh:
+            out[f"logs/{f}"] = fh.read().splitlines()
     masks = os.path.join(root, "interim", "plume_masks")
     for f in sorted(os.listdir(masks)) if os.path.isdir(masks) else []:
         with np.load(os.path.join(masks, f)) as d:
@@ -236,22 +244,175 @@ def test_build_features_rg_matches_jax_cli(tmp_path):
     assert cli.main(["build_features", "--root", root, "--detector", "rg",
                      "--device", "cpu"]) == 0
     want, got = _feature_outputs(jax_root), _feature_outputs(root)
-    assert sorted(got) == sorted(want)
     assert any(k.startswith("masks/") for k in got), "no plume accepted"
+    _assert_same_features(got, want)
+
+
+def _assert_same_features(got, want):
+    """Equal build_features outputs: the same files; work logs and masks
+    equal; CSV columns by value, exact but for the AOD mean and sd."""
+    assert sorted(got) == sorted(want)
     for k, w in want.items():
         g = got[k]
+        if k.startswith("logs/"):
+            assert g == w, k
+            continue
         if k.startswith("masks/"):
             assert sorted(g) == sorted(w)
             for pid in w:
                 np.testing.assert_array_equal(g[pid], w[pid])
             continue
         assert list(g.columns) == list(w.columns) and len(g) == len(w), k
-        for col in w.columns:
+        for col in w.columns if len(w) else ():
             if col in ("plume_aod_mean", "plume_aod_sd"):
                 np.testing.assert_allclose(g[col], w[col], rtol=1e-5, atol=0)
             else:
                 np.testing.assert_array_equal(g[col].to_numpy(),
                                               w[col].to_numpy(), err_msg=k)
+
+
+def _both_clis(tmp_path, flags, **root_kw):
+    """The outputs of ``build_features <flags>`` from the port on the CPU
+    and from the JAX CLI on copies of one root."""
+    import shutil
+
+    root = _identify_root(tmp_path, **root_kw)
+    jax_root = str(tmp_path / "jax_root")
+    shutil.copytree(root, jax_root)
+    assert jax_main(["build_features", "--root", jax_root] + flags) == 0
+    assert cli.main(["build_features", "--root", root, "--device", "cpu"]
+                    + flags) == 0
+    return _feature_outputs(root), _feature_outputs(jax_root)
+
+
+def test_build_features_basic_matches_jax_cli(tmp_path):
+    """One bounding-box row per plume in ``<base>_extent.csv``, a work log
+    of the detector's own, no aod CSV and no masks."""
+    got, want = _both_clis(tmp_path, ["--detector", "basic"],
+                           seeds=(61, 62), background_level=0.05,
+                           background_noise=0.02,
+                           plume_amplitude=(0.5, 0.8),
+                           plume_sigma_minor=(2.0, 3.0))
+    _assert_same_features(got, want)
+    assert sorted(got) == ["hull/SYNTH.00000061_extent.csv",
+                           "hull/SYNTH.00000062_extent.csv",
+                           "logs/basic_log.txt"]
+    first = got["hull/SYNTH.00000061_extent.csv"]
+    assert list(first.columns) == ["id", "plume_min_row", "plume_max_row",
+                                   "plume_min_col", "plume_max_col"]
+    assert sum(len(v) for k, v in got.items() if k.startswith("hull/")) >= 2
+
+
+def test_build_features_gaussian_matches_jax_cli(tmp_path):
+    """Hull vertices of every orbit layer with a ``datetime`` column; a
+    granule under the 20-fire gate gets a header-only CSV."""
+    got, want = _both_clis(tmp_path, ["--detector", "gaussian"],
+                           seeds=(31,), n_layers=2, fires_per_plume=(7, 9),
+                           extra_fires=6, null_blobs=2)
+    _assert_same_features(got, want)
+    assert sorted(got) == ["hull/SYNTH.00000031_extent.csv",
+                           "logs/gaussian_log.txt"]
+    hulls = got["hull/SYNTH.00000031_extent.csv"]
+    assert list(hulls.columns) == ["id", "hull_lats", "hull_lons", "hull_x",
+                                   "hull_y", "datetime"]
+    assert len(hulls) >= 3 and hulls["datetime"].nunique() == 2
+
+
+def test_build_features_gaussian_under_the_fire_gate(tmp_path):
+    got, want = _both_clis(tmp_path, ["--detector", "gaussian"],
+                           seeds=(32,), n_plumes=1, extra_fires=0)
+    _assert_same_features(got, want)
+    assert len(got["hull/SYNTH.00000032_extent.csv"]) == 0
+
+
+def test_build_features_batch_scenes_matches_jax_cli(tmp_path):
+    """Three granules in groups of two (a full group, then the rest),
+    against the JAX CLI's ``--batch-scenes 2`` and the port's serial run."""
+    import shutil
+
+    seeds = (22, 25, 27)
+    got, want = _both_clis(tmp_path, ["--batch-scenes", "2"], seeds=seeds)
+    assert any(k.startswith("masks/") for k in got), "no plume accepted"
+    _assert_same_features(got, want)
+    assert got["logs/rg_log.txt"] == [f"SYNTH.000000{s}.npz" for s in seeds]
+    serial = str(tmp_path / "serial")
+    shutil.copytree(str(tmp_path / "root"), serial, ignore=lambda d, files: [
+        f for f in files if f in ("dataframes", "logs", "interim")])
+    assert cli.main(["build_features", "--root", serial, "--device",
+                     "cpu"]) == 0
+    _assert_same_features(got, _feature_outputs(serial))
+
+
+def test_build_features_batch_scenes_flushes_on_a_shape_change(tmp_path):
+    """A 128² granule between 256² ones ends the group before it; every
+    granule still gets the serial run's files."""
+    import shutil
+
+    from plumekit_torch.io.synthetic import SyntheticSceneConfig, make_scene
+
+    root = _identify_root(tmp_path, seeds=(22, 25))
+    small = make_scene(SyntheticSceneConfig(size=128, n_plumes=1, seed=23))
+    maiac = os.path.join(root, "raw", "plume_identification", "maiac")
+    torch_granule.save_granule(os.path.join(maiac, "SYNTH.00000023.npz"),
+                               small.granule)
+    serial = str(tmp_path / "serial")
+    shutil.copytree(root, serial)
+    assert cli.main(["build_features", "--root", root, "--device", "cpu",
+                     "--batch-scenes", "3"]) == 0
+    assert cli.main(["build_features", "--root", serial, "--device",
+                     "cpu"]) == 0
+    got = _feature_outputs(root)
+    _assert_same_features(got, _feature_outputs(serial))
+    assert len(got["logs/rg_log.txt"]) == 3
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--batch-scenes", "2", "--detector", "basic"], "rg detector only"),
+    (["--batch-scenes", "2", "--detector", "gaussian"], "rg detector only"),
+    (["--batch-scenes", "0"], "must be >= 1")])
+def test_build_features_bad_batch_scenes_exits_1(tmp_path, caplog, flags,
+                                                 message):
+    with caplog.at_level(logging.ERROR):
+        assert cli.main(["build_features", "--root", str(tmp_path),
+                         "--device", "cpu"] + flags) == 1
+    assert message in caplog.text
+
+
+@pytest.mark.parametrize("detector", ["rg", "basic", "gaussian"])
+def test_identify_prints_the_jax_count_and_writes_hulls(tmp_path, capsys,
+                                                        detector):
+    import pandas as pd
+
+    root = _identify_root(tmp_path, seeds=(31,), n_layers=2,
+                          fires_per_plume=(7, 9), extra_fires=6,
+                          null_blobs=2)
+    granule = os.path.join(root, "raw", "plume_identification", "maiac",
+                           "SYNTH.00000031.npz")
+    fires = os.path.join(root, "raw", "fires", "fires.csv")
+    outs = [str(tmp_path / f"{who}.csv") for who in ("jax", "port")]
+    args = [granule, fires, "--detector", detector, "--out"]
+    assert jax_main(["identify"] + args + outs[:1]) == 0
+    want = capsys.readouterr().out.strip().splitlines()[-1]
+    assert cli.main(["identify", "--device", "cpu"] + args + outs[1:]) == 0
+    got = capsys.readouterr().out.strip().splitlines()[-1]
+    assert got == want and got.endswith(" plumes")
+    if detector != "basic":
+        assert int(got.split()[0]) >= 1
+    # basic has no hull table: neither CLI writes the file
+    assert os.path.exists(outs[1]) == os.path.exists(outs[0]) \
+        == (detector != "basic")
+    if detector != "basic":
+        w = pd.read_csv(outs[0], dtype={"datetime": str})
+        g = pd.read_csv(outs[1], dtype={"datetime": str})
+        _assert_same_features({"hull/out": g}, {"hull/out": w})
+
+
+def test_identify_without_cuda_exits_1(tmp_path, caplog):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with caplog.at_level(logging.ERROR):
+        assert cli.main(["identify", "g.npz", "fires.csv"]) == 1
+    assert "CUDA is not available" in caplog.text
 
 
 def test_build_features_resumes_from_its_log(tmp_path, caplog):
@@ -277,9 +438,7 @@ def test_build_features_resumes_from_its_log(tmp_path, caplog):
         assert f.read().splitlines() == done
 
 
-@pytest.mark.parametrize("flags", [
-    ["--detector", "gaussian"], ["--detector", "basic"],
-    ["--batch-scenes", "2"], ["--plot"]])
+@pytest.mark.parametrize("flags", [["--plot"]])
 def test_build_features_unported_flag_exits_1(tmp_path, caplog, flags):
     with caplog.at_level(logging.ERROR):
         rc = cli.main(["build_features", "--root", str(tmp_path),

@@ -1,7 +1,12 @@
 """plumekit_torch's double-conv block (K6) against the JAX package's Pallas
 kernel, run in interpret mode on the CPU, on the same numpy inputs. On the
 CPU the port's wrapper runs its plain version; the CUDA kernel itself is
-held against that plain version on the card by ``chip_smoke.py``."""
+held against that plain version on the card by
+tests/test_torch_kernels_cuda.py (which imports no JAX) and by
+``chip_smoke.py``."""
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -14,6 +19,9 @@ from plumekit.models.pallas.fused_conv import (
     fused_double_conv3x3_bn_relu as jax_double_conv,
 )
 from plumekit_torch.models.kernels import fused_conv
+
+sys.path.insert(0, os.path.dirname(__file__))
+from torch_ccl_cases import double_conv_case as _inputs  # noqa: E402
 
 # the cases of tests/test_pallas_kernels.py's double-conv test, plus Cin = 2
 # (the U-Net's first block) and an odd width
@@ -29,20 +37,6 @@ F32_TOL = 1e-4
 # bf16: both sides round the conv1 output and the result to bf16 from fp32
 # sums taken in another order; allow two bf16 steps (2^-7 relative each)
 BF16_ATOL = BF16_RTOL = 2.0 ** -6
-
-
-def _inputs(seed, shape, cm, co):
-    rng = np.random.default_rng(seed)
-    cin = shape[-1]
-    return [
-        rng.normal(size=shape).astype(np.float32),
-        (rng.normal(size=(3, 3, cin, cm)) * 0.1).astype(np.float32),
-        rng.uniform(0.5, 2, cm).astype(np.float32),
-        (rng.normal(size=cm) * 0.1).astype(np.float32),
-        (rng.normal(size=(3, 3, cm, co)) * 0.1).astype(np.float32),
-        rng.uniform(0.5, 2, co).astype(np.float32),
-        (rng.normal(size=co) * 0.1).astype(np.float32),
-    ]
 
 
 @pytest.mark.parametrize("shape,cm,co,tm", CASES)
@@ -105,20 +99,3 @@ def test_cpu_tensor_never_reaches_the_kernel(monkeypatch):
     with pytest.raises(ValueError, match="no kernel for device"):
         fused_conv.fused_double_conv3x3_bn_relu(
             arrays[0].to("meta"), *arrays[1:])
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_version_on_the_card():
-    """The CUDA kernel against its plain version at a ragged shape with an
-    unaligned input width (``chip_smoke.py`` covers every U-Net shape)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    arrays = [torch.from_numpy(a).cuda().to(torch.bfloat16)
-              for a in _inputs(4, (2, 37, 29, 5), 32, 40)]
-    before = fused_conv.LAUNCHES
-    got = fused_conv.fused_double_conv3x3_bn_relu(*arrays)
-    torch.cuda.synchronize()
-    assert fused_conv.LAUNCHES == before + 1
-    ref = fused_conv.double_conv3x3_bn_relu_ref(*arrays).float()
-    err = (got.float() - ref).abs()
-    assert bool((err <= BF16_ATOL + BF16_RTOL * ref.abs()).all())

@@ -281,7 +281,8 @@ def test_rg_dedup_drops_duplicate_plumes():
     js, ts = _scenes(25)
     g = ts.granule
     _a, _h, tout = rg.identify(g.first_layer(), g.lat, g.lon,
-                               ts.fires["date_time"][0], ts.fires, RG_CFG)
+                               ts.fires["date_time"][0], ts.fires, RG_CFG,
+                               device="cpu")
     f = int(np.nonzero(tout["accepted"])[0][0])
     dup = {k: np.concatenate([v, v[f:f + 1]]) for k, v in tout.items()
            if k in ("accepted", "mask", "bbox", "area", "aod_mean",
@@ -299,7 +300,8 @@ def test_rg_empty_fires():
     g = ts.granule
     empty = {k: v[:0] for k, v in ts.fires.items()}
     aod_t, hull_t, _ = rg.identify(g.first_layer(), g.lat, g.lon,
-                                   np.datetime64("2017-08-01"), empty, RG_CFG)
+                                   np.datetime64("2017-08-01"), empty, RG_CFG,
+                                   device="cpu")
     assert len(aod_t) == 0 and len(hull_t) == 0
 
 
