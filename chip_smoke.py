@@ -1,8 +1,16 @@
 """Smoke run of plumekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
-``nvcc`` per source, all at once) and drives the port's three paths:
+``nvcc`` per source, all at once) and drives the port's four paths:
 
+* megakernel serving: K7 (the whole U-Net forward in one launch) against
+  its plain PyTorch version at the flagship U-Net over 128 tiles of 96²,
+  one tile and a 64 × 48 depth-3 net, and against the cuDNN forward; then
+  the four 2048² granules served through ``predict_model --tile 96
+  --overlap 32`` from a checkpoint that says ``use_mega`` (K7 must launch
+  once per forward and K6 not at all) and from one that does not; K5 (one
+  fused conv) at the net's 18 conv shapes and P1 (the gather probe, both
+  forms) against their plain versions;
 * serving: K6 (fused double conv) against its plain PyTorch version at
   every U-Net block shape, the flagship U-Net (``UNetConfig()``: base 32,
   depth 4, bf16) through the fused and the plain forward, then four
@@ -39,6 +47,7 @@ output directory that :func:`main` makes.
 from __future__ import annotations
 
 import csv
+import dataclasses
 import json
 import math
 import os
@@ -65,7 +74,8 @@ from plumekit_torch.infer.streaming import (  # noqa: E402
 from plumekit_torch.io.granule import Granule, save_granule  # noqa: E402
 from plumekit_torch.models import build_model  # noqa: E402
 from plumekit_torch.models.fused_forward import make_fused_apply  # noqa: E402
-from plumekit_torch.models.kernels import fused_conv  # noqa: E402
+from plumekit_torch.experiments import scalar_gather_probe  # noqa: E402
+from plumekit_torch.models.kernels import fused_conv, unet_mega  # noqa: E402
 from plumekit_torch.train.checkpoint import (  # noqa: E402
     save_model_config, save_weights)
 from plumekit_torch.config.identify import (  # noqa: E402
@@ -91,6 +101,21 @@ ATOL = RTOL = 2.0 ** -6
 # repo's own bound for the fused replay (tests/test_fused_forward.py:68-72)
 LOGIT_RTOL, LOGIT_MIN_CORR = 5e-2, 0.999
 PROB_ATOL = 5e-2                      # fused vs plain served probabilities
+# megakernel serving: the tile the JAX package's megakernel admits at
+# UNetConfig() (its larger tiles fall through to XLA there)
+MEGA = InferConfig(tile_size=96, overlap=32)
+# K7 vs its plain version: both round to bf16 at the same 22 points from
+# fp32 sums taken in another order; a flipped rounding spreads through the
+# convs after it, so 2% of the largest logit and correlation > 0.999.
+# That bound alone would pass a kernel that rounded the last decoder block
+# to bf16 before the head (the flips upstream move the logits more than
+# that rounding does), so the kernel's distance to the plain version is also
+# projected on what that rounding does to the plain version's logits: 0 for
+# a head that reads fp32, 1 for one that reads the rounded block, apart from
+# the flips' share, which falls with the square root of the logits' count
+MEGA_RTOL = 2e-2
+MEGA_HEAD_ROUNDING_SHARE = 0.25
+PROBE_SIZE, PROBE_LOOKUPS = 1024, 1024   # the gather probe's defaults
 
 RG = RGIdentifyConfig()               # T = 20 thresholds 1.0 .. 0.05
 THRESHOLDS = np.asarray(RG.thresholds, np.float32)
@@ -311,8 +336,8 @@ def check_forward(model, rng):
             "fused_ms": fwd_ms, "plain_ms": plain_ms, "launches": launches}
 
 
-def serve(root, fused: bool):
-    argv = ["predict_model", "--root", root] + (["--fused"] if fused else [])
+def serve(root, *flags):
+    argv = ["predict_model", "--root", root, *flags]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = cli.main(argv)
@@ -335,13 +360,13 @@ def serve(root, fused: bool):
     return secs, preds
 
 
-def serving_split(root, model, out_dir):
-    """Seconds per layer of the fused serving loop, run as the CLI runs it
-    (decode, upload, sliding inference, readback, write), each step
+def serving_split(root, model, out_dir, apply_fn, icfg, label):
+    """Seconds per layer of the serving loop of one forward, run as the CLI
+    runs it (decode, upload, sliding inference, readback, write), each step
     synchronised so that it is timed on its own."""
     maiac = os.path.join(root, "raw", "plume_identification", "maiac")
     paths = [os.path.join(maiac, f) for f in sorted(os.listdir(maiac))]
-    infer = make_multi_granule_infer(make_fused_apply(model.cfg), ICFG)
+    infer = make_multi_granule_infer(apply_fn, icfg)
     split = dict.fromkeys(["decode", "upload", "infer", "readback", "write"],
                           0.0)
 
@@ -364,15 +389,14 @@ def serving_split(root, model, out_dir):
                 timed("write", lambda: cli._write_prediction(
                     out_dir, name, probs[j, :h, :w]))
     total = sum(split.values())
-    print("fused serving split (s): " + ", ".join(
+    print(f"{label} serving split (s): " + ", ".join(
         f"{k} {v:.3f} ({100 * v / total:.1f}%)" for k, v in split.items()),
         flush=True)
     return split
 
 
-def main_path(model, rng, tmp):
-    """predict_model over 4 granules of 2048², fused then plain, twice each
-    in the order fused, plain, plain, fused."""
+def serving_root(model, rng, tmp):
+    """A root of 4 synthetic 2048² granules and the model's checkpoint."""
     root = os.path.join(tmp, "root")
     maiac = os.path.join(root, "raw", "plume_identification", "maiac")
     os.makedirs(maiac)
@@ -385,38 +409,54 @@ def main_path(model, rng, tmp):
     ckpt = os.path.join(root, "models", "checkpoints")
     save_model_config(ckpt, model.cfg)
     save_weights(ckpt, model)
+    return root
 
-    # forwards per group, from the serving geometry itself
-    stride = ICFG.tile_size - ICFG.overlap
-    padded = ICFG.tile_size + -(-(GRANULE_PX - ICFG.tile_size) // stride) \
+
+def serving_geometry(icfg):
+    """(tiles per granule, forwards of one call), from the serving geometry
+    itself."""
+    stride = icfg.tile_size - icfg.overlap
+    padded = icfg.tile_size + -(-(GRANULE_PX - icfg.tile_size) // stride) \
         * stride
-    n_tiles = len(tile_grid(padded, ICFG.tile_size, stride)) ** 2
-    per_group = -(-n_tiles // _effective_batch(ICFG.batch_tiles, n_tiles))
-    forwards = -(-GRANULES // BATCH_GRANULES) * per_group
-    mpix = GRANULES * GRANULE_PX**2 / 1e6
+    n_tiles = len(tile_grid(padded, icfg.tile_size, stride)) ** 2
+    per_group = -(-n_tiles // _effective_batch(icfg.batch_tiles, n_tiles))
+    return n_tiles, -(-GRANULES // BATCH_GRANULES) * per_group
 
-    fused_conv.LAUNCHES = 0
-    fused_s, fused_preds = serve(root, fused=True)
-    launches = fused_conv.LAUNCHES
-    if launches != 9 * forwards or launches == 0:
-        raise AssertionError(f"K6 launched {launches} times for {forwards} "
-                             "forwards of 9 blocks")
-    plain_s, plain_preds = serve(root, fused=False)
-    plain_s2, _ = serve(root, fused=False)
-    fused_s2, _ = serve(root, fused=True)
 
+def compare_served(got, want):
+    """(max |dp|, share of mask flips, flips where the second is sure)."""
     max_dp, flips, confident_flips = 0.0, 0, 0
-    for k in fused_preds:
-        p, q = fused_preds[k], plain_preds[k]
+    for k in got:
+        p, q = got[k], want[k]
         max_dp = max(max_dp, float(np.abs(p - q).max()))
         flip = (p > 0.5) != (q > 0.5)
         flips += int(flip.sum())
         confident_flips += int((flip & (np.abs(q - 0.5) > PROB_ATOL)).sum())
-    share = flips / (GRANULES * GRANULE_PX**2)
+    return max_dp, flips / (GRANULES * GRANULE_PX**2), confident_flips
+
+
+def main_path(model, root, tmp):
+    """predict_model over 4 granules of 2048², fused then plain, twice each
+    in the order fused, plain, plain, fused."""
+    n_tiles, forwards = serving_geometry(ICFG)
+    mpix = GRANULES * GRANULE_PX**2 / 1e6
+
+    fused_conv.LAUNCHES = 0
+    fused_s, fused_preds = serve(root, "--fused")
+    launches = fused_conv.LAUNCHES
+    if launches != 9 * forwards or launches == 0:
+        raise AssertionError(f"K6 launched {launches} times for {forwards} "
+                             "forwards of 9 blocks")
+    plain_s, plain_preds = serve(root)
+    plain_s2, _ = serve(root)
+    fused_s2, _ = serve(root, "--fused")
+
+    max_dp, share, confident_flips = compare_served(fused_preds, plain_preds)
 
     split_dir = os.path.join(tmp, "split")
     os.makedirs(split_dir)
-    split = serving_split(root, model, split_dir)
+    split = serving_split(root, model, split_dir, make_fused_apply(model.cfg),
+                          ICFG, "fused")
 
     # the forwards alone, at the main path's batch (G granules x tiles)
     x = torch.rand((BATCH_GRANULES * n_tiles, ICFG.tile_size, ICFG.tile_size,
@@ -445,6 +485,321 @@ def main_path(model, rng, tmp):
           f"|p_plain - 0.5| > {PROB_ATOL})", flush=True)
     if max_dp > PROB_ATOL or confident_flips:
         raise AssertionError("fused and plain serving disagree")
+    return res
+
+
+# --------------------------------------------- megakernel serving: K7, K5, P1
+
+def conv_shapes(cfg: UNetConfig, tile: int):
+    """(Cin, Cout, H) of the 2·(2·depth + 1) single convs of the net."""
+    return [shape for cin, cmid, cout, h in block_shapes(cfg, tile)
+            for shape in ((cin, cmid, h), (cmid, cout, h))]
+
+
+def check_single_conv(rng, batch):
+    """K5 vs its plain version at every conv shape of the flagship net at
+    the megakernel tile and two ragged shapes; beside it one cuDNN bf16
+    convolution with scale, shift and ReLU."""
+    cases = [(cin, cout, h, h, batch)
+             for cin, cout, h in conv_shapes(UNetConfig(), MEGA.tile_size)]
+    cases += [(5, 40, 37, 29, 3), (64, 96, 21, 29, 3)]
+    rows = []
+    launches = 0
+    for cin, cout, h, w, b in cases:
+        def bf(*shape, scale=1.0):
+            a = rng.standard_normal(shape, dtype=np.float32) * scale
+            return torch.from_numpy(a).to(DEV).to(torch.bfloat16)
+
+        x = bf(b, h, w, cin)
+        wt = bf(3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5)
+        sc = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32)
+                              ).to(DEV).bfloat16()
+        sh = bf(cout, scale=0.1)
+        args = (x, wt, sc, sh)
+        before = fused_conv.SINGLE_LAUNCHES
+        got = fused_conv.fused_conv3x3_bn_relu(*args)
+        torch.cuda.synchronize()
+        # one launch per call of the entry; the net's shapes are counted
+        if fused_conv.SINGLE_LAUNCHES != before + 1:
+            raise AssertionError("K5: not one launch per call")
+        launches += b == batch
+        ref = fused_conv.conv3x3_bn_relu_ref(*args)
+        err = (got.float() - ref.float()).abs()
+        tol = ATOL + RTOL * ref.float().abs()
+        worst = float((err / tol).max())
+        row = {"cin": cin, "cout": cout, "h": h, "w": w, "batch": b,
+               "max_abs_err": float(err.max()), "err_over_bound": worst}
+        if b == batch:
+            pw = wt.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+
+            def library():
+                y = F.conv2d(x.permute(0, 3, 1, 2), pw, padding=1)
+                return torch.relu(y * sc[:, None, None] + sh[:, None, None])
+
+            row["ms"] = time_ms(
+                lambda: fused_conv.fused_conv3x3_bn_relu(*args))
+            row["library_ms"] = time_ms(library)
+            row["plain_ms"] = time_ms(
+                lambda: fused_conv.conv3x3_bn_relu_ref(*args), reps=3)
+            row["ops"] = 2 * 9 * b * h * w * cin * cout
+            row["bytes"] = sum(a.numel() * a.element_size() for a in args) \
+                + got.numel() * got.element_size()
+            row["bound_ms"], row["bound_by"] = bound(
+                row["bytes"], row["ops"], PEAK_BF16_OPS_PER_S)
+            row["tflops"] = row["ops"] / row["ms"] / 1e9
+        rows.append(row)
+        print(f"K5 {cin:>3}->{cout:>3} {b:>3}x{h}x{w}: max|err| "
+              f"{row['max_abs_err']:.4g} (err/bound {worst:.3f})"
+              + (f", kernel {row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s;"
+                 f" bound {row['bound_ms']:.4f} ms by {row['bound_by']}), "
+                 f"cuDNN bf16 {row['library_ms']:.3f} ms, fp32 ref "
+                 f"{row['plain_ms']:.3f} ms" if "ms" in row else ""),
+              flush=True)
+        if not worst <= 1.0:
+            raise AssertionError(f"K5 disagrees with its plain version at "
+                                 f"{row}: tolerance {ATOL} + {RTOL}*|ref|")
+        del x, got, ref, err, tol, args
+    return rows, launches
+
+
+def mega_tiles(rng, n, tile):
+    """n (tile, tile, 2) model inputs cut from a synthetic granule on the
+    serving stride: AOD and an empty fire channel."""
+    plane = synthetic_channels(rng, 1)[0]
+    starts = tile_grid(GRANULE_PX, tile, tile - MEGA.overlap)
+    side = int(math.ceil(n ** 0.5))
+    tiles = [plane[y:y + tile, x:x + tile]
+             for y in starts[:side] for x in starts[:side]]
+    tiles = (tiles * -(-n // len(tiles)))[:n]     # a coarse grid repeats
+    return torch.from_numpy(np.stack(
+        [np.stack([p, np.zeros_like(p)], -1) for p in tiles])).to(DEV)
+
+
+def compare_logits(name, got, ref, rtol):
+    g, r = got.float().cpu().numpy().ravel(), ref.float().cpu().numpy().ravel()
+    if not (np.isfinite(g).all() and got.shape == ref.shape):
+        raise AssertionError(f"{name}: non-finite or misshapen logits")
+    max_diff, scale = float(np.abs(g - r).max()), float(np.abs(r).max())
+    corr = float(np.corrcoef(g, r)[0, 1])
+    if not (max_diff <= rtol * scale and corr > LOGIT_MIN_CORR):
+        raise AssertionError(
+            f"{name}: max|diff| {max_diff:.4g} of max|logit| {scale:.4g} "
+            f"(allowed {rtol}), corr {corr:.6f}")
+    return {"max_abs_diff": max_diff, "max_abs_logit": scale, "corr": corr}
+
+
+def check_mega(model, rng, batch):
+    """K7 vs its plain version and vs the cuDNN forward: the flagship net
+    over the main path's batch of 96² tiles and over one tile, the same net
+    with the weights of three other seeds over 8 tiles, and a base-8 depth-3
+    net over 64 × 48 inputs; timed at the main path's batch beside
+    the cuDNN and the K6 forward, and at 288² tiles."""
+    apply = unet_mega.make_mega_apply(model.cfg)
+    fused = make_fused_apply(model.cfg)
+    x = mega_tiles(rng, batch, MEGA.tile_size)
+    small_cfg = UNetConfig(base_features=8, depth=3)
+    small = build_model(small_cfg, torch.Generator().manual_seed(SEED + 1)
+                        ).to(DEV).eval()
+    t = MEGA.tile_size
+    cases = [(f"{batch}x{t}^2", model, apply, x),
+             (f"1x{t}^2", model, apply, x[:1]),
+             *[(f"8x{t}^2, weights of seed {seed}",
+                seeded_unet(torch.Generator().manual_seed(seed)), apply, x[:8])
+               for seed in (SEED + 2, SEED + 3, SEED + 4)],
+             ("2x64x48 base 8 depth 3", small,
+              unet_mega.make_mega_apply(small_cfg), torch.from_numpy(
+                  rng.standard_normal((2, 64, 48, 2), dtype=np.float32)
+              ).to(DEV))]
+    res = {"cases": {}}
+    with torch.inference_mode():
+        for name, net, fn, inp in cases:
+            before = unet_mega.LAUNCHES
+            got = fn(net, inp)
+            torch.cuda.synchronize()
+            if unet_mega.LAUNCHES != before + 1:
+                raise AssertionError(f"K7 {name}: not one launch per forward")
+            weights = unet_mega.weights_of(net, torch.bfloat16, DEV)
+            ref = unet_mega.mega_forward_ref(weights.folded, inp)
+            row = compare_logits(f"K7 vs plain version, {name}", got, ref,
+                                 MEGA_RTOL)
+            rounding = unet_mega.mega_forward_ref(
+                weights.folded, inp, head_in_f32=False) - ref
+            row["mean_abs_diff"] = float((got - ref).abs().mean())
+            row["head_rounding_share"] = float(
+                ((got - ref) * rounding).sum() / (rounding * rounding).sum())
+            if not abs(row["head_rounding_share"]) <= MEGA_HEAD_ROUNDING_SHARE:
+                raise AssertionError(
+                    f"K7 {name}: {row['head_rounding_share']:.3f} of the "
+                    "last block's rounding to bf16 shows in the logits: the "
+                    "kernel's head does not read fp32")
+            row["vs_cudnn_forward"] = compare_logits(
+                f"K7 vs cuDNN forward, {name}", got, net(inp), LOGIT_RTOL)
+            res["cases"][name] = row
+            print(f"K7 {name}: max|K7 - plain version| "
+                  f"{row['max_abs_diff']:.4g} of max|logit| "
+                  f"{row['max_abs_logit']:.4g}, corr {row['corr']:.6f}, "
+                  f"mean {row['mean_abs_diff']:.4g}, share of the last "
+                  f"block's rounding {row['head_rounding_share']:.4f}; vs "
+                  f"cuDNN forward {row['vs_cudnn_forward']['max_abs_diff']:.4g}",
+                  flush=True)
+            del got, ref, rounding
+        weights = unet_mega.weights_of(model, torch.bfloat16, DEV)
+        torch.cuda.reset_peak_memory_stats()
+        res["ms"] = time_ms(lambda: apply(model, x))
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["cudnn_forward_ms"] = time_ms(lambda: model(x))
+        res["k6_forward_ms"] = time_ms(lambda: fused(model, x))
+        res["ms_again"] = time_ms(lambda: apply(model, x))
+        res["plain_ms"] = time_ms(
+            lambda: unet_mega.mega_forward_ref(weights.folded, x), reps=2,
+            warmup=1)
+        # the default serving tile, which the TPU's megakernel does not admit
+        big = mega_tiles(rng, batch, ICFG.tile_size)
+        res["ms_288"] = time_ms(lambda: apply(model, big), reps=3, warmup=1)
+        res["cudnn_forward_ms_288"] = time_ms(lambda: model(big), reps=3,
+                                              warmup=1)
+        res["vs_cudnn_forward_288"] = compare_logits(
+            "K7 vs cuDNN forward, 288^2", apply(model, big), model(big),
+            LOGIT_RTOL)
+        del big
+    _plan, scratch_elems = unet_mega._plan(weights.stages, *x.shape[:3])
+    res["scratch_bytes"] = 2 * scratch_elems
+    res["weight_bytes"] = weights.blob.numel()
+    res["stages"] = len(weights.stages)
+    # per tile: every conv, transposed conv and the head, 2 flops per MAC
+    cfg = model.cfg
+    ops = sum(2 * 9 * h * h * (cin * cmid + cmid * cout)
+              for cin, cmid, cout, h in block_shapes(cfg, t))
+    f = [cfg.base_features * 2**i for i in range(cfg.depth + 1)]
+    ops += sum(2 * (t >> (i + 1)) ** 2 * f[i + 1] * 4 * f[i]
+               for i in range(cfg.depth))
+    ops += 2 * t * t * f[0] * cfg.out_channels
+    res["ops"] = ops * batch
+    # compulsory bytes: the input and the logits once, the weights once
+    res["bytes"] = x.numel() * 2 + batch * t * t * cfg.out_channels * 4 \
+        + res["weight_bytes"]
+    res["bound_ms"], res["bound_by"] = bound(res["bytes"], res["ops"],
+                                             PEAK_BF16_OPS_PER_S)
+    res["tflops"] = res["ops"] / res["ms"] / 1e9
+    print(f"K7 forward {batch}x{t}^2: {res['ms']:.3f} / {res['ms_again']:.3f} "
+          f"ms ({res['tflops']:.1f} TFLOP/s; bound {res['bound_ms']:.4f} ms by"
+          f" {res['bound_by']}), cuDNN forward {res['cudnn_forward_ms']:.3f} "
+          f"ms, K6 forward {res['k6_forward_ms']:.3f} ms, plain version "
+          f"{res['plain_ms']:.1f} ms; scratch "
+          f"{res['scratch_bytes'] / 1e6:.1f} MB, weights "
+          f"{res['weight_bytes'] / 1e6:.1f} MB, peak {res['peak_gb']:.2f} GB;"
+          f" at {batch}x288^2 K7 {res['ms_288']:.2f} ms, cuDNN forward "
+          f"{res['cudnn_forward_ms_288']:.2f} ms", flush=True)
+    return res
+
+
+def mega_path(model, root, tmp, forward_ms):
+    """The slice's path: ``predict_model --tile 96 --overlap 32
+    --batch-granules 2`` over the 4 granules of 2048² from a checkpoint
+    whose config says ``use_mega`` (every forward one launch of K7, K6
+    never) and from the same weights without the flag (cuDNN), in the order
+    mega, plain, plain, mega."""
+    mega_ckpt = os.path.join(tmp, "mega_checkpoint")
+    mega_cfg = dataclasses.replace(model.cfg, use_mega=True)
+    save_model_config(mega_ckpt, mega_cfg)
+    save_weights(mega_ckpt, model)
+    flags = ["--tile", str(MEGA.tile_size), "--overlap", str(MEGA.overlap),
+             "--batch-granules", str(BATCH_GRANULES)]
+    n_tiles, forwards = serving_geometry(MEGA)
+    mpix = GRANULES * GRANULE_PX**2 / 1e6
+
+    unet_mega.LAUNCHES = fused_conv.LAUNCHES = 0
+    mega_s, mega_preds = serve(root, *flags, "--checkpoint", mega_ckpt)
+    launches = {"k7": unet_mega.LAUNCHES, "k6": fused_conv.LAUNCHES}
+    if launches["k7"] != forwards or launches["k7"] == 0 or launches["k6"]:
+        raise AssertionError(f"megakernel serving launched {launches} for "
+                             f"{forwards} forwards")
+    plain_s, plain_preds = serve(root, *flags)
+    plain_s2, _ = serve(root, *flags)
+    mega_s2, _ = serve(root, *flags, "--checkpoint", mega_ckpt)
+    if unet_mega.LAUNCHES != 2 * forwards:
+        raise AssertionError("the plain serving runs launched K7")
+    max_dp, share, confident_flips = compare_served(mega_preds, plain_preds)
+
+    split_dir = os.path.join(tmp, "mega_split")
+    os.makedirs(split_dir)
+    mega_model = build_model(mega_cfg).to(DEV).eval()
+    mega_model.load_state_dict(model.state_dict())
+    split = serving_split(root, mega_model, split_dir,
+                          lambda m, x: m(x), MEGA, "megakernel")
+    res = {"granules": GRANULES, "granule_px": GRANULE_PX,
+           "tile": MEGA.tile_size, "overlap": MEGA.overlap,
+           "tiles_per_granule": n_tiles, "forwards": forwards,
+           "launches": launches,
+           "mega_s": [mega_s, mega_s2], "plain_s": [plain_s, plain_s2],
+           "mega_mpix_s": [mpix / mega_s, mpix / mega_s2],
+           "plain_mpix_s": [mpix / plain_s, mpix / plain_s2],
+           "forward_mpix_s": {k: mpix / (forwards * v / 1e3)
+                              for k, v in forward_ms.items()},
+           "max_abs_dprobs": max_dp, "mask_flip_share": share,
+           "confident_flips": confident_flips, "mega_split_s": split}
+    print(f"predict_model --tile {MEGA.tile_size} --overlap {MEGA.overlap} "
+          f"{GRANULES}x{GRANULE_PX}^2: K7 launches {launches['k7']} "
+          f"({forwards} forwards of {BATCH_GRANULES * MEGA.batch_tiles} tiles),"
+          f" K6 launches {launches['k6']}; whole call use_mega "
+          f"{res['mega_mpix_s'][0]:.2f}/{res['mega_mpix_s'][1]:.2f} MPix/s, "
+          f"plain {res['plain_mpix_s'][0]:.2f}/{res['plain_mpix_s'][1]:.2f} "
+          "MPix/s; forwards alone "
+          + ", ".join(f"{k} {v:.1f}" for k, v in res["forward_mpix_s"].items())
+          + f" MPix/s; max|dprobs| {max_dp:.4g}, mask flips {share:.3e} "
+          f"({confident_flips} with |p_plain - 0.5| > {PROB_ATOL})",
+          flush=True)
+    if max_dp > PROB_ATOL or confident_flips:
+        raise AssertionError("megakernel and plain serving disagree")
+    return res
+
+
+def check_probe():
+    """P1: both forms of the kernel equal to the probe's loop and to the
+    plain version, then the probe's own entry point; ns per lookup."""
+    h = w = PROBE_SIZE
+    n = PROBE_LOOKUPS
+    x_np = np.random.default_rng(SEED).integers(0, h * w, (h, w)) \
+        .astype(np.int32)
+    x = torch.from_numpy(x_np).to(DEV)
+    want = scalar_gather_probe.numpy_loop(x_np, n)
+    ref, plain_ms = timed_once(
+        lambda: scalar_gather_probe.gather_probe_ref(x, n))
+    wrong = int((ref.cpu().numpy() != want).sum())
+    for chained in (True, False):
+        got = scalar_gather_probe.gather_probe(x, n, chained)
+        torch.cuda.synchronize()
+        wrong += int((got != ref).sum())
+    if wrong:
+        raise AssertionError(f"P1: {wrong} positions differ from the loop")
+    res = {"h": h, "w": w, "lookups": n, "wrong": wrong,
+           "plain_ms": time_ms(
+               lambda: scalar_gather_probe.gather_probe_ref(x, n)),
+           "ms": time_ms(lambda: scalar_gather_probe.gather_probe(x, n)),
+           "chained_lookups_ms": scalar_gather_probe.time_lookups(x, n, True),
+           "parallel_lookups_ms": scalar_gather_probe.time_lookups(x, n,
+                                                                    False)}
+    res["chained_ns_per_lookup"] = res["chained_lookups_ms"] / n * 1e6
+    res["parallel_ns_per_lookup"] = res["parallel_lookups_ms"] / n * 1e6
+    # the plane read and written once, and per lookup two reads and a write
+    res["bound_ms"], res["bound_by"] = bound(4 * (2 * h * w + 3 * n))
+    # the probe as its user runs it
+    scalar_gather_probe.CHAINED_LAUNCHES = 0
+    scalar_gather_probe.PARALLEL_LAUNCHES = 0
+    if scalar_gather_probe.main([]) != 0:
+        raise AssertionError("the gather probe's entry point failed")
+    res["launches"] = scalar_gather_probe.CHAINED_LAUNCHES \
+        + scalar_gather_probe.PARALLEL_LAUNCHES
+    if not (scalar_gather_probe.CHAINED_LAUNCHES
+            and scalar_gather_probe.PARALLEL_LAUNCHES):
+        raise AssertionError("the gather probe did not launch both forms")
+    print(f"P1 {h}x{w}, {n} lookups: exact in both forms; chained "
+          f"{res['chained_ns_per_lookup']:.1f} ns per lookup, parallel "
+          f"{res['parallel_ns_per_lookup']:.2f} ns per lookup "
+          f"({res['parallel_lookups_ms']:.4f} ms, a launch); whole probe "
+          f"{res['ms']:.4f} ms (bound {res['bound_ms']:.4f} ms by "
+          f"{res['bound_by']}), plain {res['plain_ms']:.4f} ms", flush=True)
     return res
 
 
@@ -1172,7 +1527,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED)
 
-    sources = ["fused_double_conv.cu", "ccl_sweep.cu", "label_counts.cu"]
+    sources = ["unet_mega.cu", "fused_double_conv.cu", "fused_conv.cu",
+               "scalar_gather_probe.cu", "ccl_sweep.cu", "label_counts.cu"]
     t0 = time.perf_counter()
     cuda_build.load_libraries(sources)
     build_s = time.perf_counter() - t0
@@ -1185,13 +1541,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(line)
 
-    # serving: K6
+    # megakernel serving (K7), then K5 and P1, then serving with K6
     batch = BATCH_GRANULES * ICFG.batch_tiles
-    kernel_rows = check_kernel(rng, batch)
     model = seeded_unet(torch.Generator().manual_seed(SEED))
-    forward = check_forward(model, rng)
+    mega = check_mega(model, rng, batch)
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
-        served = main_path(model, rng, tmp)
+        root = serving_root(model, rng, tmp)
+        mega_served = mega_path(model, root, tmp, {
+            "k7": mega["ms"], "cudnn": mega["cudnn_forward_ms"],
+            "k6": mega["k6_forward_ms"]})
+        torch.cuda.empty_cache()
+        single_rows, single_launches = check_single_conv(rng, batch)
+        probe = check_probe()
+        kernel_rows = check_kernel(rng, batch)
+        forward = check_forward(model, rng)
+        served = main_path(model, root, tmp)
     del model
     torch.cuda.empty_cache()
 
@@ -1211,6 +1575,10 @@ def main() -> int:
                                                    GAUSS_SCENE)
 
     timed = [r for r in kernel_rows if "ms" in r]
+    single = [r for r in single_rows if "ms" in r]
+    single_share = {kind: sum(r["bound_ms"] for r in single
+                              if r["bound_by"] == kind)
+                    for kind in ("bytes", "operations")}
     # each block has its own bound; the forward's is their sum, named by
     # whichever kind bounds the larger share of it
     k6_bound = [bound(r["bytes"], r["ops"], PEAK_BF16_OPS_PER_S)
@@ -1272,7 +1640,49 @@ def main() -> int:
                   "plumekit/ops/pallas/ccl_banded.py:321", swath_ccl,
                   features["launches"]["k1"]
                   + gaussian_features["launches"]["k1"], ccl_rows,
-                  same_kernel_as="multi_threshold_ccl_fused")]
+                  same_kernel_as="multi_threshold_ccl_fused"), {
+        "name": "fused_conv3x3_bn_relu", "route": "cuda",
+        "source": "plumekit_torch/csrc/fused_conv.cu",
+        "replaces": "plumekit/models/pallas/fused_conv.py:259",
+        # a library entry that no command calls, as in the JAX package:
+        # this run's calls of the entry at the net's shapes, one launch each
+        "launches": single_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in single_rows),
+        "ms": sum(r["ms"] for r in single),
+        "plain_ms": sum(r["plain_ms"] for r in single),
+        "bound_ms": sum(r["bound_ms"] for r in single),
+        "bound_by": max(single_share, key=single_share.get),
+        # one cuDNN bf16 convolution with scale, shift and ReLU per shape
+        "library_ms": sum(r["library_ms"] for r in single),
+        "at": f"the 18 convs of one forward at tile {MEGA.tile_size}, "
+              f"batch {batch}"}, {
+        "name": "mega_forward", "route": "cuda",
+        "source": "plumekit_torch/csrc/unet_mega.cu",
+        "replaces": "plumekit/models/pallas/unet_mega.py:364",
+        "launches": mega_served["launches"]["k7"],
+        "max_abs_err": max(c["max_abs_diff"] for c in mega["cases"].values()),
+        "ms": mega["ms"], "plain_ms": mega["plain_ms"],
+        "bound_ms": mega["bound_ms"], "bound_by": mega["bound_by"],
+        # the plain forward: cuDNN bf16 convolutions, BatchNorm not folded
+        "library_ms": mega["cudnn_forward_ms"],
+        "at": f"one forward of UNetConfig(), {batch} tiles of "
+              f"{MEGA.tile_size}x{MEGA.tile_size}"}, {
+        "name": "scalar_gather_probe", "route": "cuda",
+        "source": "plumekit_torch/csrc/scalar_gather_probe.cu",
+        "replaces": "experiments/scalar_dma_probe.py:85",
+        # launches of the probe's own entry point (python -m
+        # plumekit_torch.experiments.scalar_gather_probe), both forms
+        "launches": probe["launches"],
+        "max_abs_err": probe["wrong"],
+        "ms": probe["ms"], "plain_ms": probe["plain_ms"],
+        # the bytes' time is below a kernel launch (about 0.003 ms), which
+        # is what bounds the probe at this size
+        "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
+        "library_ms": None,
+        "chained_ns_per_lookup": probe["chained_ns_per_lookup"],
+        "parallel_ns_per_lookup": probe["parallel_ns_per_lookup"],
+        "at": f"{PROBE_SIZE}x{PROBE_SIZE}, {PROBE_LOOKUPS} lookups, copy "
+              "plus the parallel form"}]
     copy_rate = measured_copy_rate()
     for k in kernels:
         k["bound_at_copy_rate_ms"] = k["bound_ms"] * (
@@ -1286,6 +1696,8 @@ def main() -> int:
                    "build_s": build_s,
                    "builds": {k: v["seconds"]
                               for k, v in cuda_build.BUILD_LOG.items()},
+                   "mega": mega, "mega_serving": mega_served,
+                   "single_conv_rows": single_rows, "probe": probe,
                    "kernel_rows": kernel_rows, "forward": forward,
                    "serving": served, "ccl_rows": ccl_rows,
                    "count_rows": count_rows, "identify": sweeps,

@@ -29,7 +29,9 @@ class UNetConfig:
     #: inference through the hand-written fused double-conv kernel
     #: (``models/kernels/fused_conv.py``) instead of the plain forward
     use_pallas: bool = False
-    #: whole-forward megakernel (not ported yet)
+    #: inference through the whole-forward kernel
+    #: (``models/kernels/unet_mega.py``) where ``mega_eligible`` holds; read
+    #: before ``use_pallas``
     use_mega: bool = False
 
 

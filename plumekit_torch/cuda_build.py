@@ -3,9 +3,10 @@
 Each ``.cu`` file there is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, loaded with :mod:`ctypes`. The
 library lands in ``build/plumekit_torch/`` beside the package, named by a
-hash of its source, so an edited source rebuilds and an unchanged one loads
-at once. :func:`load_libraries` compiles several sources side by side.
-Nothing here runs when the package is imported.
+hash of its source and of the headers (``*.cuh``) beside it, so an edited
+source or header rebuilds and an unchanged one loads at once.
+:func:`load_libraries` compiles several sources side by side. Nothing here
+runs when the package is imported.
 """
 
 from __future__ import annotations
@@ -41,10 +42,15 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
+    """The library of ``csrc/<source>``, named by a hash of the source, of
+    every header beside it (a source may include any of them, and an edited
+    header must not load a stale library) and of the compiler flags."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def load_libraries(sources: Iterable[str]) -> Dict[str, ctypes.CDLL]:
@@ -87,3 +93,17 @@ def load_library(source: str) -> ctypes.CDLL:
     already loaded is returned without reading or hashing its source."""
     lib = _LOADED.get(source)
     return lib if lib is not None else load_libraries([source])[source]
+
+
+def load_entry(source: str, entry: str, argtypes) -> ctypes.CDLL:
+    """The library of ``csrc/<source>`` with the signature of its launch
+    function ``entry`` set: ``argtypes`` in, a ``cudaError_t`` out, which
+    the library's ``pk_error_string`` turns into text."""
+    lib = load_library(source)
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.pk_error_string.argtypes = [ctypes.c_int]
+        lib.pk_error_string.restype = ctypes.c_char_p
+    return lib

@@ -41,10 +41,6 @@ def build_model(cfg: UNetConfig,
         raise NotImplementedError(
             "UNet++ (arch='unetpp', deep supervision, prune levels) is not "
             "ported to plumekit_torch yet (ROADMAP.md, queue A: 'UNet++')")
-    if cfg.use_mega:
-        raise NotImplementedError(
-            "the whole-forward megakernel (use_mega, K7) is not ported to "
-            "plumekit_torch yet (ROADMAP.md, queue B: K7)")
     if cfg.arch != "unet":
         raise ValueError(f"unknown UNetConfig.arch {cfg.arch!r} "
                          "(expected 'unet' or 'unetpp')")

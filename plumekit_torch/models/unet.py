@@ -5,6 +5,9 @@ The public interface is NHWC, as in the JAX package: ``UNet(cfg)(x)`` takes
 H and W divisible by ``2**depth``. Parameters are fp32 masters cast to the
 compute dtype per op; normalisation uses running statistics. Inside, the
 plain forward runs NCHW tensors in the channels-last memory format.
+``cfg.use_mega`` routes an eligible batch through the whole-forward kernel
+and ``cfg.use_pallas`` through the fused double-conv kernel, in that order,
+as the JAX module reads its flags.
 
 Layer order mirrors the flax module tree, which ``plumekit_torch.convert``
 maps one to one: ``blocks[i]`` is ``DoubleConv_i`` (encoder, bottleneck,
@@ -89,6 +92,15 @@ class UNet(nn.Module):
 
     def forward(self, x):
         cfg = self.cfg
+        if cfg.use_mega and cfg.norm == "batch":
+            from plumekit_torch.models.kernels.unet_mega import (
+                make_mega_apply, mega_eligible)
+
+            # the whole forward in one kernel launch where the config and
+            # the tile shape allow it; an ineligible shape falls through,
+            # as in the JAX package, and nothing else does
+            if mega_eligible(cfg, x.shape[1], x.shape[2]):
+                return make_mega_apply(cfg)(self, x)
         if cfg.use_pallas and cfg.norm == "batch":
             # the flag is read inside the module, as in the JAX package:
             # inference replays the net through the fused kernel

@@ -127,6 +127,59 @@ def test_predict_model_fused_matches_jax_cli(tmp_path):
         assert float(got[f]["threshold"]) == 0.5
 
 
+def test_predict_model_use_mega_checkpoint_matches_jax_cli(tmp_path,
+                                                           monkeypatch):
+    """A checkpoint whose model_config.json says ``use_mega`` is served
+    through the whole-forward path by both CLIs (its plain version here, the
+    Pallas megakernel in interpret mode there) to the same prediction files;
+    ``--fused`` on the same checkpoint takes the double-conv path instead,
+    as in the JAX CLI."""
+    from plumekit_torch.models.kernels import unet_mega
+    from plumekit_torch.train.checkpoint import load_model_config
+
+    root, ckpt = _root(tmp_path)
+    save_model_config(ckpt, UNetConfig(**KW, use_mega=True))
+    assert load_model_config(ckpt).use_mega
+    assert jax_main(["predict_model", "--root", root] + SERVE) == 0
+    want = _predictions(root)
+    state = create_state(jax.random.PRNGKey(0), JaxUNetConfig(**KW),
+                         TrainConfig())
+    variables = jax.tree.map(np.asarray, {"params": state.params,
+                                          "batch_stats": state.batch_stats})
+    model = build_model(UNetConfig(**KW))
+    model.load_state_dict(from_flax(variables))
+    save_weights(ckpt, model)
+
+    calls = []
+    real = unet_mega.mega_forward_ref
+
+    def counted(weights, x):
+        calls.append(tuple(x.shape))
+        return real(weights, x)
+
+    monkeypatch.setattr(unet_mega, "mega_forward_ref", counted)
+    assert cli.main(["predict_model", "--root", root, "--device", "cpu"]
+                    + SERVE) == 0
+    got = _predictions(root)
+    served = len(calls)
+    assert cli.main(["predict_model", "--root", root, "--device", "cpu",
+                     "--fused"] + SERVE) == 0
+    fused = _predictions(root)
+    assert served > 0 and len(calls) == served     # --fused took K6's path
+    assert all(shape[1:3] == (32, 32) for shape in calls)
+    assert sorted(got) == ["g0_pred.npz", "g1_pred.npz"] == sorted(want)
+    for f in got:
+        p, q = got[f]["probs"], want[f]["probs"]
+        assert p.shape == q.shape == (64, 64) and p.dtype == np.float32
+        np.testing.assert_allclose(p, q, atol=PROB_TOL, rtol=0)
+        np.testing.assert_allclose(fused[f]["probs"], q, atol=PROB_TOL,
+                                   rtol=0)
+        sure = np.abs(q - 0.5) > PROB_TOL
+        np.testing.assert_array_equal(got[f]["mask"][sure],
+                                      want[f]["mask"][sure])
+        assert float(got[f]["threshold"]) == 0.5
+
+
 def test_predict_model_threshold_resolution(tmp_path):
     root, ckpt = _root(tmp_path)
     save_weights(ckpt, build_model(UNetConfig(**KW),

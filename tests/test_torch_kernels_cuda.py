@@ -1,8 +1,12 @@
-"""The CUDA kernels K1/K4 and K2 (multi-threshold CCL), K3 (label counts)
-and K6 (fused double conv) against their plain PyTorch versions on the
-card: labels and counts are integers, so equal bit for bit; K6 rounds to
-bf16 from fp32 sums in another order, so two bf16 steps (2^-6 absolute
-plus 2^-6 relative). Every test here needs a card and skips
+"""The CUDA kernels K1/K4 and K2 (multi-threshold CCL), K3 (label counts),
+K5 and K6 (fused single and double conv), K7 (the whole U-Net forward) and
+P1 (the gather probe) against their plain PyTorch versions on the
+card: labels, counts and lookups are integers, so equal bit for bit; K5 and
+K6 round to bf16 from fp32 sums in another order, so two bf16 steps (2^-6
+absolute plus 2^-6 relative); K7 rounds at 18 convs and 4 transposed convs in
+a row, where one flipped rounding spreads, so 2% of the largest logit and a
+correlation above 0.999, and a projection that tells the fp32 head from a
+rounded one. Every test here needs a card and skips
 without one; the file imports no JAX, so it runs on a machine with only
 the port installed:
 ``python -m pytest --noconftest -p no:cacheprovider -m cuda
@@ -16,7 +20,12 @@ import sys
 import pytest
 import torch
 
-from plumekit_torch.models.kernels import fused_conv
+import numpy as np
+
+from plumekit_torch.config import UNetConfig
+from plumekit_torch.experiments import scalar_gather_probe
+from plumekit_torch.models import build_model
+from plumekit_torch.models.kernels import fused_conv, unet_mega
 from plumekit_torch.ops.kernels import ccl_sweep, label_counts
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -24,12 +33,20 @@ from torch_ccl_cases import (CASES, MASK_CASES, double_conv_case,  # noqa: E402
                              label_count_case)
 
 BF16_ATOL = BF16_RTOL = 2.0 ** -6
+LOGIT_RTOL, LOGIT_MIN_CORR = 2e-2, 0.999
+# K7's distance to its plain version projected on what rounding the last
+# block to bf16 before the head does to the plain version's logits: 0 for a
+# head that reads fp32, 1 for one that reads the rounded block
+HEAD_ROUNDING_SHARE = 0.25
 
 
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    # the plain versions' fp32 convs in full fp32, not TF32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -80,6 +97,137 @@ def test_kernel_matches_plain_version_on_the_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 37, 29, 5), 40), ((1, 16, 24, 8), 16), ((2, 20, 20, 64), 128),
+    ((3, 16, 16, 2), 32)])
+def test_single_conv_kernel_matches_plain_version(card, shape, cout):
+    """K5 at ragged shapes, an unaligned input width and one that needs no
+    padding (``chip_smoke.py`` covers every U-Net shape)."""
+    arrays = [torch.from_numpy(a).to(card).to(torch.bfloat16)
+              for a in double_conv_case(5, shape, cout, 8)[:4]]
+    before = fused_conv.SINGLE_LAUNCHES
+    got = fused_conv.fused_conv3x3_bn_relu(*arrays)
+    torch.cuda.synchronize()
+    assert fused_conv.SINGLE_LAUNCHES == before + 1
+    ref = fused_conv.conv3x3_bn_relu_ref(*arrays).float()
+    err = (got.float() - ref).abs()
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert bool((err <= BF16_ATOL + BF16_RTOL * ref.abs()).all())
+
+
+def mega_case(cfg, shape, seed, device):
+    """A seeded U-Net with nontrivial BatchNorm parameters and running
+    statistics on ``device``, and an input."""
+    g = torch.Generator().manual_seed(seed)
+    model = build_model(cfg, g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                m.weight.mul_(2.0 ** 0.5)
+            if isinstance(m, torch.nn.ConvTranspose2d):
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(torch.rand(n, generator=g) + 0.5)
+                m.bias.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_var.copy_(torch.rand(n, generator=g) * 1.5 + 0.5)
+        model.head.bias.copy_(0.1 * torch.randn(model.head.bias.shape,
+                                                generator=g))
+    x = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=shape).astype(np.float32))
+    return model.to(device).eval(), x.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [7, 8, 9])
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 32, 32, 2), dict(base_features=8, depth=2)),
+    ((2, 64, 48, 2), dict(base_features=8, depth=3)),
+    ((1, 64, 64, 3), dict(in_channels=3, base_features=8, depth=4,
+                          out_channels=3)),
+    ((3, 16, 24, 2), dict(base_features=12, depth=1)),
+    ((2, 96, 96, 2), dict()),             # UNetConfig(): base 32, depth 4
+    ((1, 32, 32, 2), dict(base_features=160, depth=1))])  # 8x8 tiles at level 0
+def test_mega_kernel_matches_plain_version(card, shape, kw, seed):
+    cfg = UNetConfig(**kw)
+    model, x = mega_case(cfg, shape, seed, card)
+    assert unet_mega.mega_eligible(cfg, shape[1], shape[2])
+    apply = unet_mega.make_mega_apply(cfg)
+    before = unet_mega.LAUNCHES
+    got = apply(model, x)
+    torch.cuda.synchronize()
+    assert unet_mega.LAUNCHES == before + 1
+    weights = unet_mega.weights_of(model, torch.bfloat16, x.device)
+    ref = unet_mega.mega_forward_ref(weights.folded, x)
+    assert got.shape == ref.shape == shape[:3] + (cfg.out_channels,)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    g, r = got.cpu().numpy().ravel(), ref.cpu().numpy().ravel()
+    assert np.abs(g - r).max() <= LOGIT_RTOL * np.abs(r).max()
+    assert np.corrcoef(g, r)[0, 1] > LOGIT_MIN_CORR
+    # the head reads the last block in fp32: none of that block's rounding
+    # to bf16 shows in the kernel's logits
+    rounding = unet_mega.mega_forward_ref(weights.folded, x,
+                                          head_in_f32=False) - ref
+    share = float(((got - ref) * rounding).sum() / (rounding * rounding).sum())
+    assert abs(share) <= HEAD_ROUNDING_SHARE
+    # the weights were packed once: a second forward reuses them
+    assert unet_mega.weights_of(model, torch.bfloat16, x.device) is weights
+    again = apply(model, x)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_use_mega_routes_the_module_through_the_kernel(card):
+    cfg = UNetConfig(base_features=8, depth=2, use_mega=True)
+    model, x = mega_case(cfg, (2, 32, 32, 2), 3, card)
+    before = unet_mega.LAUNCHES, fused_conv.LAUNCHES
+    with torch.inference_mode():
+        got = model(x)
+        ragged = model(x[:, :, :28])       # 28 % 4 == 0 but 32 x 28: eligible
+        odd = model(x[:, :4, :4])          # 1-px bottleneck: falls through
+    assert (unet_mega.LAUNCHES, fused_conv.LAUNCHES) == (before[0] + 2,
+                                                         before[1])
+    assert ragged.shape == (2, 32, 28, 1) and odd.shape == (2, 4, 4, 1)
+    plain = build_model(UNetConfig(base_features=8, depth=2)).to(card).eval()
+    plain.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        want = plain(x)
+    assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
+    # fp32 compute: the card's kernel is bf16 only and the module raises, as
+    # the fused double conv does; no other forward runs under the flag
+    f32 = build_model(UNetConfig(base_features=8, depth=2, use_mega=True,
+                                 compute_dtype="float32")).to(card).eval()
+    f32.load_state_dict(model.state_dict())
+    with torch.inference_mode(), pytest.raises(ValueError, match="bf16 only"):
+        f32(x)
+    with pytest.raises(ValueError, match="bf16 only"):
+        unet_mega.make_mega_apply(f32.cfg)(f32, x)
+    assert unet_mega.LAUNCHES == before[0] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,n", [(1024, 1024, 1024), (100, 100, 64),
+                                   (64, 257, 32), (40, 2000, 2048)])
+def test_gather_probe_kernels_match_plain_version(card, h, w, n):
+    x_np = np.random.default_rng(h + n).integers(0, h * w, (h, w)) \
+        .astype(np.int32)
+    x = torch.from_numpy(x_np).to(card)
+    want = scalar_gather_probe.numpy_loop(x_np, n)
+    ref = scalar_gather_probe.gather_probe_ref(x, n)
+    assert np.array_equal(ref.cpu().numpy(), want)
+    before = (scalar_gather_probe.CHAINED_LAUNCHES,
+              scalar_gather_probe.PARALLEL_LAUNCHES)
+    for chained in (True, False):
+        got = scalar_gather_probe.gather_probe(x, n, chained)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+    assert (scalar_gather_probe.CHAINED_LAUNCHES,
+            scalar_gather_probe.PARALLEL_LAUNCHES) == (before[0] + 1,
+                                                       before[1] + 1)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,f", [
     ((3, 64, 64), 1), ((5, 100, 190), 16), ((2, 257, 129), 128),
     ((1, 8, 128), 128), ((3, 61, 203), 5), ((20, 1201, 997), 64)])
@@ -110,6 +258,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         ccl_sweep.multi_threshold_ccl(masks.transpose(1, 2))
     with pytest.raises(ValueError, match="connectivity"):
         ccl_sweep.multi_threshold_ccl(masks, 3)
+    x = torch.zeros((1, 8, 8, 4), device=card)
+    w = torch.zeros((3, 3, 4, 8), device=card)
+    with pytest.raises(ValueError, match="bf16"):
+        fused_conv.fused_conv3x3_bn_relu(x, w, w[0, 0, 0], w[0, 0, 0])
+    with pytest.raises(ValueError, match="do not fit"):
+        fused_conv.fused_conv3x3_bn_relu(x.bfloat16(), w[:, :, :3],
+                                         w[0, 0, 0], w[0, 0, 0])
+    with pytest.raises(ValueError, match="int32"):
+        scalar_gather_probe.gather_probe(x[0, :, :, 0], 32)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        scalar_gather_probe.gather_probe(
+            torch.zeros((64, 64), dtype=torch.int32, device=card), 40)
     labels = torch.zeros((2, 8, 8), dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="capacity"):
         label_counts.fire_label_counts(

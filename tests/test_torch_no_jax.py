@@ -15,10 +15,14 @@ names = [m.name for m in pkgutil.walk_packages(plumekit_torch.__path__,
                                                "plumekit_torch.")]
 for name in names:
     importlib.import_module(name)
+needed = {"plumekit_torch.models.kernels.unet_mega",
+          "plumekit_torch.models.kernels.fused_conv",
+          "plumekit_torch.experiments.scalar_gather_probe"}
 banned = {"jax", "jaxlib", "flax", "orbax", "pandas", "plumekit"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
-print(len(names), "modules;", "loaded:", loaded)
-sys.exit(1 if loaded or len(names) < 15 else 0)
+missing = sorted(needed - set(names))
+print(len(names), "modules;", "loaded:", loaded, "missing:", missing)
+sys.exit(1 if loaded or missing or len(names) < 15 else 0)
 """
 
 

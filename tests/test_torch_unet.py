@@ -143,8 +143,6 @@ def test_from_flax_to_flax_round_trip(norm):
 def test_build_model_refuses_unported_architectures():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(UNetConfig(arch="unetpp"))
-    with pytest.raises(NotImplementedError, match="K7"):
-        build_model(UNetConfig(use_mega=True))
     g = torch.Generator().manual_seed(0)
     a = build_model(UNetConfig(base_features=4, depth=1), g).state_dict()
     b = build_model(UNetConfig(base_features=4, depth=1),
