@@ -9,10 +9,16 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   the four 2048² granules served through ``predict_model --tile 96
   --overlap 32`` from a checkpoint that says ``use_mega`` (K7 must launch
   once per forward and K6 not at all) and from one that does not; K5 (one
-  fused conv) at the net's 18 conv shapes and P1 (the gather probe, both
-  forms) against their plain versions;
+  fused conv) at the net's 18 conv shapes, timed on weights packed once,
+  and at ragged and tiny planes for every tile geometry and image grouping
+  the tile rule picks, and P1 (the gather probe, both forms) against their
+  plain versions;
 * serving: K6 (fused double conv) against its plain PyTorch version at
-  every U-Net block shape, the flagship U-Net (``UNetConfig()``: base 32,
+  every U-Net block shape of tile 288 and of tile 96 (timed on weights
+  packed once, beside cuDNN, with the tile chosen, its fill and the bound
+  per shape) and at ragged and tiny planes (one image, a batch that is no
+  multiple of the images per block, planes smaller than a tile); two runs
+  of K5 and of K6 must be equal bit for bit; the flagship U-Net (``UNetConfig()``: base 32,
   depth 4, bf16) through the fused and the plain forward, then four
   synthetic 2048² granules served end to end through ``predict_model
   --fused`` and through the plain forward;
@@ -75,7 +81,8 @@ from plumekit_torch.io.granule import Granule, save_granule  # noqa: E402
 from plumekit_torch.models import build_model  # noqa: E402
 from plumekit_torch.models.fused_forward import make_fused_apply  # noqa: E402
 from plumekit_torch.experiments import scalar_gather_probe  # noqa: E402
-from plumekit_torch.models.kernels import fused_conv, unet_mega  # noqa: E402
+from plumekit_torch.models.kernels import (  # noqa: E402
+    conv_tiles, fused_conv, unet_mega)
 from plumekit_torch.train.checkpoint import (  # noqa: E402
     save_model_config, save_weights)
 from plumekit_torch.config.identify import (  # noqa: E402
@@ -208,14 +215,30 @@ def plain_bf16_double_conv(x, w1, s1, b1, w2, s2, b2):
         .permute(0, 2, 3, 1)
 
 
+def tile_of(tile):
+    """What the kernel table says of a tile the rule picked."""
+    return {"path": tile.path, "tile": [tile.th, tile.tw, tile.images],
+            "fill": tile.fill, "smem": tile.smem}
+
+
 def check_kernel(rng, batch):
-    """K6 vs its plain version at every block shape and an odd shape."""
-    cases = [(cin, cmid, cout, h, h, batch) for cin, cmid, cout, h
-             in block_shapes(UNetConfig(), ICFG.tile_size)]
-    # odd H and W (ragged tiles), an unaligned Cin, both tile geometries
-    cases += [(5, 32, 32, 37, 29, 3), (64, 256, 256, 29, 21, 3)]
+    """K6 vs its plain version at every block shape of the serving tile
+    (288) and of the megakernel's tile (96), timed on weights packed once
+    beside cuDNN, and at ragged and tiny planes for every tile geometry and
+    image grouping the rule picks: one image, a batch that is no multiple of
+    the group, planes smaller than a tile, unaligned and odd channels. Two
+    runs of the kernel must be equal bit for bit."""
+    cases = [(cin, cmid, cout, h, h, batch, str(tile))
+             for tile in (ICFG.tile_size, MEGA.tile_size)
+             for cin, cmid, cout, h in block_shapes(UNetConfig(), tile)]
+    cases += [(5, 32, 32, 37, 29, 3, "ragged"),        # mma.sync, ragged
+              (64, 256, 256, 29, 21, 3, "ragged"),     # wgmma, ragged tiles
+              (5, 200, 40, 37, 29, 2, "ragged"),
+              (2, 512, 130, 6, 6, 3, "ragged"),        # 2 images a block, B=3
+              (512, 512, 37, 3, 5, 1, "ragged"),       # 4 a block, B=1, odd
+              (64, 128, 128, 18, 18, 1, "ragged")]
     rows = []
-    for cin, cmid, cout, h, w, b in cases:
+    for cin, cmid, cout, h, w, b, kind in cases:
         def bf(*shape, scale=1.0):
             a = rng.standard_normal(shape, dtype=np.float32) * scale
             return torch.from_numpy(a).to(DEV).to(torch.bfloat16)
@@ -231,19 +254,31 @@ def check_kernel(rng, batch):
         args = (x, w1, s1, b1, w2, s2, b2)
         got = fused_conv.fused_double_conv3x3_bn_relu(*args)
         torch.cuda.synchronize()
+        packed = fused_conv.pack_double_conv(*args[1:])
+        if not torch.equal(
+                fused_conv.fused_double_conv3x3_bn_relu_packed(x, packed),
+                got):
+            raise AssertionError("K6: two runs differ")
         ref = fused_conv.double_conv3x3_bn_relu_ref(*args)
         err = (got.float() - ref.float()).abs()
-        bound = ATOL + RTOL * ref.float().abs()
-        worst = float((err / bound).max())
+        tol = ATOL + RTOL * ref.float().abs()
+        worst = float((err / tol).max())
         max_abs = float(err.max())
+        tile = conv_tiles.double_conv_tile(h, w, cin, cmid, cout)
         row = {"cin": cin, "cmid": cmid, "cout": cout, "h": h, "w": w,
-               "batch": b, "max_abs_err": max_abs, "err_over_bound": worst}
+               "batch": b, "set": kind, "max_abs_err": max_abs,
+               "err_over_bound": worst, **tile_of(tile)}
         if b == batch:
             pw1 = w1.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
             pw2 = w2.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
+            # the kernel alone: weights packed once, as the fused forward
+            # holds them; beside it the raw-weight entry, which packs per call
             row["ms"] = time_ms(
+                lambda: fused_conv.fused_double_conv3x3_bn_relu_packed(
+                    x, packed))
+            row["wrapper_ms"] = time_ms(
                 lambda: fused_conv.fused_double_conv3x3_bn_relu(*args))
             row["plain_ms"] = time_ms(lambda: plain_bf16_double_conv(
                 x, pw1, s1, b1, pw2, s2, b2))
@@ -252,18 +287,24 @@ def check_kernel(rng, batch):
             row["ops"] = 2 * 9 * b * h * w * (cin * cmid + cmid * cout)
             row["bytes"] = sum(a.numel() * a.element_size() for a in args) \
                 + got.numel() * got.element_size()
+            row["bound_ms"], row["bound_by"] = bound(
+                row["bytes"], row["ops"], PEAK_BF16_OPS_PER_S)
             row["tflops"] = row["ops"] / row["ms"] / 1e9
         rows.append(row)
-        print(f"K6 {cin:>3}->{cmid:>3}->{cout:>3} {b:>3}x{h}x{w}: "
-              f"max|err| {max_abs:.4g} (err/bound {worst:.3f})"
-              + (f", kernel {row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s),"
-                 f" plain cuDNN bf16 {row['plain_ms']:.3f} ms, fp32 ref "
+        print(f"K6 {cin:>3}->{cmid:>3}->{cout:>3} {b:>3}x{h}x{w} "
+              f"[{tile.path} {tile.th}x{tile.tw}x{tile.images}, fill "
+              f"{tile.fill:.2f}]: max|err| {max_abs:.4g} (err/bound "
+              f"{worst:.3f})"
+              + (f", kernel {row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s; "
+                 f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}; with "
+                 f"packing {row['wrapper_ms']:.3f}), cuDNN bf16 "
+                 f"{row['plain_ms']:.3f} ms, fp32 ref "
                  f"{row['ref_fp32_ms']:.3f} ms" if "ms" in row else ""),
               flush=True)
         if not worst <= 1.0:
             raise AssertionError(f"K6 disagrees with its plain version at "
                                  f"{row}: tolerance {ATOL} + {RTOL}*|ref|")
-        del x, got, ref, err, bound, args
+        del x, got, ref, err, tol, args, packed
     return rows
 
 
@@ -498,11 +539,17 @@ def conv_shapes(cfg: UNetConfig, tile: int):
 
 def check_single_conv(rng, batch):
     """K5 vs its plain version at every conv shape of the flagship net at
-    the megakernel tile and two ragged shapes; beside it one cuDNN bf16
-    convolution with scale, shift and ReLU."""
+    the megakernel tile, timed on weights packed once beside one cuDNN bf16
+    convolution with scale, shift and ReLU, and at ragged and tiny planes
+    for every tile geometry and image grouping the rule picks. Two runs of
+    the kernel must be equal bit for bit."""
     cases = [(cin, cout, h, h, batch)
              for cin, cout, h in conv_shapes(UNetConfig(), MEGA.tile_size)]
-    cases += [(5, 40, 37, 29, 3), (64, 96, 21, 29, 3)]
+    cases += [(5, 40, 37, 29, 3),           # mma.sync, ragged
+              (64, 96, 21, 29, 3),          # wgmma, ragged tiles
+              (512, 512, 6, 6, 3),          # 4 images a block, B = 3
+              (2, 129, 3, 5, 1),            # 7 a block, B = 1, odd Cout
+              (256, 200, 18, 18, 5)]
     rows = []
     launches = 0
     for cin, cout, h, w, b in cases:
@@ -523,12 +570,18 @@ def check_single_conv(rng, batch):
         if fused_conv.SINGLE_LAUNCHES != before + 1:
             raise AssertionError("K5: not one launch per call")
         launches += b == batch
+        packed = fused_conv.pack_single_conv(wt, sc, sh)
+        if not torch.equal(fused_conv.fused_conv3x3_bn_relu_packed(x, packed),
+                           got):
+            raise AssertionError("K5: two runs differ")
         ref = fused_conv.conv3x3_bn_relu_ref(*args)
         err = (got.float() - ref.float()).abs()
         tol = ATOL + RTOL * ref.float().abs()
         worst = float((err / tol).max())
+        tile = conv_tiles.single_conv_tile(h, w, cin, cout)
         row = {"cin": cin, "cout": cout, "h": h, "w": w, "batch": b,
-               "max_abs_err": float(err.max()), "err_over_bound": worst}
+               "max_abs_err": float(err.max()), "err_over_bound": worst,
+               **tile_of(tile)}
         if b == batch:
             pw = wt.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
@@ -538,6 +591,8 @@ def check_single_conv(rng, batch):
                 return torch.relu(y * sc[:, None, None] + sh[:, None, None])
 
             row["ms"] = time_ms(
+                lambda: fused_conv.fused_conv3x3_bn_relu_packed(x, packed))
+            row["wrapper_ms"] = time_ms(
                 lambda: fused_conv.fused_conv3x3_bn_relu(*args))
             row["library_ms"] = time_ms(library)
             row["plain_ms"] = time_ms(
@@ -549,17 +604,19 @@ def check_single_conv(rng, batch):
                 row["bytes"], row["ops"], PEAK_BF16_OPS_PER_S)
             row["tflops"] = row["ops"] / row["ms"] / 1e9
         rows.append(row)
-        print(f"K5 {cin:>3}->{cout:>3} {b:>3}x{h}x{w}: max|err| "
-              f"{row['max_abs_err']:.4g} (err/bound {worst:.3f})"
+        print(f"K5 {cin:>3}->{cout:>3} {b:>3}x{h}x{w} [{tile.path} "
+              f"{tile.th}x{tile.tw}x{tile.images}, fill {tile.fill:.2f}]: "
+              f"max|err| {row['max_abs_err']:.4g} (err/bound {worst:.3f})"
               + (f", kernel {row['ms']:.3f} ms ({row['tflops']:.1f} TFLOP/s;"
-                 f" bound {row['bound_ms']:.4f} ms by {row['bound_by']}), "
+                 f" bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
+                 f"with packing {row['wrapper_ms']:.3f}), "
                  f"cuDNN bf16 {row['library_ms']:.3f} ms, fp32 ref "
                  f"{row['plain_ms']:.3f} ms" if "ms" in row else ""),
               flush=True)
         if not worst <= 1.0:
             raise AssertionError(f"K5 disagrees with its plain version at "
                                  f"{row}: tolerance {ATOL} + {RTOL}*|ref|")
-        del x, got, ref, err, tol, args
+        del x, got, ref, err, tol, args, packed
     return rows, launches
 
 
@@ -1538,8 +1595,9 @@ def main() -> int:
         log = cuda_build.BUILD_LOG.get(source, {})
         print(f"{source}: nvcc {log.get('seconds', 0.0):.2f} s")
         for line in log.get("ptxas", "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(line)
+            if ("registers" in line or "spill" in line
+                    or "Performance Loss" in line):
+                print(line[:240])
 
     # megakernel serving (K7), then K5 and P1, then serving with K6
     batch = BATCH_GRANULES * ICFG.batch_tiles
@@ -1574,15 +1632,15 @@ def main() -> int:
         gaussian_features = detector_features_path(tmp, "gaussian",
                                                    GAUSS_SCENE)
 
-    timed = [r for r in kernel_rows if "ms" in r]
+    timed = [r for r in kernel_rows if r["set"] == str(ICFG.tile_size)]
+    timed_mega = [r for r in kernel_rows if r["set"] == str(MEGA.tile_size)]
     single = [r for r in single_rows if "ms" in r]
     single_share = {kind: sum(r["bound_ms"] for r in single
                               if r["bound_by"] == kind)
                     for kind in ("bytes", "operations")}
     # each block has its own bound; the forward's is their sum, named by
     # whichever kind bounds the larger share of it
-    k6_bound = [bound(r["bytes"], r["ops"], PEAK_BF16_OPS_PER_S)
-                for r in timed]
+    k6_bound = [(r["bound_ms"], r["bound_by"]) for r in timed]
     k6_share = {kind: sum(b for b, by in k6_bound if by == kind)
                 for kind in ("bytes", "operations")}
     bench_ccl = next(r for r in ccl_rows if r["scene"] == "bench_1200")
@@ -1615,7 +1673,12 @@ def main() -> int:
         "bound_by": max(k6_share, key=k6_share.get),
         # two cuDNN bf16 convolutions with scale, shift and ReLU per block
         "library_ms": sum(r["plain_ms"] for r in timed),
-        "at": f"the 9 blocks of one forward, batch {batch}"},
+        "at": f"the 9 blocks of one forward, batch {batch}",
+        # the same with the per-call packing of the raw-weight entry, and
+        # the nine blocks at the megakernel's tile beside cuDNN
+        "ms_with_packing": sum(r["wrapper_ms"] for r in timed),
+        "ms_tile_96": sum(r["ms"] for r in timed_mega),
+        "library_ms_tile_96": sum(r["plain_ms"] for r in timed_mega)},
         ccl_entry("multi_threshold_ccl_fused",
                   "plumekit/ops/pallas/ccl_sweep.py:544", bench_ccl,
                   features["launches"]["k1"]
@@ -1655,7 +1718,8 @@ def main() -> int:
         # one cuDNN bf16 convolution with scale, shift and ReLU per shape
         "library_ms": sum(r["library_ms"] for r in single),
         "at": f"the 18 convs of one forward at tile {MEGA.tile_size}, "
-              f"batch {batch}"}, {
+              f"batch {batch}",
+        "ms_with_packing": sum(r["wrapper_ms"] for r in single)}, {
         "name": "mega_forward", "route": "cuda",
         "source": "plumekit_torch/csrc/unet_mega.cu",
         "replaces": "plumekit/models/pallas/unet_mega.py:364",

@@ -7,31 +7,32 @@
 // fused_double_conv3x3_bn_relu (:180, pallas_call :216); same function,
 // not the same blocking (see fused_conv.py:139-176 for the semantics).
 //
-// Design: the conv1 output never leaves the chip.
-//   * one thread block owns a TH x TW output tile of one image and every
-//     output channel;
-//   * phase 1 computes conv1 + scale/shift + ReLU over the (TH+2) x (TW+2)
-//     tile-plus-halo, rounds it to bf16 and keeps it in shared memory for
-//     all Cmid channels, with the ring outside the true image zeroed (the
-//     SAME-chaining rule of fused_conv.py:150-164);
-//   * phase 2 reads that tile for conv2 + scale/shift + ReLU and writes the
-//     output tile to device memory once.
-// Both phases are implicit GEMMs on the tensor cores through
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with fragments loaded by
-// ldmatrix: rows are pixels, columns are output channels in chunks of 32,
-// the reduction runs over 9 taps x KC-channel chunks staged in shared
-// memory by cp.async, two buffers deep, so the next chunk's loads are in
-// flight while the current one is multiplied.
+// The conv1 output never leaves the chip: a block computes conv1 +
+// scale/shift + ReLU over its tile plus a 1-px ring, rounds it to bf16 and
+// keeps it in shared memory for all Cmid channels, with the ring outside the
+// true image zeroed (the SAME-chaining rule of fused_conv.py:150-164); conv2
+// reads that tile and writes the output to device memory once.
 //
 // What bounds it on an H100: the block's arithmetic (2*9*(Cin*Cmid +
 // Cmid*Cout) flops per pixel) far exceeds its activation traffic ((Cin +
-// Cout) * 2 bytes per pixel), but every tile re-reads all of w1 and w2 from
-// L2. With 16x16 tiles (Cmid <= 128) that is cheap and the tensor-core issue
-// rate bounds it; with the 8x8 tiles that Cmid 256 and 512 force (the bf16
-// intermediate alone is 112 x 520 x 2 B = 116 KB at Cmid 512) the weight
-// stream from L2 bounds it, and the halo ring adds 56% to conv1.
-// The two phases are device functions of conv_tiles.cuh, shared with the
-// single conv (fused_conv.cu) and the whole-forward kernel (unet_mega.cu).
+// Cout) * 2 bytes per pixel), so the tensor cores should be the limit. What
+// keeps a kernel from it is operand re-reading: every block streams all of
+// w1 and w2 from L2 (3.5 MB at 512 -> 256 -> 256), the ring tile is a
+// kilobyte per pixel at Cmid 512 and caps the pixels a block can hold, and
+// the ring adds conv1 rows that are computed for no output.
+//
+// Design (device code in conv_tiles.cuh; the tile, the images per block and
+// the path come from plumekit_torch/models/kernels/conv_tiles.py):
+//   * more than 64 mid channels: the wgmma path. Both convs run as passes of
+//     128 output channels over up to 256 rows of the padded raster of their
+//     input (the staged patch for conv1, the ring tile itself for conv2), an
+//     input chunk staged once per pass, the weights through the copy engine
+//     in the order they were packed. Tiles are picked to fill the plane and
+//     the m64 rows (9 x 18 on 36 x 36 and 72 x 72, 6 x 18 on 18 x 18 at
+//     Cmid 512, 12 x 12 on 24 x 24), and planes smaller than a block's rows
+//     share a block between images (two 6 x 6 images at Cmid 512);
+//   * up to 64 mid channels: the mma.sync path on 16 x 16 tiles, as it was:
+//     there the activations are the traffic and it beats cuDNN.
 // Plain interface for ctypes; every launch returns its cudaError_t.
 
 #include "conv_tiles.cuh"
@@ -40,7 +41,9 @@ namespace {
 
 using namespace pk;
 
-template <int TH, int TW, int KC>
+constexpr int kTile = 16;
+constexpr int kKC = 32;
+
 __global__ void __launch_bounds__(kThreads)
 fused_double_conv_kernel(const uint16_t* __restrict__ x,
                          const uint16_t* __restrict__ w1t,
@@ -52,8 +55,8 @@ fused_double_conv_kernel(const uint16_t* __restrict__ x,
                          uint16_t* __restrict__ out, int H, int W, int Cin,
                          int Cin_p, int Cmid_p, int Cout, int Cout_p) {
   extern __shared__ uint4 smem_u4[];
-  const int tiles_x = (W + TW - 1) / TW;
-  const int tiles_y = (H + TH - 1) / TH;
+  const int tiles_x = (W + kTile - 1) / kTile;
+  const int tiles_y = (H + kTile - 1) / kTile;
   int t = blockIdx.x;
   const int tx = t % tiles_x;
   t /= tiles_x;
@@ -61,63 +64,100 @@ fused_double_conv_kernel(const uint16_t* __restrict__ x,
   const int b = t / tiles_y;
   const ConvSrc src{x, nullptr, Cin, Cin_p, 0};
   const DoubleConvWeights w{w1t, s1, b1, w2t, s2, b2, Cin_p, Cmid_p, Cout, Cout_p};
-  double_conv_tile<TH, TW, KC, false>(reinterpret_cast<uint16_t*>(smem_u4), src,
-                                      w, b, H, W, ty * TH, tx * TW, out,
-                                      HeadArgs{});
+  double_conv_tile<kTile, kTile, kKC, false>(
+      reinterpret_cast<uint16_t*>(smem_u4), src, w, b, H, W, ty * kTile,
+      tx * kTile, out, HeadArgs{});
 }
 
-template <int TH, int TW, int KC>
-int launch(const void* x, const void* w1t, const void* s1, const void* b1,
-           const void* w2t, const void* s2, const void* b2, void* out, int B,
-           int H, int W, int Cin, int Cin_p, int Cmid_p, int Cout, int Cout_p,
-           cudaStream_t stream) {
-  const size_t smem = DoubleConvSmem<TH, TW, KC>::bytes(Cmid_p);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_double_conv_kernel<TH, TW, KC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  fused_double_conv_kernel<TH, TW, KC><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w1t),
-      static_cast<const uint16_t*>(s1), static_cast<const uint16_t*>(b1),
-      static_cast<const uint16_t*>(w2t), static_cast<const uint16_t*>(s2),
-      static_cast<const uint16_t*>(b2), static_cast<uint16_t*>(out), H, W, Cin,
-      Cin_p, Cmid_p, Cout, Cout_p);
-  return (int)cudaGetLastError();
+// blockIdx.x: (image group, tile row, tile column)
+__global__ void __launch_bounds__(kThreads, 1)
+fused_double_conv_wg_kernel(const uint16_t* __restrict__ x,
+                            const uint16_t* __restrict__ w1s,
+                            const uint16_t* __restrict__ s1,
+                            const uint16_t* __restrict__ b1,
+                            const uint16_t* __restrict__ w2s,
+                            const uint16_t* __restrict__ s2,
+                            const uint16_t* __restrict__ b2,
+                            uint16_t* __restrict__ out, int B, int H, int W,
+                            int Cin, int Cin_p, int Cmid_p, int Cout,
+                            int Cout_p, WgTile tile) {
+  extern __shared__ uint4 smem_u4[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem_u4);
+  WgPipe pipe = wg_pipe_init(smem);
+  const int tiles_x = (W + tile.tw - 1) / tile.tw;
+  const int tiles_y = (H + tile.th - 1) / tile.th;
+  int t = blockIdx.x;
+  const int tx = t % tiles_x;
+  t /= tiles_x;
+  const int ty = t % tiles_y;
+  const int group = t / tiles_y;
+  const ConvSrc src{x, nullptr, Cin, Cin_p, 0};
+  const DoubleConvWeights w{w1s, s1, b1, w2s, s2, b2, Cin_p, Cmid_p, Cout, Cout_p};
+  wg_double_conv_item<false>(smem, pipe, src, w, B, H, W, group * tile.g,
+                             ty * tile.th, tx * tile.tw, tile, out,
+                             HeadArgs{}, nullptr);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: (B, H, W, Cin) bf16; w1t: (Cmid_p, 9, Cin_p) bf16; s1, b1: (Cmid_p,);
-// w2t: (Cout_p, 9, Cmid_p) bf16; s2, b2: (Cout_p,); out: (B, H, W, Cout).
-// Padded channel counts are multiples of 32 and their padding is zero.
+// x: (B, H, W, Cin) bf16; s1, b1: (Cmid_p,); s2, b2: (Cout_p,); out:
+// (B, H, W, Cout) bf16; the padding of every padded channel count is zero.
+//   path 0 (mma.sync): w1t (Cmid_p, 9, Cin_p), w2t (Cout_p, 9, Cmid_p) bf16,
+//     channel counts padded to 32; th = tw = 16, g = 1.
+//   path 1 (wgmma): w1t, w2t the weight streams [N_p / 128][K_p / 32][9][4]
+//     [128][8] bf16, Cin_p padded to 32, Cmid_p and Cout_p to 128; th x tw
+//     tiles of g images per block.
 // Returns a cudaError_t (0 on success).
 int pk_fused_double_conv3x3_bn_relu(const void* x, const void* w1t,
                                     const void* s1, const void* b1,
                                     const void* w2t, const void* s2,
                                     const void* b2, void* out, int B, int H,
                                     int W, int Cin, int Cin_p, int Cmid_p,
-                                    int Cout, int Cout_p, void* stream) {
+                                    int Cout, int Cout_p, int path, int th,
+                                    int tw, int g, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return 0;
-  if (Cin_p % kChanPad || Cmid_p % kChanPad || Cout_p % kChanPad || Cin > Cin_p ||
-      Cout > Cout_p || Cin <= 0 || Cout <= 0)
+  if (Cin_p % kChanPad || Cin > Cin_p || Cout > Cout_p || Cin <= 0 ||
+      Cout <= 0 || th <= 0 || tw <= 0 || g <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (double_conv_tile_for(Cmid_p)) {
-    case kTile16Kc32:
-      return launch<16, 16, 32>(x, w1t, s1, b1, w2t, s2, b2, out, B, H, W, Cin,
-                                Cin_p, Cmid_p, Cout, Cout_p, s);
-    case kTile8Kc16:
-      return launch<8, 8, 16>(x, w1t, s1, b1, w2t, s2, b2, out, B, H, W, Cin,
-                              Cin_p, Cmid_p, Cout, Cout_p, s);
-    default:
-      return launch<8, 8, 32>(x, w1t, s1, b1, w2t, s2, b2, out, B, H, W, Cin,
-                              Cin_p, Cmid_p, Cout, Cout_p, s);
+  const long long tiles =
+      (long long)((H + th - 1) / th) * ((W + tw - 1) / tw);
+  auto u16 = [](const void* p) { return static_cast<const uint16_t*>(p); };
+  if (path == 1) {
+    const WgTile tile{th, tw, g};
+    const WgGeom gm(tile, 1, Cmid_p);
+    if (Cmid_p % kWgN || Cout_p % kWgN || !gm.fits(false))
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = gm.smem_bytes(false);
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_double_conv_wg_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = (long long)((B + g - 1) / g) * tiles;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    fused_double_conv_wg_kernel<<<(unsigned)blocks, kThreads, smem, s>>>(
+        u16(x), u16(w1t), u16(s1), u16(b1), u16(w2t), u16(s2), u16(b2),
+        static_cast<uint16_t*>(out), B, H, W, Cin, Cin_p, Cmid_p, Cout, Cout_p,
+        tile);
+    return (int)cudaGetLastError();
   }
+  if (path != 0 || Cmid_p % kChanPad || Cout_p % kChanPad || th != kTile ||
+      tw != kTile || g != 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = DoubleConvSmem<kTile, kTile, kKC>::bytes(Cmid_p);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_double_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)B * tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fused_double_conv_kernel<<<(unsigned)blocks, kThreads, smem, s>>>(
+      u16(x), u16(w1t), u16(s1), u16(b1), u16(w2t), u16(s2), u16(b2),
+      static_cast<uint16_t*>(out), H, W, Cin, Cin_p, Cmid_p, Cout, Cout_p);
+  return (int)cudaGetLastError();
 }
 
 const char* pk_error_string(int err) {

@@ -15,17 +15,22 @@
 // intermediate, as in fused_double_conv.cu.
 //
 // Design: one persistent cooperative kernel, one stage per double conv.
-//   * A stage's items are (image, output tile) pairs; block i takes items
-//     i, i + gridDim.x, ... and runs double_conv_tile of conv_tiles.cuh on
-//     each, with the tile that the fused double conv takes for the stage's
-//     mid channels: 16 x 16 up to 128, 8 x 8 above (double_conv_tile_for).
-//   * An encoder item then max-pools its own tile (tiles start at even
+//   * A stage's items are (image group, output tile) pairs; block i takes
+//     items i, i + gridDim.x, ... and runs the double conv of
+//     conv_tiles.cuh on each, on the path and with the tile and the images
+//     per item that the fused double conv takes for the stage's shape (the
+//     wrapper's plan carries them from models/kernels/conv_tiles.py): above
+//     64 mid channels the wgmma path, its tiles picked to fill the plane
+//     (12 x 12 on 24 x 24 and 12 x 12 planes, two 6 x 6 images per item at
+//     the bottleneck of a 96 x 96 tile), else mma.sync on 16 x 16 tiles.
+//   * An encoder item then max-pools its own tiles (they start at even
 //     pixels, so every 2x2 window lies inside one) into the next level's
-//     input plane. A bottleneck or decoder item then upsamples its own tile:
-//     a (pixels x Cin) @ (Cin x 4*Cout) product on the tensor cores, each
-//     tap's result rounded to bf16, the bf16 bias added in bf16, scattered
-//     to the 2x2 output pixels. Both read the tile back from device memory
-//     after a block barrier: the block wrote it itself.
+//     input plane. A bottleneck or decoder item then upsamples its own
+//     tiles: a (pixels x Cin) @ (Cin x 4*Cout) product through the wgmma
+//     path as a conv of one tap, each tap's result rounded to bf16, the bf16
+//     bias added in bf16, scattered to the 2x2 output pixels. Both read the
+//     tiles back from device memory after a block barrier: the block wrote
+//     them itself.
 //   * A decoder block's first conv reads its input channels from two planes,
 //     the skip and the upsampled one (ConvSrc), into one fp32 accumulator.
 //   * The last decoder block keeps its result in fp32 and multiplies it by
@@ -41,10 +46,10 @@
 // tile of the base-32, depth-4 net) against 57 KB of compulsory traffic per
 // tile plus the weights once: operations, by two orders of magnitude. The
 // kernel reaches a fraction of the tensor-core rate for the reasons given in
-// fused_double_conv.cu (weights re-read from L2 per tile, the ring's
-// recompute, mma.sync rather than wgmma), and the bottleneck of a small
-// tile leaves 44% of its 8 x 8 tile outside the image (6 x 6 at depth 4 of a
-// 96 x 96 tile).
+// fused_double_conv.cu (weights re-read from L2 per item, the ring's
+// recompute, raster rows padded to 64), and because a stage ends when its
+// slowest block does: the bottleneck of 128 tiles of 96 x 96 is 64 items for
+// 132 SMs.
 // Plain interface for ctypes; the launch returns its cudaError_t.
 
 #include <cooperative_groups.h>
@@ -58,7 +63,9 @@ namespace {
 using namespace pk;
 
 constexpr int kMaxStages = 17;  // depth <= 8
-constexpr int kPlanFields = 28;
+constexpr int kPlanFields = 32;
+constexpr int kTile = 16;  // the mma.sync path's tile
+constexpr int kKC = 32;
 enum StageKind { kPool = 0, kUp = 1, kHead = 2 };
 
 struct MegaStage {
@@ -66,11 +73,13 @@ struct MegaStage {
   DoubleConvWeights w;
   uint16_t* out;        // (B, H, W, Cout) bf16; null for the head stage
   uint16_t* aux;        // kPool: (B, H/2, W/2, Cout); kUp: (B, 2H, 2W, up_cout)
-  const uint16_t* upw;  // (4 * up_cout_p, Cout_p): row tap * up_cout_p + co
+  const uint16_t* upw;  // weight stream of the (up_kp x 4 * up_cout_p)
+                        // product: column tap * up_cout_p + co
   const uint16_t* upb;  // (up_cout_p,)
   HeadArgs head;
-  int kind, H, W, up_cout, up_cout_p;
-  DoubleConvTile tile;  // double_conv_tile_for(Cmid_p), set by the launch code
+  int kind, H, W, up_cout, up_cout_p, up_kp;
+  int path;             // 1: wgmma, 0: mma.sync on 16 x 16 tiles
+  WgTile tile;          // output tile and images of one item
 };
 
 struct MegaParams {
@@ -91,15 +100,15 @@ __device__ __forceinline__ uint4 max_bf16x8(uint4 a, uint4 b) {
                     max_bf16x2(a.z, b.z), max_bf16x2(a.w, b.w));
 }
 
-// 2x2 max pool of the tile at (ty0, tx0) of plane (B, H, W, C), which this
-// block has just written, into pooled (B, H/2, W/2, C). H, W, ty0 and tx0
-// are even.
-template <int TH, int TW>
+// 2x2 max pool of the th x tw tile at (ty0, tx0) of image b of plane
+// (B, H, W, C), which this block has just written, into pooled
+// (B, H/2, W/2, C). H, W, th, tw, ty0 and tx0 are even.
 __device__ __forceinline__ void pool_tile(const uint16_t* plane,
                                           uint16_t* pooled, int C, int b, int H,
-                                          int W, int ty0, int tx0) {
-  constexpr int PW = TW / 2;
-  constexpr int PP = (TH / 2) * PW;
+                                          int W, int ty0, int tx0, int th,
+                                          int tw) {
+  const int PW = tw / 2;
+  const int PP = (th / 2) * PW;
   const int Hp = H / 2;
   const int Wp = W / 2;
   const size_t row = (size_t)W * C;
@@ -138,146 +147,179 @@ __device__ __forceinline__ void pool_tile(const uint16_t* plane,
   }
 }
 
-// 2x2 stride-2 transposed conv of the tile at (ty0, tx0) of plane
-// (B, H, W, Cin), which this block has just written, into up
-// (B, 2H, 2W, Cout): up[2y+dy, 2x+dx, :] = bf16(bf16(plane[y, x, :] @
-// w[dy, dx]) + bias), the product accumulated in fp32. upw: (4 * Cout_p,
-// Cin_p) bf16, row (2*dy + dx) * Cout_p + co. xs: 2 x TH*TW*(KC+8), ws:
-// 2 x 32*(KC+8) bf16 of shared memory.
-template <int TH, int TW, int KC>
-__device__ __forceinline__ void up_tile(uint16_t* xs, uint16_t* ws,
-                                        const uint16_t* plane, int Cin,
-                                        int Cin_p, const uint16_t* upw,
-                                        const uint16_t* upb, uint16_t* up,
-                                        int Cout, int Cout_p, int b, int H,
-                                        int W, int ty0, int tx0) {
-  constexpr int KS = KC + 8;
-  constexpr int P = TH * TW;
-  constexpr int MT = P / 16;
-  constexpr int MI = (MT + kWarpsM - 1) / kWarpsM;
-  constexpr int AS = P * KS;    // one staged pixel chunk
-  constexpr int BS = kNC * KS;  // one staged weight chunk
-  const Lane ln;
-  const ConvSrc src{plane, nullptr, Cin, Cin_p, 0};
-  const int b_off = (ln.b_n * KS + ln.b_k) * 2;
-  int a_off[MI];
+// Epilogue of the transposed conv: column n = tap * cup_p + co of raster row
+// (image, y, x) goes to up[b, 2y + dy, 2x + dx, co] as
+// bf16(bf16(product) + bias).
+struct WgUpEpi {
+  const uint16_t* upb;
+  uint16_t* up;
+  int cup, cup_p, g, th, tw, B, H, W, b0, y0, x0;
+  template <int MT>
+  __device__ __forceinline__ void run(const float (&acc)[MT > 0 ? MT : 1][64],
+                                      int pass) const {
+    if (MT == 0) return;
+    const WgLane ln;
+    uint16_t* dst[2][2];
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
-    a_off[i] = (((ln.wm + kWarpsM * i) * 16 + ln.a_row) * KS + ln.a_k) * 2;
-  const int kch = Cin_p / KC;
-  const int n_chunks = (4 * Cout_p / kNC) * kch;
-  float acc[MI][kNI][4];
-  load_x_chunk<TH, TW, KC>(xs, src, b, H, W, ty0, tx0, 0);
-  load_w_chunk<KC, 1>(ws, upw, 0, 0, Cin_p);
-  cp_async_commit();
-  for (int c = 0; c < n_chunks; ++c) {
-    const int n0 = (c / kch) * kNC;
-    const int kc = c % kch;
-    if (c + 1 < n_chunks) {
-      const int nb = (c + 1) & 1;
-      load_x_chunk<TH, TW, KC>(xs + nb * AS, src, b, H, W, ty0, tx0,
-                               ((c + 1) % kch) * KC);
-      load_w_chunk<KC, 1>(ws + nb * BS, upw, ((c + 1) / kch) * kNC,
-                          ((c + 1) % kch) * KC, Cin_p);
-    }
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-    if (kc == 0) zero_acc<MI>(acc);
-    mma_chunk<MI, MT, KC, 1>(acc, smem_u32(xs + (c & 1) * AS), a_off, KS * 2, 0,
-                             smem_u32(ws + (c & 1) * BS) + b_off, ln.wm);
-    if (kc == kch - 1) {
-      const int tap = n0 / Cout_p;  // a 32-column chunk lies inside one tap
-      const int co0 = n0 - tap * Cout_p;
-      const int dy = tap >> 1;
-      const int dx = tap & 1;
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int mt = ln.wm + kWarpsM * i;
-        if (mt >= MT) continue;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int o = mt * 16 + ln.g + 8 * h;
-          const int gy = ty0 + o / TW;
-          const int gx = tx0 + o % TW;
-          if (gy >= H || gx >= W) continue;
-          uint16_t* dst = up + (((size_t)b * 2 * H + 2 * gy + dy) * 2 * W +
-                                2 * gx + dx) * Cout;
-#pragma unroll
-          for (int j = 0; j < kNI; ++j) {
-            const int n = co0 + (ln.wn * kNI + j) * 8 + 2 * ln.q4;
-            if (n >= Cout) continue;
-            const float v0 =
-                __bfloat162float(__float2bfloat16_rn(acc[i][j][2 * h])) +
-                bf2f(upb, n);
-            const float v1 =
-                __bfloat162float(__float2bfloat16_rn(acc[i][j][2 * h + 1])) +
-                bf2f(upb, n + 1);
-            store_bf16_pair(dst, n, Cout, v0, v1);
-          }
-        }
+      for (int h = 0; h < 2; ++h) {
+        const WgPixel p((ln.wg + 2 * i) * 64 + ln.row0 + 8 * h, th, tw);
+        const int b = b0 + p.img, gy = y0 + p.r, gx = x0 + p.c;
+        const bool kept = p.img < g && b < B && gy < H && gx < W;
+        dst[i][h] = kept ? up + (((size_t)b * 2 * H + 2 * gy) * 2 * W +
+                                 2 * gx) * cup
+                         : nullptr;
       }
+#pragma unroll
+    for (int j = 0; j < kWgN / 8; ++j) {
+      const int n = pass * kWgN + j * 8 + ln.col0;
+      const int tap = n / cup_p;
+      const int co = n - tap * cup_p;
+      if (co >= cup) continue;
+      const size_t off = ((size_t)(tap >> 1) * 2 * W + (tap & 1)) * cup;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (dst[i][h] != nullptr)
+            store_bf16_pair(
+                dst[i][h] + off, co, cup,
+                __bfloat162float(__float2bfloat16_rn(acc[i][4 * j + 2 * h])) +
+                    bf2f(upb, co),
+                __bfloat162float(
+                    __float2bfloat16_rn(acc[i][4 * j + 2 * h + 1])) +
+                    bf2f(upb, co + 1));
     }
-    __syncthreads();
   }
+};
+
+// 2x2 stride-2 transposed conv of the th x tw tiles at (ty0, tx0) of images
+// b0 .. b0 + g - 1 of st.out, which this block has just written, into
+// st.aux: up[2y+dy, 2x+dx, :] = bf16(bf16(out[y, x, :] @ w[dy, dx]) + bias),
+// the product accumulated in fp32, as a one-tap conv on the wgmma path
+// whose A operand is the tiles' pixels. stream: st.upw's, whose first stages
+// the item's second conv may have sent already.
+__device__ __forceinline__ void up_item(uint8_t* smem, WgPipe& pipe,
+                                        const MegaStage& st, WgStream& stream,
+                                        int B, int b0, int ty0, int tx0) {
+  const WgTile t = st.tile;
+  const int rows = t.g * t.th * t.tw;
+  const int pitch = wg_a_pitch(rows, rows, 0, 1);
+  const ConvSrc src{st.out, nullptr, st.w.Cout, st.up_kp, 0};
+  const WgPatch patch{B, st.H, st.W, b0, t.g, t.th, t.tw, ty0, tx0};
+  const WgConv cv{rows, 0, pitch};
+  WgStageLoad load{src, patch, pitch};
+  WgUpEpi epi{st.upb, st.aux, st.up_cout, st.up_cout_p, t.g, t.th, t.tw,
+              B,      st.H,   st.W,       b0,           ty0, tx0};
+  wg_conv<true>(pipe, cv, stream, nullptr,
+                smem_u32(smem) + kWgBarBytes + kWgRingBytes,
+                (uint32_t)(kWgKC / 8) * pitch * 16, load, epi);
 }
 
-template <int TH, int TW, int KC>
+// Shared memory of a stage: the barriers and the weight ring, then the
+// path's own buffers; the upsample's two input buffers lie over them.
+size_t stage_smem(const MegaStage& st) {
+  const int rows = st.tile.g * st.tile.th * st.tile.tw;
+  const size_t up =
+      kWgBarBytes + kWgRingBytes +
+      2 * (size_t)(kWgKC / 8) * wg_a_pitch(rows, rows, 0, 1) * 16;
+  const size_t conv =
+      st.path == 1
+          ? WgGeom(st.tile, 1, st.w.Cmid_p).smem_bytes(st.kind == kHead)
+          : kWgBarBytes + kWgRingBytes +
+                DoubleConvSmem<kTile, kTile, kKC>::bytes(st.w.Cmid_p);
+  return conv > up ? conv : up;
+}
+
+// One item of a stage, by path and kind. All are inlined into the kernel: a
+// wgmma pipeline must not cross a function call (the compiler serialises it
+// there), and a called function gets a smaller register budget than the
+// accumulators need.
+struct Item {
+  int b0, ty0, tx0;
+};
+
+__device__ __forceinline__ WgPipe item_wgmma(const MegaStage& st, int B,
+                                          uint8_t* smem, WgPipe pipe, Item it) {
+  // an upsampling item's second conv sends the upsample's first stages
+  const bool up = st.kind == kUp;
+  WgStream ups(st.upw, 0, up ? 4 * st.up_cout_p / kWgN : 0,
+               up ? st.up_kp / kWgKC : 0, 1);
+  wg_double_conv_item<false>(smem, pipe, st.src, st.w, B, st.H, st.W, it.b0,
+                             it.ty0, it.tx0, st.tile, st.out, st.head,
+                             up ? &ups : nullptr);
+  if (up) up_item(smem, pipe, st, ups, B, it.b0, it.ty0, it.tx0);
+  return pipe;
+}
+
+__device__ __forceinline__ WgPipe item_wgmma_head(const MegaStage& st, int B,
+                                               uint8_t* smem, WgPipe pipe,
+                                               Item it) {
+  wg_double_conv_item<true>(smem, pipe, st.src, st.w, B, st.H, st.W, it.b0,
+                            it.ty0, it.tx0, st.tile, nullptr, st.head,
+                            nullptr);
+  return pipe;
+}
+
+__device__ __forceinline__ void item_mma(const MegaStage& st, uint8_t* smem,
+                                      Item it) {
+  uint16_t* mma_smem =
+      reinterpret_cast<uint16_t*>(smem + kWgBarBytes + kWgRingBytes);
+  if (st.kind == kHead)
+    double_conv_tile<kTile, kTile, kKC, true>(mma_smem, st.src, st.w, it.b0,
+                                              st.H, st.W, it.ty0, it.tx0,
+                                              nullptr, st.head);
+  else
+    double_conv_tile<kTile, kTile, kKC, false>(mma_smem, st.src, st.w, it.b0,
+                                               st.H, st.W, it.ty0, it.tx0,
+                                               st.out, st.head);
+}
+
+__device__ __forceinline__ WgPipe item_up(const MegaStage& st, int B,
+                                       uint8_t* smem, WgPipe pipe, Item it) {
+  WgStream ups(st.upw, 0, 4 * st.up_cout_p / kWgN, st.up_kp / kWgKC, 1);
+  up_item(smem, pipe, st, ups, B, it.b0, it.ty0, it.tx0);
+  return pipe;
+}
+
 __device__ __forceinline__ void run_stage(const MegaStage& st, int B,
-                                          uint16_t* smem) {
-  using S = DoubleConvSmem<TH, TW, KC>;
-  static_assert(TH * TW * (KC + 8) <= S::G1::XS && kNC * (KC + 8) <= S::G1::WS,
-                "the upsample's chunks must fit the conv's buffers");
-  const int tiles_x = (st.W + TW - 1) / TW;
-  const int tiles_y = (st.H + TH - 1) / TH;
-  const int n_items = B * tiles_y * tiles_x;
-  uint16_t* xs = smem + S::inter_elems(st.w.Cmid_p);
-  uint16_t* ws = xs + 2 * S::G1::XS;
+                                          uint8_t* smem, WgPipe& pipe) {
+  const WgTile t = st.tile;
+  const int tiles_x = (st.W + t.tw - 1) / t.tw;
+  const int tiles_y = (st.H + t.th - 1) / t.th;
+  const int n_items = ((B + t.g - 1) / t.g) * tiles_y * tiles_x;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    int t = item;
-    const int tx0 = (t % tiles_x) * TW;
-    t /= tiles_x;
-    const int ty0 = (t % tiles_y) * TH;
-    const int b = t / tiles_y;
-    if (st.kind == kHead) {
-      double_conv_tile<TH, TW, KC, true>(smem, st.src, st.w, b, st.H, st.W, ty0,
-                                         tx0, nullptr, st.head);
-      continue;
-    }
-    double_conv_tile<TH, TW, KC, false>(smem, st.src, st.w, b, st.H, st.W, ty0,
-                                        tx0, st.out, st.head);
-    // the block's own writes to st.out are visible to it after the barrier
-    // that ends double_conv_tile
-    if (st.kind == kPool) {
-      pool_tile<TH, TW>(st.out, st.aux, st.w.Cout, b, st.H, st.W, ty0, tx0);
+    int i = item;
+    Item it;
+    it.tx0 = (i % tiles_x) * t.tw;
+    i /= tiles_x;
+    it.ty0 = (i % tiles_y) * t.th;
+    it.b0 = (i / tiles_y) * t.g;
+    if (st.path == 1) {
+      pipe = st.kind == kHead ? item_wgmma_head(st, B, smem, pipe, it)
+                              : item_wgmma(st, B, smem, pipe, it);
     } else {
-      up_tile<TH, TW, KC>(xs, ws, st.out, st.w.Cout, st.w.Cout_p, st.upw,
-                          st.upb, st.aux, st.up_cout, st.up_cout_p, b, st.H,
-                          st.W, ty0, tx0);
+      item_mma(st, smem, it);
+      if (st.kind == kUp) pipe = item_up(st, B, smem, pipe, it);
     }
+    // either path ends at a block barrier: the block's own writes to st.out
+    // are visible to it
+    if (st.kind == kPool)
+      for (int g = 0; g < t.g && it.b0 + g < B; ++g)
+        pool_tile(st.out, st.aux, st.w.Cout, it.b0 + g, st.H, st.W, it.ty0,
+                  it.tx0, t.th, t.tw);
   }
 }
 
-size_t tile_smem(DoubleConvTile t, int cmid_p) {
-  switch (t) {
-    case kTile16Kc32: return DoubleConvSmem<16, 16, 32>::bytes(cmid_p);
-    case kTile8Kc16: return DoubleConvSmem<8, 8, 16>::bytes(cmid_p);
-    default: return DoubleConvSmem<8, 8, 32>::bytes(cmid_p);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 unet_mega_kernel(const __grid_constant__ MegaParams p) {
   extern __shared__ uint4 smem_u4[];
-  uint16_t* smem = reinterpret_cast<uint16_t*>(smem_u4);
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem_u4);
   cg::grid_group grid = cg::this_grid();
+  WgPipe pipe = wg_pipe_init(smem);
   for (int s = 0; s < p.n_stages; ++s) {
-    const MegaStage& st = p.st[s];
-    switch (st.tile) {
-      case kTile16Kc32: run_stage<16, 16, 32>(st, p.B, smem); break;
-      case kTile8Kc16: run_stage<8, 8, 16>(st, p.B, smem); break;
-      default: run_stage<8, 8, 32>(st, p.B, smem); break;
-    }
+    run_stage(p.st[s], p.B, smem, pipe);
     // the next stage reads this one's planes, halo pixels of other blocks'
     // tiles included
     if (s + 1 < p.n_stages) grid.sync();
@@ -343,23 +385,33 @@ int pk_unet_mega(const void* x, const void* weights, void* scratch,
     st.head.b = reinterpret_cast<const float*>(wb + f[25]);
     st.head.logits = static_cast<float*>(logits);
     st.head.n_out = (int)f[26];
+    st.path = (int)f[27];
+    st.tile = WgTile{(int)f[28], (int)f[29], (int)f[30]};
+    st.up_kp = (int)f[31];
+    const int n_pad = st.path == 1 ? kWgN : kChanPad;
+    const WgTile t = st.tile;
     if (st.kind < kPool || st.kind > kHead || st.H <= 0 || st.W <= 0 ||
-        st.w.Cin_p % kChanPad || st.w.Cmid_p % kChanPad ||
-        st.w.Cout_p % kChanPad || st.src.c0p % kChanPad ||
+        st.path < 0 || st.path > 1 || t.th <= 0 || t.tw <= 0 || t.g <= 0 ||
+        (st.path == 0 && (t.th != kTile || t.tw != kTile || t.g != 1)) ||
+        (st.path == 1 &&
+         !WgGeom(t, 1, st.w.Cmid_p).fits(st.kind == kHead)) ||
+        st.w.Cin_p % kChanPad || st.w.Cmid_p % n_pad ||
+        st.w.Cout_p % n_pad || st.src.c0p % kChanPad ||
         st.w.Cout > st.w.Cout_p || st.w.Cout <= 0 ||
-        (st.kind == kUp && (st.up_cout_p % kChanPad || st.up_cout <= 0 ||
-                            st.up_cout > st.up_cout_p)) ||
-        (st.kind == kPool && ((st.H | st.W) & 1)) ||
+        (st.kind == kUp &&
+         (st.up_cout_p % kChanPad || st.up_cout <= 0 ||
+          st.up_cout > st.up_cout_p || st.up_kp % kChanPad ||
+          st.up_kp < st.w.Cout || t.g * t.th * t.tw > kWgMaxRows)) ||
+        (st.kind == kPool && ((st.H | st.W | t.th | t.tw) & 1)) ||
         (st.kind == kHead && (st.head.n_out <= 0 || st.head.n_out > kHeadOut)) ||
         (st.kind != kHead && (st.out == nullptr || st.aux == nullptr)))
       return (int)cudaErrorInvalidValue;
-    st.tile = double_conv_tile_for(st.w.Cmid_p);
-    const size_t need = tile_smem(st.tile, st.w.Cmid_p);
+    const size_t need = stage_smem(st);
     if (need > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
     smem = need > smem ? need : smem;
-    const int side = double_conv_tile_side(st.tile);
-    const long long items = (long long)B * ((st.H + side - 1) / side) *
-                            ((st.W + side - 1) / side);
+    const long long items = (long long)((B + t.g - 1) / t.g) *
+                            ((st.H + t.th - 1) / t.th) *
+                            ((st.W + t.tw - 1) / t.tw);
     if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     max_items = items > max_items ? items : max_items;
   }

@@ -6,9 +6,13 @@ Replaces the Pallas TPU kernels ``fused_conv3x3_bn_relu`` (:259) and
 ``plumekit/models/pallas/fused_conv.py``. The CUDA kernels are
 ``plumekit_torch/csrc/fused_conv.cu`` and ``csrc/fused_double_conv.cu`` over
 the device code of ``csrc/conv_tiles.cuh``: one launch per call, convs on
-the tensor cores (``mma.sync`` bf16 → fp32), in the double conv the bf16
-conv1 output kept in shared memory. On an H100 the wide layers are compute
-bound; the source notes give the tiling and what the halo recompute costs.
+the tensor cores (bf16 → fp32: ``wgmma`` above 64 output or mid channels,
+``mma.sync`` below), in the double conv the bf16 conv1 output kept in shared
+memory. On an H100 the wide layers are compute bound; the source notes give
+the design. The path, the tile and the images per block come from
+:mod:`plumekit_torch.models.kernels.conv_tiles`, and so does the packing:
+the raw-weight entries pack on every call, the ``*_packed`` entries take
+weights packed once (the fused forward caches them per model).
 
 Layouts follow the JAX package: activations NHWC, conv weights HWIO,
 scales and shifts per output channel. Each entry runs its plain version for
@@ -21,17 +25,19 @@ every shape takes the kernel.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from plumekit_torch.models.kernels import conv_tiles
 
 #: launches of the double-conv kernel (K6) since import (or since a caller
 #: reset it)
 LAUNCHES = 0
 #: launches of the single-conv kernel (K5)
 SINGLE_LAUNCHES = 0
-
-_CH_MULTIPLE = 32   # the kernel's channel chunk; padded channels are zero
 
 
 def fold_batchnorm(gamma, beta, mean, var, eps: float = 1e-5):
@@ -61,20 +67,76 @@ def double_conv3x3_bn_relu_ref(x, w1, scale1, shift1, w2, scale2, shift2):
     return conv3x3_bn_relu_ref(y, w2, scale2, shift2)
 
 
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
+def state_key(model, device):
+    """Changes whenever a parameter or buffer of ``model`` is replaced or
+    written in place, so that weights are folded and packed once per model
+    and device and again only after the model changed."""
+    def version(t):
+        try:
+            return t._version
+        except RuntimeError:                 # an inference tensor has none
+            return 0
+    return (str(device),) + tuple(
+        (t.data_ptr(), version(t))
+        for t in model.state_dict(keep_vars=True).values())
 
 
-def _pack_weight(w, cin_p: int, cout_p: int):
-    """HWIO (3, 3, Cin, Cout) → (Cout_p, 9, Cin_p) bf16, zero padded."""
-    kh, kw, cin, cout = w.shape
-    packed = w.permute(3, 0, 1, 2).reshape(cout, kh * kw, cin)
-    return F.pad(packed.to(torch.bfloat16),
-                 (0, cin_p - cin, 0, 0, 0, cout_p - cout)).contiguous()
+@dataclass
+class PackedConv:
+    """One conv's weight, scale and shift as its kernel path reads them
+    (:func:`conv_tiles.pack_conv`), on one device."""
+
+    path: str
+    cin: int
+    cout: int
+    tensors: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+    @property
+    def padded(self) -> Tuple[int, int]:
+        return conv_tiles.padded_channels(self.path, self.cin, self.cout)
 
 
-def _pack_vector(v, n_p: int):
-    return F.pad(v.to(torch.bfloat16), (0, n_p - v.shape[0])).contiguous()
+@dataclass
+class PackedDoubleConv:
+    """A double conv packed for K6; both convs take the path of the mid
+    channels."""
+
+    first: PackedConv
+    second: PackedConv
+
+
+def pack_single_conv(w, scale, shift) -> PackedConv:
+    """Pack one conv (HWIO weight, per-channel scale and shift) for K5."""
+    cin, cout = w.shape[2:]
+    if (tuple(w.shape) != (3, 3, cin, cout) or scale.shape != (cout,)
+            or shift.shape != (cout,)):
+        raise ValueError(f"weight {tuple(w.shape)}, scale {tuple(scale.shape)}"
+                         f" and shift {tuple(shift.shape)} do not fit")
+    path = conv_tiles.path_for(cout)
+    return PackedConv(path, cin, cout,
+                      conv_tiles.pack_conv(path, w, scale, shift))
+
+
+def pack_double_conv(w1, scale1, shift1, w2, scale2, shift2
+                     ) -> PackedDoubleConv:
+    """Pack one double-conv block for K6. The second conv's depth is the
+    first's padded width."""
+    cin, cmid = w1.shape[2:]
+    cout = w2.shape[-1]
+    if (tuple(w1.shape) != (3, 3, cin, cmid)
+            or tuple(w2.shape) != (3, 3, cmid, cout)
+            or scale1.shape != (cmid,) or shift1.shape != (cmid,)
+            or scale2.shape != (cout,) or shift2.shape != (cout,)):
+        raise ValueError("weight shapes do not chain: w1 "
+                         f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    path = conv_tiles.path_for(cmid)
+    first = PackedConv(path, cin, cmid,
+                       conv_tiles.pack_conv(path, w1, scale1, shift1))
+    cmid_p = first.padded[1]
+    w2 = F.pad(w2, (0, 0, 0, cmid_p - cmid))
+    second = PackedConv(path, cmid_p, cout,
+                        conv_tiles.pack_conv(path, w2, scale2, shift2))
+    return PackedDoubleConv(first, second)
 
 
 def _library(source: str, entry: str, argtypes):
@@ -83,15 +145,43 @@ def _library(source: str, entry: str, argtypes):
     return load_entry(source, entry, argtypes)
 
 
-def _check_input(x, tensors):
+def _check_input(x, tensors, cin: int):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if x.dtype != torch.bfloat16 or x.dim() != 4 or not x.is_contiguous():
         raise ValueError("the kernel takes a contiguous (B, H, W, C) bf16 "
                          f"tensor, got {tuple(x.shape)} {x.dtype}")
+    if x.shape[-1] != cin:
+        raise ValueError(f"the weights do not fit an input of {x.shape[-1]} "
+                         f"channels: they were packed for {cin}")
     for t in tensors:
         if t.device != x.device:
             raise ValueError("weights and input lie on different devices")
+
+
+def fused_conv3x3_bn_relu_packed(x, packed: PackedConv):
+    """K5 on weights packed by :func:`pack_single_conv`: one launch."""
+    _check_input(x, packed.tensors, packed.cin)
+    b, h, wd, cin = x.shape
+    cin_p, cout_p = packed.padded
+    tile = conv_tiles.single_conv_tile(h, wd, cin, packed.cout)
+    out = torch.empty((b, h, wd, packed.cout), dtype=torch.bfloat16,
+                      device=x.device)
+    lib = _library("fused_conv.cu", "pk_fused_conv3x3_bn_relu",
+                   [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p])
+    global SINGLE_LAUNCHES
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pk_fused_conv3x3_bn_relu(
+            x.data_ptr(), *[t.data_ptr() for t in packed.tensors],
+            out.data_ptr(), b, h, wd, cin, cin_p, packed.cout, cout_p,
+            tile.path_id, tile.th, tile.tw, tile.images, stream)
+    if err != 0:
+        raise RuntimeError("fused conv kernel launch failed: "
+                           + lib.pk_error_string(err).decode())
+    SINGLE_LAUNCHES += 1
+    return out
 
 
 def fused_conv3x3_bn_relu(x, w, scale, shift):
@@ -99,36 +189,45 @@ def fused_conv3x3_bn_relu(x, w, scale, shift):
 
     x: (B, H, W, Cin); w: (3, 3, Cin, Cout); scale, shift: (Cout,). Returns
     (B, H, W, Cout) in ``x.dtype``. On the card ``x`` must be bf16 and
-    contiguous; the weight, scale and shift are used at bf16.
+    contiguous; the weight, scale and shift are used at bf16 and packed on
+    every call (:func:`fused_conv3x3_bn_relu_packed` takes them packed).
     """
     if x.device.type == "cpu":
         return conv3x3_bn_relu_ref(x, w, scale, shift)
-    _check_input(x, (w, scale, shift))
-    b, h, wd, cin = x.shape
-    cout = w.shape[-1]
-    if (tuple(w.shape) != (3, 3, cin, cout) or scale.shape != (cout,)
-            or shift.shape != (cout,)):
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if w.dim() != 4 or w.shape[2] != x.shape[-1]:
         raise ValueError(f"weight {tuple(w.shape)}, scale {tuple(scale.shape)}"
                          f" and shift {tuple(shift.shape)} do not fit an "
-                         f"input of {cin} channels")
-    cin_p = _round_up(cin, _CH_MULTIPLE)
-    cout_p = _round_up(cout, _CH_MULTIPLE)
-    args = (x, _pack_weight(w, cin_p, cout_p), _pack_vector(scale, cout_p),
-            _pack_vector(shift, cout_p))
-    out = torch.empty((b, h, wd, cout), dtype=torch.bfloat16, device=x.device)
-    lib = _library("fused_conv.cu", "pk_fused_conv3x3_bn_relu",
-                   [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                         f"input of {x.shape[-1]} channels")
+    return fused_conv3x3_bn_relu_packed(x, pack_single_conv(w, scale, shift))
+
+
+def fused_double_conv3x3_bn_relu_packed(x, packed: PackedDoubleConv):
+    """K6 on weights packed by :func:`pack_double_conv`: one launch."""
+    first, second = packed.first, packed.second
+    _check_input(x, first.tensors + second.tensors, first.cin)
+    b, h, w, cin = x.shape
+    cin_p, cmid_p = first.padded
+    cout_p = second.padded[1]
+    tile = conv_tiles.double_conv_tile(h, w, cin, first.cout, second.cout)
+    out = torch.empty((b, h, w, second.cout), dtype=torch.bfloat16,
+                      device=x.device)
+    lib = _library("fused_double_conv.cu", "pk_fused_double_conv3x3_bn_relu",
+                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p])
-    global SINGLE_LAUNCHES
+    global LAUNCHES
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pk_fused_conv3x3_bn_relu(
-            *[t.data_ptr() for t in args], out.data_ptr(),
-            b, h, wd, cin, cin_p, cout, cout_p, stream)
+        err = lib.pk_fused_double_conv3x3_bn_relu(
+            x.data_ptr(),
+            *[t.data_ptr() for t in first.tensors + second.tensors],
+            out.data_ptr(), b, h, w, cin, cin_p, cmid_p, second.cout, cout_p,
+            tile.path_id, tile.th, tile.tw, tile.images, stream)
     if err != 0:
-        raise RuntimeError("fused conv kernel launch failed: "
+        raise RuntimeError("fused double-conv kernel launch failed: "
                            + lib.pk_error_string(err).decode())
-    SINGLE_LAUNCHES += 1
+    LAUNCHES += 1
     return out
 
 
@@ -138,40 +237,17 @@ def fused_double_conv3x3_bn_relu(x, w1, scale1, shift1, w2, scale2, shift2):
     x: (B, H, W, Cin); w1: (3, 3, Cin, Cmid); w2: (3, 3, Cmid, Cout);
     scales and shifts: (Cmid,) and (Cout,). Returns (B, H, W, Cout) in
     ``x.dtype``. On the card ``x`` must be bf16 and contiguous; weights,
-    scales and shifts are used at bf16, as the JAX forward casts them.
+    scales and shifts are used at bf16, as the JAX forward casts them, and
+    packed on every call (:func:`fused_double_conv3x3_bn_relu_packed` takes
+    them packed, as the fused forward does).
     """
     if x.device.type == "cpu":
         return double_conv3x3_bn_relu_ref(x, w1, scale1, shift1,
                                           w2, scale2, shift2)
-    _check_input(x, (w1, scale1, shift1, w2, scale2, shift2))
-    b, h, w, cin = x.shape
-    cmid, cout = w1.shape[-1], w2.shape[-1]
-    if (tuple(w1.shape) != (3, 3, cin, cmid)
-            or tuple(w2.shape) != (3, 3, cmid, cout)
-            or scale1.shape != (cmid,) or shift1.shape != (cmid,)
-            or scale2.shape != (cout,) or shift2.shape != (cout,)):
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if w1.dim() != 4 or w1.shape[2] != x.shape[-1]:
         raise ValueError("weight shapes do not chain: w1 "
-                         f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}")
-    cin_p = _round_up(cin, _CH_MULTIPLE)
-    cmid_p = _round_up(cmid, _CH_MULTIPLE)
-    cout_p = _round_up(cout, _CH_MULTIPLE)
-    args = (x,
-            _pack_weight(w1, cin_p, cmid_p), _pack_vector(scale1, cmid_p),
-            _pack_vector(shift1, cmid_p),
-            _pack_weight(w2, cmid_p, cout_p), _pack_vector(scale2, cout_p),
-            _pack_vector(shift2, cout_p))
-    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=x.device)
-    lib = _library("fused_double_conv.cu", "pk_fused_double_conv3x3_bn_relu",
-                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p])
-    global LAUNCHES
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pk_fused_double_conv3x3_bn_relu(
-            *[t.data_ptr() for t in args], out.data_ptr(),
-            b, h, w, cin, cin_p, cmid_p, cout, cout_p, stream)
-    if err != 0:
-        raise RuntimeError("fused double-conv kernel launch failed: "
-                           + lib.pk_error_string(err).decode())
-    LAUNCHES += 1
-    return out
+                         f"{tuple(w1.shape)} on {x.shape[-1]} channels")
+    return fused_double_conv3x3_bn_relu_packed(
+        x, pack_double_conv(w1, scale1, shift1, w2, scale2, shift2))

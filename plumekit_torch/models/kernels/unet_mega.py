@@ -35,13 +35,12 @@ import numpy as np
 import torch
 
 from plumekit_torch.config.train import UNetConfig
+from plumekit_torch.models.kernels import conv_tiles
+from plumekit_torch.models.kernels.conv_tiles import pack_vector, round_up
 from plumekit_torch.models.kernels.fused_conv import (
-    _CH_MULTIPLE,
-    _pack_vector,
-    _pack_weight,
-    _round_up,
     conv3x3_bn_relu_ref,
     fold_batchnorm,
+    state_key,
 )
 
 #: launches of the CUDA kernel since import (or since a caller reset it)
@@ -49,7 +48,7 @@ LAUNCHES = 0
 
 _HEAD_OUT = 8        # the head's padded width: out_channels <= 8
 _ALIGN = 256         # bytes: every packed tensor and scratch plane starts here
-_PLAN_FIELDS = 28    # kPlanFields of csrc/unet_mega.cu
+_PLAN_FIELDS = 32    # kPlanFields of csrc/unet_mega.cu
 _POOL, _UP, _HEAD = 0, 1, 2
 
 
@@ -60,9 +59,9 @@ def mega_eligible(cfg: UNetConfig, h: int, w: int) -> bool:
     bottleneck of at least 2 px. These are the gates of the JAX package's
     ``mega_eligible`` that are about the function, so both packages route
     the same inputs; its estimate of the TPU's on-chip memory is not carried
-    over. The card's kernel takes the same shared memory per block whatever
-    the tile (201 KB at base 32), so no tile size is refused; its
-    device-memory scratch (about 10 bytes per input pixel and base feature
+    over. The card's kernel picks each stage's tile to fit a block's shared
+    memory (:func:`conv_tiles.double_conv_tile`), so no tile size is
+    refused; its device-memory scratch (about 10 bytes per input pixel and base feature
     at depth 4: 389 MB for 128 tiles of 96² at base 32) is allocated per
     call, and a batch that does not fit raises torch's out-of-memory
     error."""
@@ -174,11 +173,13 @@ class MegaWeights:
 
 def _pack(folded: dict, device) -> Tuple[torch.Tensor, List[dict]]:
     """Lay the folded bf16 weights out for ``csrc/unet_mega.cu``: per stage
-    (block) w1t (Cmid_p, 9, Kp), s1, b1, w2t (Cout_p, 9, Cmid_p), s2, b2,
-    and for a stage that upsamples upw (4·Cup_p, Cout_p; row tap·Cup_p + co)
-    and upb; then the fp32 head (C0_p, 8) and bias (8). Channel counts are
-    padded to 32 with zeros. A decoder block's first conv reads the skip
-    plane at padded channels [0, C_p) and the upsampled plane from C_p on.
+    (block) its two convs packed for the stage's path
+    (:func:`conv_tiles.pack_conv`: w1, s1, b1, w2, s2, b2), and for a stage
+    that upsamples the transposed conv as the weight stream of a one-tap
+    (Cout_p32 × 4·Cup_p) product (column tap·Cup_p + co) and its bias; then
+    the fp32 head (Cout_p, 8) and bias (8). Padding is zero. A decoder
+    block's first conv reads the skip plane at padded channels [0, C_p) and
+    the upsampled plane from C_p on, C_p the half's count rounded to 32.
     Returns the byte blob and each stage's offsets and channel counts."""
     blocks, ups = folded["blocks"], folded["ups"]
     depth = len(ups)
@@ -189,59 +190,73 @@ def _pack(folded: dict, device) -> Tuple[torch.Tensor, List[dict]]:
         nonlocal size
         raw = t.contiguous().view(torch.uint8).reshape(-1)
         offset = size
-        pad = _round_up(raw.numel(), _ALIGN) - raw.numel()
+        pad = round_up(raw.numel(), _ALIGN) - raw.numel()
         pieces.append(torch.nn.functional.pad(raw, (0, pad)))
         size += raw.numel() + pad
         return offset
 
+    pad = torch.nn.functional.pad
     stages = []
     for i, blk in enumerate(blocks):
         cin, cmid = blk["w1"].shape[2:]
         cout = blk["w2"].shape[3]
-        cmid_p, cout_p = (_round_up(c, _CH_MULTIPLE) for c in (cmid, cout))
-        st = {"cmid_p": cmid_p, "cout": cout, "cout_p": cout_p}
+        path = conv_tiles.path_for(cmid)
+        cmid_p = conv_tiles.padded_channels(path, cin, cmid)[1]
+        cout_p = conv_tiles.padded_channels(path, cmid, cout)[1]
+        st = {"path": path, "cin": cin, "cmid": cmid, "cmid_p": cmid_p,
+              "cout": cout, "cout_p": cout_p}
+        w1 = blk["w1"]
         if i <= depth:                       # encoder, bottleneck: one source
-            st.update(c0=cin, c0p=_round_up(cin, _CH_MULTIPLE), c1=0)
+            st.update(c0=cin, c0p=round_up(cin, conv_tiles.CHUNK_K), c1=0)
             st["cin_p"] = st["c0p"]
-            w1t = _pack_weight(blk["w1"], st["cin_p"], cmid_p)
         else:                                # decoder: skip, then upsampled
             c = cin // 2
-            c_p = _round_up(c, _CH_MULTIPLE)
+            c_p = round_up(c, conv_tiles.CHUNK_K)
             st.update(c0=c, c0p=c_p, c1=c, cin_p=2 * c_p)
-            w1t = torch.cat([_pack_weight(blk["w1"][:, :, :c], c_p, cmid_p),
-                             _pack_weight(blk["w1"][:, :, c:], c_p, cmid_p)],
-                            dim=2)
-        st["w1t"] = add(w1t)
-        st["s1"] = add(_pack_vector(blk["s1"], cmid_p))
-        st["b1"] = add(_pack_vector(blk["b1"], cmid_p))
-        st["w2t"] = add(_pack_weight(blk["w2"], cmid_p, cout_p))
-        st["s2"] = add(_pack_vector(blk["s2"], cout_p))
-        st["b2"] = add(_pack_vector(blk["b2"], cout_p))
+            w1 = torch.cat([pad(w1[:, :, :c], (0, 0, 0, c_p - c)),
+                            pad(w1[:, :, c:], (0, 0, 0, c_p - c))], dim=2)
+        w2 = pad(blk["w2"], (0, 0, 0, cmid_p - cmid))
+        for j, conv in ((1, conv_tiles.pack_conv(path, w1, blk["s1"],
+                                                 blk["b1"])),
+                        (2, conv_tiles.pack_conv(path, w2, blk["s2"],
+                                                 blk["b2"]))):
+            for name, t in zip((f"w{j}t", f"s{j}", f"b{j}"), conv):
+                st[name] = add(t)
         if i < depth:
             st["kind"] = _POOL
         elif i < 2 * depth:
             st["kind"] = _UP
             up = ups[i - depth]
             up_cout = up["w"].shape[1]
-            up_cout_p = _round_up(up_cout, _CH_MULTIPLE)
-            # (Cin, Cout, 2, 2) → (tap, Cout_p, Cin_p)
-            k = up["w"].permute(2, 3, 1, 0).reshape(4, up_cout, cout)
-            k = torch.nn.functional.pad(
-                k, (0, cout_p - cout, 0, up_cout_p - up_cout))
-            st.update(up_cout=up_cout, up_cout_p=up_cout_p,
-                      upw=add(k.to(torch.bfloat16)),
-                      upb=add(_pack_vector(up["b"], up_cout_p)))
+            up_cout_p = round_up(up_cout, conv_tiles.MMA_PAD)
+            up_kp = round_up(cout, conv_tiles.CHUNK_K)
+            # (Cin, Cout, 2, 2) → (1 tap, Cin, 4 · Cout_p): column
+            # (2·dy + dx) · Cout_p + co
+            k = pad(up["w"].permute(0, 2, 3, 1), (0, up_cout_p - up_cout))
+            k = k.reshape(1, cout, 4 * up_cout_p)
+            st.update(up_cout=up_cout, up_cout_p=up_cout_p, up_kp=up_kp,
+                      upw=add(conv_tiles.pack_weight_stream(
+                          k, up_kp, 4 * up_cout_p)),
+                      upb=add(pack_vector(up["b"], up_cout_p)))
         else:
             st["kind"] = _HEAD
             hw = folded["head_w"]
             n_out = hw.shape[1]
             st.update(n_out=n_out,
-                      head_w=add(torch.nn.functional.pad(
-                          hw, (0, _HEAD_OUT - n_out, 0, cout_p - cout))),
-                      head_b=add(torch.nn.functional.pad(
-                          folded["head_b"], (0, _HEAD_OUT - n_out))))
+                      head_w=add(pad(hw, (0, _HEAD_OUT - n_out,
+                                          0, cout_p - cout))),
+                      head_b=add(pad(folded["head_b"],
+                                     (0, _HEAD_OUT - n_out))))
         stages.append(st)
     return torch.cat(pieces).to(device), stages
+
+
+def stage_tile(st: dict, h: int, w: int) -> conv_tiles.Tile:
+    """The tile of one stage over its (h, w) plane: the fused double conv's
+    rule; a stage that pools its own tiles starts them at even pixels."""
+    return conv_tiles.double_conv_tile(
+        h, w, st["cin"], st["cmid"], st["cout"], even=st["kind"] == _POOL,
+        head=st["kind"] == _HEAD)
 
 
 def _plan(stages: List[dict], b: int, h: int, w: int):
@@ -249,18 +264,19 @@ def _plan(stages: List[dict], b: int, h: int, w: int):
     (stages, _PLAN_FIELDS) int64 array, and the scratch size in bf16
     elements. Fields: kind, H, W, src0, c0, c0p, src1, c1, Cin_p, Cmid_p,
     Cout, Cout_p, w1t, s1, b1, w2t, s2, b2, out, aux, upw, upb, up_cout,
-    up_cout_p, head_w, head_b, n_out, 0. Plane offsets are in scratch
-    elements (-1: the network input, or no plane), weight offsets in bytes
-    of the blob. A block's ``out`` plane is its result (the skip of an
-    encoder level), ``aux`` the pooled or the upsampled plane that the next
-    block reads."""
+    up_cout_p, head_w, head_b, n_out, path, th, tw, images, up_kp. Plane
+    offsets are in scratch elements (-1: the network input, or no plane),
+    weight offsets in bytes of the blob. A block's ``out`` plane is its
+    result (the skip of an encoder level), ``aux`` the pooled or the
+    upsampled plane that the next block reads; path, th, tw and images are
+    :func:`stage_tile`'s choice for the stage's plane."""
     depth = (len(stages) - 1) // 2
     size = 0
 
     def plane(level: int, channels: int) -> int:
         nonlocal size
         offset = size
-        size += _round_up(b * (h >> level) * (w >> level) * channels,
+        size += round_up(b * (h >> level) * (w >> level) * channels,
                          _ALIGN // 2)
         return offset
 
@@ -280,36 +296,25 @@ def _plan(stages: List[dict], b: int, h: int, w: int):
             if st["kind"] == _UP:
                 out = plane(level, st["cout"])
                 aux = feed = plane(level - 1, st["up_cout"])
-        plan[i, :27] = [
+        tile = stage_tile(st, h >> level, w >> level)
+        plan[i] = [
             st["kind"], h >> level, w >> level, src0, st["c0"], st["c0p"],
             src1, st["c1"], st["cin_p"], st["cmid_p"], st["cout"],
             st["cout_p"], st["w1t"], st["s1"], st["b1"], st["w2t"], st["s2"],
             st["b2"], out, aux, st.get("upw", 0), st.get("upb", 0),
             st.get("up_cout", 0), st.get("up_cout_p", 0),
-            st.get("head_w", 0), st.get("head_b", 0), st.get("n_out", 0)]
+            st.get("head_w", 0), st.get("head_b", 0), st.get("n_out", 0),
+            tile.path_id, tile.th, tile.tw, tile.images, st.get("up_kp", 0)]
     return plan, size
 
 
 _CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def _state_key(model, device):
-    """Changes whenever a parameter or buffer is replaced or written in
-    place, so that the weights are folded and packed once per model and
-    device and again only after the model changed."""
-    def version(t):
-        try:
-            return t._version
-        except RuntimeError:                 # an inference tensor has none
-            return 0
-    return (str(device),) + tuple(
-        (t.data_ptr(), version(t)) for t in model.state_dict(keep_vars=True).values())
-
-
 def weights_of(model, dtype, device) -> MegaWeights:
     """The model's folded (and, on a card, packed) weights, cached on the
     model: not once per forward."""
-    key = _state_key(model, device) + (dtype,)
+    key = state_key(model, device) + (dtype,)
     cached = _CACHE.get(model)
     if cached is None or cached[0] != key:
         with torch.no_grad():

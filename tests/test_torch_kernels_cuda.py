@@ -25,7 +25,8 @@ import numpy as np
 from plumekit_torch.config import UNetConfig
 from plumekit_torch.experiments import scalar_gather_probe
 from plumekit_torch.models import build_model
-from plumekit_torch.models.kernels import fused_conv, unet_mega
+from plumekit_torch.models.fused_forward import blocks_of, make_fused_apply
+from plumekit_torch.models.kernels import conv_tiles, fused_conv, unet_mega
 from plumekit_torch.ops.kernels import ccl_sweep, label_counts
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -115,6 +116,91 @@ def test_single_conv_kernel_matches_plain_version(card, shape, cout):
     assert bool((err <= BF16_ATOL + BF16_RTOL * ref.abs()).all())
 
 
+# every geometry and grouping the tile rule can return: planes smaller than
+# a tile (several images per block), planes of ragged tiles, batches of one
+# image, of no multiple of the group and of the serving batch; unaligned and
+# wide input channels; odd output channels; both paths
+PLANES = [(3, 5), (6, 6), (18, 18), (29, 21), (37, 29)]
+BATCHES = [1, 3, 128]
+
+
+def _he_scaled(arrays):
+    """The case's weights (drawn at 0.1) rescaled to (2 / fan_in)^0.5, so
+    that activations stay of order one at 512 channels and two bf16 steps
+    of the result bound what a flipped rounding of the first conv does."""
+    for i in range(1, len(arrays), 3):
+        fan_in = 9 * arrays[i].shape[2]
+        arrays[i] = arrays[i] * (10.0 * (2.0 / fan_in) ** 0.5)
+    return arrays
+
+
+def _within_two_bf16_steps(got, ref):
+    err = (got.float() - ref.float()).abs()
+    return bool((err <= BF16_ATOL + BF16_RTOL * ref.float().abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(2, 32), (5, 37), (64, 129),
+                                      (512, 512)])
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("plane", PLANES)
+def test_single_conv_kernel_every_geometry(card, plane, batch, cin, cout):
+    arrays = [torch.from_numpy(a).to(card).to(torch.bfloat16) for a in
+              _he_scaled(double_conv_case(6, (batch, *plane, cin), cout, 8)[:4])]
+    tile = conv_tiles.single_conv_tile(*plane, cin, cout)
+    assert tile.path == ("wgmma" if cout > 64 else "mma")
+    packed = fused_conv.pack_single_conv(*arrays[1:])
+    before = fused_conv.SINGLE_LAUNCHES
+    got = fused_conv.fused_conv3x3_bn_relu_packed(arrays[0], packed)
+    torch.cuda.synchronize()
+    assert fused_conv.SINGLE_LAUNCHES == before + 1
+    assert got.shape == (batch, *plane, cout)
+    assert _within_two_bf16_steps(got, fused_conv.conv3x3_bn_relu_ref(*arrays))
+    # the raw-weight entry packs the same weights; two runs are equal
+    assert torch.equal(fused_conv.fused_conv3x3_bn_relu(*arrays), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cmid,cout", [(2, 32, 32), (5, 128, 37),
+                                           (64, 256, 256), (512, 512, 130)])
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("plane", PLANES)
+def test_double_conv_kernel_every_geometry(card, plane, batch, cin, cmid,
+                                           cout):
+    arrays = [torch.from_numpy(a).to(card).to(torch.bfloat16) for a in
+              _he_scaled(double_conv_case(7, (batch, *plane, cin), cmid, cout))]
+    tile = conv_tiles.double_conv_tile(*plane, cin, cmid, cout)
+    assert tile.path == ("wgmma" if cmid > 64 else "mma")
+    packed = fused_conv.pack_double_conv(*arrays[1:])
+    before = fused_conv.LAUNCHES
+    got = fused_conv.fused_double_conv3x3_bn_relu_packed(arrays[0], packed)
+    torch.cuda.synchronize()
+    assert fused_conv.LAUNCHES == before + 1
+    assert got.shape == (batch, *plane, cout)
+    assert _within_two_bf16_steps(
+        got, fused_conv.double_conv3x3_bn_relu_ref(*arrays))
+    assert torch.equal(fused_conv.fused_double_conv3x3_bn_relu(*arrays), got)
+
+
+@pytest.mark.cuda
+def test_fused_forward_packs_once_per_model(card):
+    cfg = UNetConfig(base_features=40, depth=2)
+    model, x = mega_case(cfg, (2, 32, 32, 2), 5, card)
+    apply = make_fused_apply(cfg)
+    first = blocks_of(model, torch.bfloat16, x.device)
+    got = apply(model, x)
+    assert blocks_of(model, torch.bfloat16, x.device) is first
+    assert [b.first.path for b in first] == ["mma", "wgmma", "wgmma", "wgmma",
+                                             "mma"]
+    with torch.inference_mode():
+        want = model(x)
+    assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
+    with torch.no_grad():
+        model.blocks[1].conv[0].weight.mul_(0.5)
+    assert blocks_of(model, torch.bfloat16, x.device) is not first
+    assert not torch.equal(apply(model, x), got)
+
+
 def mega_case(cfg, shape, seed, device):
     """A seeded U-Net with nontrivial BatchNorm parameters and running
     statistics on ``device``, and an input."""
@@ -148,7 +234,7 @@ def mega_case(cfg, shape, seed, device):
                           out_channels=3)),
     ((3, 16, 24, 2), dict(base_features=12, depth=1)),
     ((2, 96, 96, 2), dict()),             # UNetConfig(): base 32, depth 4
-    ((1, 32, 32, 2), dict(base_features=160, depth=1))])  # 8x8 tiles at level 0
+    ((1, 32, 32, 2), dict(base_features=160, depth=1))])  # wgmma path, head too
 def test_mega_kernel_matches_plain_version(card, shape, kw, seed):
     cfg = UNetConfig(**kw)
     model, x = mega_case(cfg, shape, seed, card)

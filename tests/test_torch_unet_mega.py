@@ -294,15 +294,22 @@ def test_plan_and_packing_cover_every_plane_and_weight_once():
     assert torch.equal(w1t[:12, :, 32:44], hwio[:, 12:].permute(2, 0, 1))
     assert not w1t[12:].any() and not w1t[:, :, 12:32].any() \
         and not w1t[:, :, 44:].any()
-    # the bottleneck's transposed conv: row tap * Cup_p + co, column ci
+    # the bottleneck's transposed conv, a one-tap weight stream
+    # [pass][chunk][tap][group][n][8]: depth ci = 32·chunk + 8·group + e,
+    # column 128·pass + n = tap · Cup_p + co
     row, up = plan[2], folded["ups"][0]
-    cup_p, cp = int(row[23]), int(row[11])
-    upw = blob[int(row[20]):int(row[20]) + 4 * cup_p * cp * 2] \
-        .view(torch.bfloat16).reshape(4, cup_p, cp)
+    cup_p, kp = int(row[23]), int(row[31])
+    assert (cup_p, kp) == (32, 64)
+    stream = blob[int(row[20]):int(row[20]) + kp * 4 * cup_p * 2] \
+        .view(torch.bfloat16).reshape(4 * cup_p // 128, kp // 32, 4, 128, 8)
+    upw = stream.permute(1, 2, 4, 0, 3).reshape(kp, 4, cup_p)
     for di in range(2):
         for dj in range(2):
-            assert torch.equal(upw[2 * di + dj, :24, :48],
-                               up["w"][:, :, di, dj].t())
+            assert torch.equal(upw[:48, 2 * di + dj, :24],
+                               up["w"][:, :, di, dj])
+    assert not upw[48:].any() and not upw[:, :, 24:].any()
+    # every stage of this narrow net takes the mma.sync path on 16 x 16 tiles
+    assert [[int(v) for v in r[27:31]] for r in plan] == [[0, 16, 16, 1]] * 5
     head_w = blob[int(plan[4, 24]):int(plan[4, 24]) + 32 * 8 * 4] \
         .view(torch.float32).reshape(32, 8)
     assert torch.equal(head_w[:12, :1], folded["head_w"])
