@@ -24,9 +24,12 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   --fused`` and through the plain forward;
 * the rg weak labeller: K1/K4 (multi-threshold CCL) and K3 (label counts)
   against their plain versions, bit for bit, on the identify benchmark's
-  1200² scene, 4096², 8192², a ragged 1201 × 997 scene and a serpentine;
-  the rg sweep per scene at 1200² and 8192² with the kernels and with the
-  plain versions, split by phase; then ``build_features --detector rg``
+  1200² scene, 4096², 8192², a ragged 1201 × 997 scene and a serpentine,
+  each timed with 20 launches per pair of CUDA events, K1 also pass by
+  pass (local, border, finalize) at 1200² and 8192²; the rg sweep per
+  scene at 1200² and 8192² with the kernels and with the plain versions,
+  split by phase (K4's launches are K1's in the 8192² sweep); then
+  ``build_features --detector rg``
   over four synthetic 1200² granules, one of which must equal a
   ``--device cpu`` run, and ``--batch-scenes 4`` over the same granules,
   which must equal the serial run;
@@ -34,7 +37,8 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   version, bit for bit, on the bench scene's opened stack (where it must
   also equal K1 on the raw AOD), a ragged stack at both connectivities,
   independent masks, a fire raster, a serpentine, empty and full levels
-  and basic's mask at 8192²; ``basic.identify`` and
+  and basic's mask at 8192² (basic's two masks also pass by pass);
+  ``basic.identify`` and
   ``gaussian.identify_granule`` at 1200² with the kernels and with the
   plain versions, split by phase; then ``build_features --detector basic``
   and ``--detector gaussian`` over four 1200² granules each, one of which
@@ -80,7 +84,8 @@ from plumekit_torch.infer.streaming import (  # noqa: E402
 from plumekit_torch.io.granule import Granule, save_granule  # noqa: E402
 from plumekit_torch.models import build_model  # noqa: E402
 from plumekit_torch.models.fused_forward import make_fused_apply  # noqa: E402
-from plumekit_torch.experiments import scalar_gather_probe  # noqa: E402
+from plumekit_torch.experiments import (  # noqa: E402
+    ccl_pass_times, scalar_gather_probe)
 from plumekit_torch.models.kernels import (  # noqa: E402
     conv_tiles, fused_conv, unet_mega)
 from plumekit_torch.train.checkpoint import (  # noqa: E402
@@ -127,11 +132,10 @@ PROBE_SIZE, PROBE_LOOKUPS = 1024, 1024   # the gather probe's defaults
 RG = RGIdentifyConfig()               # T = 20 thresholds 1.0 .. 0.05
 THRESHOLDS = np.asarray(RG.thresholds, np.float32)
 # the identify benchmark's scene (bench.py:267-271): 1200², 9 plumes
-BENCH_SCENE = dict(size=1200, n_plumes=9, background_level=0.2,
-                   background_noise=0.05, plume_amplitude=(0.6, 0.8),
-                   plume_sigma_major=(9.0, 14.0),
-                   plume_sigma_minor=(1.8, 2.6), fires_per_plume=(7, 9),
-                   extra_fires=4)
+BENCH_SCENE = ccl_pass_times.BENCH_SCENE
+# K1, K2 and K3 are timed with this many launches per pair of CUDA events,
+# so that the wrapper's host time per call stays out of the reading
+QUEUED = ccl_pass_times.QUEUED
 FEATURE_GRANULES = 4
 # at 8192² only this many plumes carry fires: locating a fire scans the
 # whole lat/lon grid on the host (about a quarter second each there)
@@ -147,8 +151,7 @@ GAUSS = GaussianIdentifyConfig()      # 3 sets of 25 thresholds, 64 raw fires
 # the basic detector's scenes: the bench scene over a clean background
 # (tests/test_identify_basic_parity.py's statistics), since its one mask at
 # AOD >= 0.2 percolates over the bench scene's background of 0.2
-BASIC_SCENE = dict(BENCH_SCENE, background_level=0.05, background_noise=0.02,
-                   plume_amplitude=(0.5, 0.8), plume_sigma_minor=(2.0, 3.0))
+BASIC_SCENE = ccl_pass_times.BASIC_SCENE
 # the gaussian scenes: the bench scene with two orbit layers, null blobs
 # and 7-9 fires at every plume (over the detector's 20-fire gate)
 GAUSS_SCENE = dict(BENCH_SCENE, n_layers=2, null_blobs=3)
@@ -189,8 +192,10 @@ def block_shapes(cfg: UNetConfig, tile: int):
     return enc + mid + dec
 
 
-def time_ms(fn, reps=10, warmup=2):
-    """Median of ``reps`` CUDA-event timings after ``warmup`` calls."""
+def time_ms(fn, reps=10, warmup=2, calls=1):
+    """Median of ``reps`` CUDA-event timings after ``warmup`` calls, each
+    around ``calls`` calls of ``fn`` and divided by them (with many, the
+    launches queue up and the host's time per call stays out)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -198,10 +203,11 @@ def time_ms(fn, reps=10, warmup=2):
         a, b = torch.cuda.Event(enable_timing=True), \
             torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return float(np.median(times))
 
 
@@ -874,61 +880,22 @@ def timed_once(fn):
 
 
 def device_scene(h, w, seed):
-    """An (h, w) float32 AOD plane made on the card with the identify
-    benchmark scene's statistics: smooth noise about 0.2 and, per 1200²,
-    nine plumes (amplitude 0.6-0.8, sigmas 9-14 by 1.8-2.6 px) and three
-    round background blobs. Returns the plane and the plume origins as
-    (rows, cols)."""
-    gen = torch.Generator(device=DEV).manual_seed(seed)
-    noise = torch.randn((1, 1, h, w), generator=gen, device=DEV)
-    for _ in range(2):
-        noise = F.avg_pool2d(noise, 9, stride=1, padding=4,
-                             count_include_pad=False)
-    noise = noise[0, 0]
-    aod = torch.clamp(0.2 + 0.035 * noise / noise.std(), min=0.0)
-    rng = np.random.default_rng(seed)
-    rr = torch.arange(h, device=DEV, dtype=torch.float32)[:, None]
-    cc = torch.arange(w, device=DEV, dtype=torch.float32)[None, :]
-
-    def add(r, c, theta, s_major, s_minor, amp):
-        reach = int(6 * s_major) + 1
-        r0, r1 = max(0, int(r) - reach), min(h, int(r) + reach + 1)
-        c0, c1 = max(0, int(c) - reach), min(w, int(c) + reach + 1)
-        dr, dc = rr[r0:r1] - r, cc[:, c0:c1] - c
-        u = dc * math.cos(theta) + dr * math.sin(theta)
-        v = -dc * math.sin(theta) + dr * math.cos(theta)
-        aod[r0:r1, c0:c1] += amp * torch.exp(
-            -0.5 * ((u / s_major) ** 2 + (v / s_minor) ** 2))
-
-    scale, margin = h * w / 1200**2, 48
-    origins = []
-    for _ in range(max(1, round(9 * scale))):
-        r0 = rng.uniform(margin, h - margin)
-        c0 = rng.uniform(margin, w - margin)
-        theta = rng.uniform(0, np.pi)
-        s_major, s_minor = rng.uniform(9.0, 14.0), rng.uniform(1.8, 2.6)
-        add(r0 + s_major * np.sin(theta), c0 + s_major * np.cos(theta),
-            theta, s_major, s_minor, rng.uniform(0.6, 0.8))
-        origins.append((r0, c0))
-    for _ in range(round(3 * scale)):
-        sigma = rng.uniform(8.0, 14.0)
-        add(rng.uniform(margin, h - margin), rng.uniform(margin, w - margin),
-            0.0, sigma, sigma, rng.uniform(0.3, 0.6))
-    return aod.contiguous(), np.asarray(origins).T
+    """An (h, w) AOD plane made on the card with the identify benchmark
+    scene's statistics, and its plume origins (``ccl_pass_times``)."""
+    return ccl_pass_times.device_scene(h, w, seed, DEV)
 
 
 def serpentine(h, w, thick=3):
-    """One component whose path reverses every band: ``thick``-px
-    corridors that survive the opening, joined at alternating ends."""
-    f = torch.full((h, w), 0.3, device=DEV)
-    period = 2 * thick
-    for top in range(0, h - thick + 1, period):
-        f[top:top + thick] = 1.3
-        if top + period < h:
-            cols = slice(0, thick) if (top // period) % 2 == 0 \
-                else slice(w - thick, w)
-            f[top + thick:top + period, cols] = 1.3
-    return f
+    return ccl_pass_times.serpentine(h, w, DEV, thick)
+
+
+def pass_split(name, prefix, reps):
+    """The queued ms of each of the three CCL passes (``prefix(n)``
+    launches the first n), printed; launches made here are not counted."""
+    split = ccl_pass_times.pass_split(prefix, reps)
+    print(f"{name} per pass: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()) + " ms", flush=True)
+    return split
 
 
 def check_ccl(name, aod, thresholds, connectivity=2):
@@ -949,7 +916,7 @@ def check_ccl(name, aod, thresholds, connectivity=2):
     fg = [float((got[t] > 0).float().mean()) for t in range(t_count)]
     big = h * w >= 4096**2
     ms = time_ms(lambda: ccl_sweep.multi_threshold_ccl_fused(
-        aod, th, connectivity), reps=5 if big else 10)
+        aod, th, connectivity), reps=5 if big else 10, calls=QUEUED)
     bound_ms, bound_by = bound(4 * (aod.numel() + t_count + got.numel()))
     row = {"scene": name, "h": h, "w": w, "levels": t_count,
            "connectivity": connectivity, "equal": equal,
@@ -957,6 +924,12 @@ def check_ccl(name, aod, thresholds, connectivity=2):
            "bound_ms": bound_ms, "bound_by": bound_by,
            "gpix_levels_per_s": t_count * h * w / ms / 1e6,
            "components": components, "foreground_share": fg}
+    if name in ("bench_1200", "synthetic_8192"):
+        out = torch.empty_like(got)
+        row["passes"] = pass_split(f"K1 {name}", lambda n: (
+            ccl_pass_times.sweep_prefix(aod, th, out, connectivity, n)),
+            3 if big else 5)
+        del out
     print(f"K1 {name} {h}x{w} T={t_count} conn={connectivity}: "
           f"{'equal' if equal else f'{wrong} pixels differ'}; kernel "
           f"{ms:.3f} ms (bound {bound_ms:.4f} ms by {bound_by}), plain "
@@ -983,7 +956,8 @@ def check_counts(name, labels, f_count, rng):
     ref, plain_ms = timed_once(
         lambda: label_counts.fire_label_counts_ref(labels, labs))
     err = int((got - ref).abs().max())
-    ms = time_ms(lambda: label_counts.fire_label_counts(labels, labs))
+    ms = time_ms(lambda: label_counts.fire_label_counts(labels, labs),
+                 calls=QUEUED)
     # one compare per pixel, level and lab; labels and labs in, counts out
     bound_ms, bound_by = bound(4 * (labels.numel() + 2 * labs.numel()),
                                labels.numel() * f_count)
@@ -1128,13 +1102,17 @@ def sweep_split():
     scenes = {"bench_1200": (g.first_layer(), g.lat, g.lon,
                              bench.fires["date_time"][0], bench.fires),
               "synthetic_8192": swath_scene(8192)}
-    orders = {"bench_1200": (False, True, True, False),
+    # a process's first run is a warm-up; at 1200² its first-use cost
+    # reaches into the next run of the kernels, so the scene runs on until
+    # the last three kernel runs are steady
+    orders = {"bench_1200": (False, True, False, True, False, False),
               "synthetic_8192": (False, True, False)}
     res = {}
     for name, scene in scenes.items():
         runs = {"kernels": [], "plain": []}
         results = {}
         torch.cuda.reset_peak_memory_stats()
+        ccl_sweep.LAUNCHES = 0
         for plain in orders[name]:
             ms, result = identify_split(scene, plain)
             runs["plain" if plain else "kernels"].append(ms)
@@ -1152,9 +1130,11 @@ def sweep_split():
         if not kt:
             raise AssertionError(f"{name}: no plume accepted")
         res[name] = {"runs": runs, "plumes": len(kt), "fire_capacity": f_cap,
+                     "k1_launches": ccl_sweep.LAUNCHES,
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-        print(f"identify {name}: {len(kt)} plumes, F = {f_cap}, peak "
-              f"{res[name]['peak_gb']:.2f} GB", flush=True)
+        print(f"identify {name}: {len(kt)} plumes, F = {f_cap}, K1 launches "
+              f"{ccl_sweep.LAUNCHES}, peak {res[name]['peak_gb']:.2f} GB",
+              flush=True)
         del scene, results
         torch.cuda.empty_cache()
     return res
@@ -1300,8 +1280,10 @@ def check_masks(name, masks, connectivity=2, same_as=None):
     ids = torch.arange(1, h * w + 1, dtype=torch.int32, device=DEV)
     components = [int((got[t].view(-1) == ids).sum()) for t in range(t_count)]
     fg = [float(masks[t].float().mean()) for t in range(t_count)]
+    big = h * w >= 4096**2
     ms = time_ms(lambda: ccl_sweep.multi_threshold_ccl(
-        masks, connectivity, nested=False), reps=5 if h * w >= 4096**2 else 10)
+        masks, connectivity, nested=False), reps=5 if big else 10,
+        calls=QUEUED)
     bound_ms, bound_by = bound(masks.numel() + got.numel() * 4)
     row = {"scene": name, "h": h, "w": w, "levels": t_count,
            "connectivity": connectivity, "equal": equal,
@@ -1309,6 +1291,12 @@ def check_masks(name, masks, connectivity=2, same_as=None):
            "bound_ms": bound_ms, "bound_by": bound_by,
            "gpix_levels_per_s": t_count * h * w / ms / 1e6,
            "components": components, "foreground_share": fg}
+    if name in ("basic_scene_1200_mask", "basic_mask_8192"):
+        out = torch.empty_like(got)
+        row["passes"] = pass_split(f"K2 {name}", lambda n: (
+            ccl_pass_times.masks_prefix(masks, out, connectivity, n)),
+            3 if big else 5)
+        del out
     print(f"K2 {name} {h}x{w} T={t_count} conn={connectivity}: "
           f"{'equal' if equal else f'{wrong} pixels differ'}; kernel "
           f"{ms:.3f} ms (bound {bound_ms:.4f} ms by {bound_by}), plain "
@@ -1456,6 +1444,11 @@ def detector_split():
                                   gscene.fires["date_time"][0], GAUSS)[0]
     if len(located) < GAUSS.min_fires_per_scene:
         raise AssertionError(f"gaussian scene has {len(located)} fires")
+    truncated = max(0, len(located) - GAUSS.max_fires)
+    print(f"gaussian scene: {len(located)} raw fires located; the detector "
+          f"keeps the first {GAUSS.max_fires} (its capacity, unbucketed) and "
+          f"drops {truncated} before clustering, as the JAX function does, "
+          "so the gaussian times below are of a truncated run", flush=True)
     runs = {
         "basic_1200": (basic_split, (aod, g.lat, g.lon,
                                      bench.fires["date_time"][0],
@@ -1497,8 +1490,12 @@ def detector_split():
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         if name != "basic_1200":
             res[name]["located_fires"] = int(len(located))
+            res[name]["fires_dropped_at_capacity"] = truncated
         print(f"identify {name}: {found} plumes, K2 launches {k2_launches}, "
-              f"peak {res[name]['peak_gb']:.2f} GB", flush=True)
+              f"peak {res[name]['peak_gb']:.2f} GB"
+              + ("" if name == "basic_1200" else
+                 f"; {len(located)} raw fires truncated to {GAUSS.max_fires}"),
+              flush=True)
     torch.cuda.empty_cache()
     return res
 
@@ -1697,12 +1694,12 @@ def main() -> int:
         "bound_ms": bench_counts["bound_ms"],
         "bound_by": bench_counts["bound_by"], "library_ms": None,
         "at": "1200x1200, T=20, F=16"},
-        # K4 is K1's kernel under its other entry name: the same launch
-        # count, timed where the TPU needs the banded kernel
+        # K4 is K1's kernel under its other entry name, timed where the TPU
+        # needs the banded kernel; its launches are K1's at 8192² in the
+        # rg sweep (rg.identify on the swath scene)
         ccl_entry("multi_threshold_ccl_banded",
                   "plumekit/ops/pallas/ccl_banded.py:321", swath_ccl,
-                  features["launches"]["k1"]
-                  + gaussian_features["launches"]["k1"], ccl_rows,
+                  sweeps["synthetic_8192"]["k1_launches"], ccl_rows,
                   same_kernel_as="multi_threshold_ccl_fused"), {
         "name": "fused_conv3x3_bn_relu", "route": "cuda",
         "source": "plumekit_torch/csrc/fused_conv.cu",

@@ -9,14 +9,15 @@ Both compute, for an (H, W) float32 AOD plane and T thresholds, the
 under the contract of :mod:`plumekit_torch.ops.ccl`. On the TPU the two
 differ only in where the label plane lives (VMEM up to ~5000², HBM
 beyond); on the card it lives in device memory at every size, so one CUDA
-kernel, ``plumekit_torch/csrc/ccl_sweep.cu`` (block-based union-find, all T
-levels in one launch), serves both names.
+kernel, ``plumekit_torch/csrc/ccl_sweep.cu`` (union-find over runs of
+bit-packed 64 × 64 tiles, all T levels in one call of three passes), serves
+both names.
 
 K2 replaces ``multi_threshold_ccl`` (``plumekit/ops/pallas/ccl_sweep.py:468``):
 (T, H, W) bool masks in, (T, H, W) int32 labels out, each level
 ``connected_components(masks[t])`` bit for bit. The same source holds its
-kernel: the border and finalize passes of K1 behind a local pass that reads
-its tile's foreground from the mask plane. The basic detector and the
+kernel: K1's three passes, with each tile's foreground read from the mask
+plane in place of the thresholded, opened AOD. The basic detector and the
 gaussian detector's fire clustering label one mask each through it.
 
 :func:`multi_threshold_ccl_fused` and :func:`multi_threshold_ccl` run the

@@ -4,8 +4,9 @@ Replaces the Pallas TPU kernel ``fire_label_counts``
 (``plumekit/ops/pallas/label_counts.py:83``): ``counts[t, f] =
 sum(labels[t] == labs[t, f])`` for a (T, H, W) int32 label stack and a
 (T, F ≤ 128) int32 table, exact for duplicate labs and for 0. The CUDA
-kernel is ``plumekit_torch/csrc/label_counts.cu`` (warp ballots into
-per-lane register counters, one global atomic per block and lab).
+kernel is ``plumekit_torch/csrc/label_counts.cu`` (the distinct labs in a
+shared-memory hash table, one probe per pixel, warp-aggregated counts, one
+global atomic per block and lab).
 
 :func:`fire_label_counts` runs the plain version for a tensor on the CPU
 and the CUDA kernel for a tensor on the card; it never falls back from
@@ -21,7 +22,7 @@ import torch
 #: launches of the CUDA kernel since import (or since a caller reset it)
 LAUNCHES = 0
 
-#: the kernel's lab capacity (four 32-lane register counters)
+#: the kernel's lab capacity (a table of 256 slots at most half full)
 MAX_LABS = 128
 
 

@@ -66,6 +66,18 @@ def test_four_connectivity_bit_equal_to_pallas_interpret():
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_cross_lattice_four_connectivity_bit_equal_to_pallas_interpret(entry):
+    """Crosses that touch only diagonally: one label per cross under
+    4-connectivity."""
+    field, ths = CASES["cross_lattice"]()
+    port, jax_fn = ENTRIES[entry]
+    got = port(torch.from_numpy(field), torch.from_numpy(ths), 1)
+    ref = np.asarray(jax_fn(jnp.asarray(field), jnp.asarray(ths), 1))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert len(np.unique(got.numpy())) > 1000
+
+
 def test_nan_pixels_never_enter_a_mask():
     """NaN compares False with every threshold, as on the TPU where the
     kernel's -1e30 padding must never enter a mask either."""

@@ -31,7 +31,7 @@ from plumekit_torch.ops.kernels import ccl_sweep, label_counts
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_ccl_cases import (CASES, MASK_CASES, double_conv_case,  # noqa: E402
-                             label_count_case)
+                             degenerate_label_count_case, label_count_case)
 
 BF16_ATOL = BF16_RTOL = 2.0 ** -6
 LOGIT_RTOL, LOGIT_MIN_CORR = 2e-2, 0.999
@@ -324,6 +324,15 @@ def test_label_counts_kernel_matches_plain_version(card, shape, f):
     got = label_counts.fire_label_counts(labels, labs)
     torch.cuda.synchronize()
     assert label_counts.LAUNCHES == before + 1
+    assert torch.equal(got, label_counts.fire_label_counts_ref(labels, labs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["one_lab", "all_same", "all_zero"])
+def test_label_counts_kernel_degenerate_labs(card, kind):
+    labels, labs = (torch.from_numpy(a).to(card)
+                    for a in degenerate_label_count_case(kind))
+    got = label_counts.fire_label_counts(labels, labs)
     assert torch.equal(got, label_counts.fire_label_counts_ref(labels, labs))
 
 

@@ -17,7 +17,8 @@ from plumekit.ops.pallas.label_counts import (
 from plumekit_torch.ops.kernels import label_counts
 
 sys.path.insert(0, os.path.dirname(__file__))
-from torch_ccl_cases import label_count_case as _case  # noqa: E402
+from torch_ccl_cases import (  # noqa: E402
+    degenerate_label_count_case, label_count_case as _case)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -40,6 +41,16 @@ def test_counts_bit_equal_to_pallas_interpret(shape, f):
                                          torch.from_numpy(labs))
     ref = jax_counts(jnp.asarray(labels), jnp.asarray(labs), interpret=True)
     assert got.dtype == torch.int32 and tuple(got.shape) == labs.shape
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("kind", ["one_lab", "all_same", "all_zero"])
+def test_degenerate_labs_bit_equal_to_pallas_interpret(kind):
+    """F = 1; F = 128 copies of one lab; labs that are all 0."""
+    labels, labs = degenerate_label_count_case(kind)
+    got = label_counts.fire_label_counts(torch.from_numpy(labels),
+                                         torch.from_numpy(labs))
+    ref = jax_counts(jnp.asarray(labels), jnp.asarray(labs), interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 

@@ -17,7 +17,8 @@ for name in names:
     importlib.import_module(name)
 needed = {"plumekit_torch.models.kernels.unet_mega",
           "plumekit_torch.models.kernels.fused_conv",
-          "plumekit_torch.experiments.scalar_gather_probe"}
+          "plumekit_torch.experiments.scalar_gather_probe",
+          "plumekit_torch.experiments.ccl_pass_times"}
 banned = {"jax", "jaxlib", "flax", "orbax", "pandas", "plumekit"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 missing = sorted(needed - set(names))

@@ -65,6 +65,59 @@ def _thin_serpentine():
     return f + 0.3, np.asarray([0.5, 0.25], np.float32)
 
 
+def _cross_lattice(h=128, w=128):
+    """Crosses centred on (2i, 2j) with i + j even: the opening keeps every
+    one, and neighbouring crosses touch only diagonally, at every tile
+    corner and seam of the kernel's 64 x 64 tiles. One component under
+    8-connectivity, one per cross under 4."""
+    r, c = np.mgrid[:h, :w]
+    off = (r % 2 == 1) & (c % 2 == 1) | (r % 2 == 0) & (c % 2 == 0) \
+        & ((r // 2 + c // 2) % 2 == 1)
+    return np.where(off, 0.0, 1.0).astype(np.float32), \
+        np.asarray([0.5], np.float32)
+
+
+def _spiral(n=128, thick=3, gap=3):
+    """One corridor spiralling inwards from the border, ``thick`` px wide,
+    ``gap`` px between turns: a single component that crosses every tile
+    boundary."""
+    grid = np.zeros((n, n), bool)
+    top, left, bottom, right = 0, 0, n, n
+    step = thick + gap
+    while True:
+        grid[top:top + thick, left:right] = True              # rightwards
+        if bottom - top < thick + step:
+            break
+        grid[top:bottom, right - thick:right] = True          # down
+        if right - left < thick + step:
+            break
+        grid[bottom - thick:bottom, left:right] = True        # leftwards
+        if bottom - top < 2 * step + thick:
+            break
+        grid[top + step:bottom, left:left + thick] = True     # up
+        top, left, bottom, right = (top + step, left + step, bottom - step,
+                                    right - step)
+        if right - left < thick or bottom - top < thick:
+            break
+        grid[top:top + thick, left - step:left] = True        # turn inwards
+    return grid
+
+
+def _field_of(grid):
+    return grid.astype(np.float32) + 0.3, np.asarray([0.5, 0.25], np.float32)
+
+
+def _opened_away():
+    """A level of isolated pixels and 2-px lines above the threshold, all
+    of which the opening removes, beside a level that keeps a blob."""
+    f = np.zeros((70, 90), np.float32)
+    f[5:7, 3:80] = 1.0
+    f[10:60, 40:42] = 1.0
+    f[::9, ::7] = 1.0
+    f[30:40, 60:75] = 0.4
+    return f, np.asarray([0.5, 0.3], np.float32)
+
+
 CASES = {
     "nested_noise": lambda: _quantile_case(3, (160, 200), [0.9, 0.5, 0.2]),
     "percolation": lambda: _quantile_case(7, (96, 130), [0.7, 0.45, 0.25],
@@ -75,6 +128,17 @@ CASES = {
     "thin_serpentine": _thin_serpentine,
     "ragged_97x131": lambda: _quantile_case(5, (97, 131), [0.8, 0.5, 0.3]),
     "ragged_61x203": lambda: _quantile_case(9, (61, 203), [0.6, 0.4], 0.7),
+    # seams of the kernel's bit-packed 64 x 64 tiles: word tails, one row,
+    # one column, diagonal-only contacts, a component through every tile,
+    # and a level the opening empties
+    "width_31": lambda: _quantile_case(11, (40, 31), [0.6, 0.3], 0.7),
+    "width_33": lambda: _quantile_case(12, (40, 33), [0.6, 0.3], 0.7),
+    "width_65": lambda: _quantile_case(13, (97, 65), [0.6, 0.4, 0.2], 0.7),
+    "one_row": lambda: _quantile_case(14, (1, 200), [0.6, 0.3, 0.0], 2.0),
+    "one_column": lambda: _quantile_case(15, (200, 1), [0.6, 0.3, 0.0], 2.0),
+    "cross_lattice": _cross_lattice,
+    "spiral": lambda: _field_of(_spiral()),
+    "opened_away": _opened_away,
 }
 
 
@@ -120,6 +184,19 @@ def _fire_raster():
     return grid, False
 
 
+def _random_masks(seed, shape):
+    """Independent levels at densities below and near percolation."""
+    rng = np.random.default_rng(seed)
+    return rng.random(shape) < np.asarray([0.35, 0.6])[:, None, None], False
+
+
+def _checkerboard(h=128, w=128):
+    """Pixels that touch only diagonally, across every tile corner and seam:
+    one component under 8-connectivity, every pixel its own under 4."""
+    r, c = np.mgrid[:h, :w]
+    return ((r + c) % 2 == 0)[None], False
+
+
 MASK_CASES = {
     "nested_noise": lambda: _nested_stack(3, (160, 200), [0.9, 0.5, 0.2]),
     "percolation": lambda: _nested_stack(7, (96, 130), [0.7, 0.45, 0.25],
@@ -129,6 +206,13 @@ MASK_CASES = {
     "serpentine": _mask_serpentine,
     "fire_raster": _fire_raster,
     "ragged_61x203": lambda: _nested_stack(9, (61, 203), [0.6, 0.4], 0.7),
+    "width_31": lambda: _random_masks(16, (2, 40, 31)),
+    "width_33": lambda: _random_masks(17, (2, 40, 33)),
+    "width_65": lambda: _random_masks(18, (2, 97, 65)),
+    "one_row": lambda: _random_masks(19, (2, 1, 200)),
+    "one_column": lambda: _random_masks(20, (2, 200, 1)),
+    "checkerboard": _checkerboard,
+    "spiral": lambda: (_spiral(thick=1, gap=1)[None], False),
 }
 
 
@@ -146,6 +230,18 @@ def double_conv_case(seed, shape, cm, co):
         rng.uniform(0.5, 2, co).astype(np.float32),
         (rng.normal(size=co) * 0.1).astype(np.float32),
     ]
+
+
+def degenerate_label_count_case(kind, seed=0):
+    """Labs the sweep can hand K3 at its edges: one lab (F = 1), F = 128
+    copies of one lab, or F = 64 labs that are all the not-found 0."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 6, (3, 70, 90)).astype(np.int32)
+    f = {"one_lab": 1, "all_same": 128, "all_zero": 64}[kind]
+    labs = np.zeros((3, f), np.int32)
+    if kind != "all_zero":
+        labs[:] = np.asarray([3, 5, 0])[:, None]
+    return labels, labs
 
 
 def label_count_case(shape, f, seed):
