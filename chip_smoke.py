@@ -5,7 +5,11 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
 
 * megakernel serving: K7 (the whole U-Net forward in one launch) against
   its plain PyTorch version at the flagship U-Net over 128 tiles of 96²,
-  one tile and a 64 × 48 depth-3 net, and against the cuDNN forward; then
+  one tile and a 64 × 48 depth-3 net, and against the cuDNN forward; stage
+  by stage (its debug form keeps every plane) against the plain version of
+  each stage at 128 tiles of 96² and of 288²; its fp32 body against the
+  plain version in fp32; its per-stage times and busy shares beside K6 at
+  the same block shapes (``experiments/mega_stage_times.py``); then
   the four 2048² granules served through ``predict_model --tile 96
   --overlap 32`` from a checkpoint that says ``use_mega`` (K7 must launch
   once per forward and K6 not at all) and from one that does not; K5 (one
@@ -85,7 +89,7 @@ from plumekit_torch.io.granule import Granule, save_granule  # noqa: E402
 from plumekit_torch.models import build_model  # noqa: E402
 from plumekit_torch.models.fused_forward import make_fused_apply  # noqa: E402
 from plumekit_torch.experiments import (  # noqa: E402
-    ccl_pass_times, scalar_gather_probe)
+    ccl_pass_times, mega_stage_times, scalar_gather_probe)
 from plumekit_torch.models.kernels import (  # noqa: E402
     conv_tiles, fused_conv, unet_mega)
 from plumekit_torch.train.checkpoint import (  # noqa: E402
@@ -127,6 +131,9 @@ MEGA = InferConfig(tile_size=96, overlap=32)
 # the flips' share, which falls with the square root of the logits' count
 MEGA_RTOL = 2e-2
 MEGA_HEAD_ROUNDING_SHARE = 0.25
+# K7's fp32 body vs its plain version in fp32 (TF32 off in both): the same
+# arithmetic, sums in another order
+MEGA_F32_RTOL, MEGA_F32_MIN_CORR = 1e-3, 0.99999
 PROBE_SIZE, PROBE_LOOKUPS = 1024, 1024   # the gather probe's defaults
 
 RG = RGIdentifyConfig()               # T = 20 thresholds 1.0 .. 0.05
@@ -639,13 +646,13 @@ def mega_tiles(rng, n, tile):
         [np.stack([p, np.zeros_like(p)], -1) for p in tiles])).to(DEV)
 
 
-def compare_logits(name, got, ref, rtol):
+def compare_logits(name, got, ref, rtol, min_corr=LOGIT_MIN_CORR):
     g, r = got.float().cpu().numpy().ravel(), ref.float().cpu().numpy().ravel()
     if not (np.isfinite(g).all() and got.shape == ref.shape):
         raise AssertionError(f"{name}: non-finite or misshapen logits")
     max_diff, scale = float(np.abs(g - r).max()), float(np.abs(r).max())
     corr = float(np.corrcoef(g, r)[0, 1])
-    if not (max_diff <= rtol * scale and corr > LOGIT_MIN_CORR):
+    if not (max_diff <= rtol * scale and corr > min_corr):
         raise AssertionError(
             f"{name}: max|diff| {max_diff:.4g} of max|logit| {scale:.4g} "
             f"(allowed {rtol}), corr {corr:.6f}")
@@ -657,7 +664,9 @@ def check_mega(model, rng, batch):
     over the main path's batch of 96² tiles and over one tile, the same net
     with the weights of three other seeds over 8 tiles, and a base-8 depth-3
     net over 64 × 48 inputs; timed at the main path's batch beside
-    the cuDNN and the K6 forward, and at 288² tiles."""
+    the cuDNN and the K6 forward, and at 288² tiles; stage by stage against
+    the plain version of each stage at both tiles; the fp32 body over the
+    main path's batch against the plain version in fp32."""
     apply = unet_mega.make_mega_apply(model.cfg)
     fused = make_fused_apply(model.cfg)
     x = mega_tiles(rng, batch, MEGA.tile_size)
@@ -725,20 +734,19 @@ def check_mega(model, rng, batch):
         res["vs_cudnn_forward_288"] = compare_logits(
             "K7 vs cuDNN forward, 288^2", apply(model, big), model(big),
             LOGIT_RTOL)
+        res["stage_check"] = {str(t): check_stages(weights, x),
+                         str(ICFG.tile_size): check_stages(weights, big)}
         del big
-    _plan, scratch_elems = unet_mega._plan(weights.stages, *x.shape[:3])
+        res["fp32"] = check_mega_fp32(model, x)
+    # the forward's own table: planes reused, the bottleneck split
+    _plan, scratch_elems = unet_mega._plan(
+        weights.stages, *x.shape[:3],
+        blocks=torch.cuda.get_device_properties(DEV).multi_processor_count)
     res["scratch_bytes"] = 2 * scratch_elems
     res["weight_bytes"] = weights.blob.numel()
     res["stages"] = len(weights.stages)
-    # per tile: every conv, transposed conv and the head, 2 flops per MAC
     cfg = model.cfg
-    ops = sum(2 * 9 * h * h * (cin * cmid + cmid * cout)
-              for cin, cmid, cout, h in block_shapes(cfg, t))
-    f = [cfg.base_features * 2**i for i in range(cfg.depth + 1)]
-    ops += sum(2 * (t >> (i + 1)) ** 2 * f[i + 1] * 4 * f[i]
-               for i in range(cfg.depth))
-    ops += 2 * t * t * f[0] * cfg.out_channels
-    res["ops"] = ops * batch
+    res["ops"] = mega_ops(cfg, t) * batch
     # compulsory bytes: the input and the logits once, the weights once
     res["bytes"] = x.numel() * 2 + batch * t * t * cfg.out_channels * 4 \
         + res["weight_bytes"]
@@ -755,6 +763,97 @@ def check_mega(model, rng, batch):
           f" at {batch}x288^2 K7 {res['ms_288']:.2f} ms, cuDNN forward "
           f"{res['cudnn_forward_ms_288']:.2f} ms", flush=True)
     return res
+
+
+def check_stages(weights, x):
+    """Each stage of K7 (its debug form: every plane kept) against the
+    plain version of that stage fed K7's own input planes, under K6's gate
+    (``unet_mega.stage_errors``)."""
+    xb = x.to(torch.bfloat16).contiguous()
+    logits, scratch, plan = unet_mega.mega_forward_debug(weights, xb)
+    torch.cuda.synchronize()
+    rows = unet_mega.stage_errors(weights, xb, logits, scratch, plan)
+    worst = max(v["ratio"] for r in rows for v in r.values()
+                if isinstance(v, dict))
+    print(f"K7 stage by stage, {xb.shape[0]}x{xb.shape[1]}^2: worst "
+          f"|err| / (2^-6 + 2^-6 |ref|) per stage " + ", ".join(
+              f"{r['stage']} {max(v['ratio'] for v in r.values() if isinstance(v, dict)):.3f}"
+              for r in rows), flush=True)
+    if not worst <= 1.0:
+        raise AssertionError(f"K7 disagrees with a stage's plain version: "
+                             f"{rows}")
+    del logits, scratch
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_mega_fp32(model, x):
+    """The fp32 body: ``compute_dtype="float32"`` with ``use_mega`` over the
+    main path's batch, one launch, against the plain version in fp32 (TF32
+    off); timed beside its operations bound at the fp32 rate."""
+    cfg = dataclasses.replace(model.cfg, compute_dtype="float32",
+                              use_mega=True)
+    net = build_model(cfg).to(DEV).eval()
+    net.load_state_dict(model.state_dict())
+    before = unet_mega.LAUNCHES
+    got = net(x)
+    torch.cuda.synchronize()
+    if unet_mega.LAUNCHES != before + 1:
+        raise AssertionError("K7 fp32: not one launch per forward")
+    weights = unet_mega.weights_of(net, torch.float32, DEV)
+    ref = unet_mega.mega_forward_ref(weights.folded, x)
+    row = compare_logits("K7 fp32 vs plain version", got, ref, MEGA_F32_RTOL,
+                         MEGA_F32_MIN_CORR)
+    apply = unet_mega.make_mega_apply(cfg)
+    row["ms"] = time_ms(lambda: apply(net, x), reps=3, warmup=1)
+    row["plain_ms"] = time_ms(
+        lambda: unet_mega.mega_forward_ref(weights.folded, x), reps=2,
+        warmup=1)
+    row["ops"] = mega_ops(cfg, x.shape[1]) * x.shape[0]
+    row["bound_ms"], row["bound_by"] = bound(
+        x.numel() * 4 + x.shape[0] * x.shape[1] ** 2 * cfg.out_channels * 4
+        + weights.blob.numel(), row["ops"], PEAK_32BIT_OPS_PER_S)
+    print(f"K7 fp32 {x.shape[0]}x{x.shape[1]}^2: max|K7 - plain version| "
+          f"{row['max_abs_diff']:.4g} of max|logit| {row['max_abs_logit']:.4g}"
+          f", corr {row['corr']:.7f}; {row['ms']:.2f} ms (bound "
+          f"{row['bound_ms']:.3f} ms by {row['bound_by']} at 67 TFLOP/s), "
+          f"plain version {row['plain_ms']:.2f} ms", flush=True)
+    del got, ref, net
+    return row
+
+
+def mega_ops(cfg, t):
+    """Operations of one t² tile of the U-Net: every conv, transposed conv
+    and the head, 2 per multiply-add."""
+    ops = sum(2 * 9 * h * h * (cin * cmid + cmid * cout)
+              for cin, cmid, cout, h in block_shapes(cfg, t))
+    f = [cfg.base_features * 2**i for i in range(cfg.depth + 1)]
+    ops += sum(2 * (t >> (i + 1)) ** 2 * f[i + 1] * 4 * f[i]
+               for i in range(cfg.depth))
+    return ops + 2 * t * t * f[0] * cfg.out_channels
+
+
+def mega_stage_table(model, rng, batch, kernel_rows):
+    """K7 stage by stage at the main path's batch of 96² and of 288² tiles
+    (``experiments/mega_stage_times.py``: queued prefixes and per-block
+    stamps), beside K6 at the same block shape from ``check_kernel``."""
+    weights = unet_mega.weights_of(model, torch.bfloat16, DEV)
+    out = {}
+    for tile in (MEGA.tile_size, ICFG.tile_size):
+        x = mega_tiles(rng, batch, tile).to(torch.bfloat16).contiguous()
+        stages = mega_stage_times.stage_split_of(weights, x, reps=3)
+        k6 = [r for r in kernel_rows if r["set"] == str(tile)]
+        print(f"K7 by stage, {batch}x{tile}^2 (stage kind: items, waves, ms, "
+              "busy share; K6 block ms): " + "; ".join(
+                  f"{st['stage']} {st['kind']}: {st['items']}, "
+                  f"{st['waves']:.2f}, {st['ms']:.3f}, "
+                  f"{st['busy_share']:.3f}; {r['ms']:.3f}"
+                  for st, r in zip(stages, k6)), flush=True)
+        for st, r in zip(stages, k6):
+            st["k6_ms"] = r["ms"]
+        out[str(tile)] = stages
+        del x
+    return out
 
 
 def mega_path(model, root, tmp, forward_ms):
@@ -1609,6 +1708,7 @@ def main() -> int:
         single_rows, single_launches = check_single_conv(rng, batch)
         probe = check_probe()
         kernel_rows = check_kernel(rng, batch)
+        mega["by_stage"] = mega_stage_table(model, rng, batch, kernel_rows)
         forward = check_forward(model, rng)
         served = main_path(model, root, tmp)
     del model
@@ -1726,6 +1826,9 @@ def main() -> int:
         "bound_ms": mega["bound_ms"], "bound_by": mega["bound_by"],
         # the plain forward: cuDNN bf16 convolutions, BatchNorm not folded
         "library_ms": mega["cudnn_forward_ms"],
+        # the fp32 body over the same batch, its bound at the fp32 rate
+        "fp32_ms": mega["fp32"]["ms"], "fp32_bound_ms": mega["fp32"]["bound_ms"],
+        "fp32_max_abs_err": mega["fp32"]["max_abs_diff"],
         "at": f"one forward of UNetConfig(), {batch} tiles of "
               f"{MEGA.tile_size}x{MEGA.tile_size}"}, {
         "name": "scalar_gather_probe", "route": "cuda",

@@ -45,9 +45,11 @@
 // weights, are the traffic, the kernel beats cuDNN, and it is kept as it
 // was. It also holds the 1x1 fp32 head of the whole-forward kernel.
 //
-// Activations are read through cp.async.cg or plain loads, never through
-// the read-only path: inside the whole-forward kernel one stage reads what
-// the stage before it wrote.
+// Activations are read through cp.async.cg or ld.global.cg (L2 only),
+// never through the read-only path, and through L1 only where the source
+// says it is not written during the launch (ConvSrc::ro): inside the
+// whole-forward kernel one stage reads what the stage before it wrote, and a
+// plane's room is written again once its readers are done.
 
 #pragma once
 
@@ -65,6 +67,7 @@ constexpr int kChanPad = 32;            // padded channel counts are multiples
 constexpr int kNI = kNC / 8 / kWarpsN;  // 8-wide mma tiles per warp along N (2)
 constexpr int kMaxSmem = 232448;        // 227 KB opt-in limit of one block
 constexpr int kHeadOut = 8;             // most logits per pixel of the 1x1 head
+static_assert(kHeadOut == 8, "the head's epilogues load a row as two float4");
 static_assert(kNI == 2, "one ldmatrix.x4 loads the B fragments of two n-tiles");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -73,6 +76,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ float bf2f(const uint16_t* p, int i) {
   return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
+}
+
+// one bf16 activation through L2 only (ld.global.cg): the whole-forward
+// kernel rewrites scratch planes, and an SM's L1 may hold a stale line
+__device__ __forceinline__ float bf2f_cg(const uint16_t* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldcg(p)));
 }
 
 // 16 bytes global -> shared, asynchronously; zero-filled when !valid.
@@ -110,10 +119,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // the (B, H, W, c0) plane p0, channels from c0p on from the (B, H, W, c1)
 // plane p1 (the concat-free skip join of a U-Net decoder block). c0p is a
 // multiple of 32; with one source p1 is null and c0p the whole padded depth.
+// ro: p0 is not written during the launch, so that its unaligned channels
+// may be read through L1 (the network input; a K5 or K6 input).
 struct ConvSrc {
   const uint16_t* p0;
   const uint16_t* p1;
   int c0, c0p, c1;
+  int ro;
 };
 
 // This thread's place in the block's 4 x 2 warp grid and in the mma and
@@ -185,7 +197,10 @@ __device__ __forceinline__ void load_x_chunk(uint16_t* xs, const ConvSrc& src,
     } else {  // unaligned channel count: synchronous, element by element
       uint16_t e[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = (inside && ch + j < C) ? p[j] : 0;
+      for (int j = 0; j < 8; ++j)
+        e[j] = !(inside && ch + j < C) ? 0
+               : (src.ro && !second)   ? p[j]
+                                       : __ldcg(p + j);
       *reinterpret_cast<uint4*>(dst) = make_uint4(
           e[0] | (uint32_t(e[1]) << 16), e[2] | (uint32_t(e[3]) << 16),
           e[4] | (uint32_t(e[5]) << 16), e[6] | (uint32_t(e[7]) << 16));
@@ -374,7 +389,11 @@ struct HeadArgs {
 // conv3x3 + scale/shift + ReLU over the TH x TW tile at (ty0, tx0), reading
 // the bf16 ring tile inter[(TH+2) x (TW+2)][IS] in shared memory; weights
 // w2t: (Cout_p, 9, Cmid_p) staged through ws (2 x WS).
-//   !HEAD: rounds to bf16 and writes out[b, gy, gx, n] for n < Cout;
+//   !HEAD: rounds to bf16 and writes out[b, gy, gx, n] for n < Cout, or,
+//          with keep, every tile pixel o and channel n < Cout_p to
+//          keep[((n / 8) * kp + o) * 8 + n % 8] in shared memory instead
+//          (the wgmma A layout; the whole-forward kernel pools, stores and
+//          upsamples the tile from there);
 //   HEAD:  keeps the result in fp32, passes it 32 channels at a time through
 //          stash (TH*TW x 33 floats of shared memory) and writes
 //          logits[b, gy, gx, :] = result @ head.w + head.b instead, each
@@ -384,7 +403,7 @@ __device__ __forceinline__ void conv_from_smem(
     const uint16_t* inter, int IS, uint16_t* ws, float* stash,
     const uint16_t* w2t, const uint16_t* s2, const uint16_t* b2, int Cmid_p,
     int Cout, int Cout_p, int b, int H, int W, int ty0, int tx0, uint16_t* out,
-    const HeadArgs& head) {
+    const HeadArgs& head, uint16_t* keep = nullptr, int kp = 0) {
   using G = ConvGeom<TH, TW, KC, 0>;
   constexpr int IW = TW + 2;  // ring tile width
   constexpr int SS = kNC + 1;  // stash row stride (floats): no bank conflicts
@@ -433,7 +452,7 @@ __device__ __forceinline__ void conv_from_smem(
           const int o = mt * 16 + ln.g + 8 * h;
           const int gy = ty0 + o / TW;
           const int gx = tx0 + o % TW;
-          if (!HEAD && (gy >= H || gx >= W)) continue;
+          if (!HEAD && keep == nullptr && (gy >= H || gx >= W)) continue;
 #pragma unroll
           for (int j = 0; j < kNI; ++j) {
             const int nn = (ln.wn * kNI + j) * 8 + 2 * ln.q4;
@@ -445,6 +464,10 @@ __device__ __forceinline__ void conv_from_smem(
             if (HEAD) {
               stash[o * SS + nn] = v0;
               stash[o * SS + nn + 1] = v1;
+            } else if (keep != nullptr) {
+              *reinterpret_cast<__nv_bfloat162*>(
+                  keep + (((n >> 3) * kp + o) << 3) + (n & 7)) =
+                  __floats2bfloat162_rn(v0, v1);
             } else if (n < Cout) {
               store_bf16_pair(out + (((size_t)b * H + gy) * W + gx) * Cout, n,
                               Cout, v0, v1);
@@ -458,9 +481,18 @@ __device__ __forceinline__ void conv_from_smem(
           const float* row = stash + threadIdx.x * SS;
           for (int nn = 0; nn < kNC; ++nn) {
             const float v = row[nn];
-            const float* hw = head.w + (size_t)(n0 + nn) * kHeadOut;
-#pragma unroll
-            for (int o = 0; o < kHeadOut; ++o) logit[o] += v * hw[o];
+            // a row of kHeadOut floats, 32-byte aligned: two 16-byte loads
+            const float4* hw = reinterpret_cast<const float4*>(
+                head.w + (size_t)(n0 + nn) * kHeadOut);
+            const float4 h0 = hw[0], h1 = hw[1];
+            logit[0] += v * h0.x;
+            logit[1] += v * h0.y;
+            logit[2] += v * h0.z;
+            logit[3] += v * h0.w;
+            logit[4] += v * h1.x;
+            logit[5] += v * h1.y;
+            logit[6] += v * h1.z;
+            logit[7] += v * h1.w;
           }
         }
       }
@@ -512,10 +544,13 @@ struct DoubleConvWeights {
 
 // (conv3x3 + scale/shift + ReLU) x 2 over the tile at (ty0, tx0) of image b,
 // SAME padding on both. smem: DoubleConvSmem<TH, TW, KC>::bytes(Cmid_p).
+// keep, kp: as conv_from_smem's (keep lies in the input chunk buffers, idle
+// in the second conv; null: the result goes to out).
 template <int TH, int TW, int KC, bool HEAD>
 __device__ __forceinline__ void double_conv_tile(
     uint16_t* smem, const ConvSrc& src, const DoubleConvWeights& w, int b,
-    int H, int W, int ty0, int tx0, uint16_t* out, const HeadArgs& head) {
+    int H, int W, int ty0, int tx0, uint16_t* out, const HeadArgs& head,
+    uint16_t* keep = nullptr, int kp = 0) {
   using S = DoubleConvSmem<TH, TW, KC>;
   const int IS = w.Cmid_p + 8;  // ring tile row stride (bf16)
   uint16_t* inter = smem;
@@ -526,7 +561,8 @@ __device__ __forceinline__ void double_conv_tile(
                                   nullptr, 0);
   conv_from_smem<TH, TW, KC, HEAD>(inter, IS, ws, reinterpret_cast<float*>(xs),
                                    w.w2t, w.s2, w.b2, w.Cmid_p, w.Cout,
-                                   w.Cout_p, b, H, W, ty0, tx0, out, head);
+                                   w.Cout_p, b, H, W, ty0, tx0, out, head,
+                                   keep, kp);
 }
 
 // ------------------------------------------------------------ wgmma path
@@ -754,7 +790,10 @@ __device__ __forceinline__ void wg_load_a(uint32_t dst, int pitch,
     } else {  // unaligned channel count: synchronous, element by element
       uint32_t e[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = (inside && ch + j < C) ? s[j] : 0;
+      for (int j = 0; j < 8; ++j)
+        e[j] = !(inside && ch + j < C) ? 0u
+               : (src.ro && !second)   ? (uint32_t)s[j]
+                                       : (uint32_t)__ldcg(s + j);
       asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(d),
                    "r"(e[0] | (e[1] << 16)), "r"(e[2] | (e[3] << 16)),
                    "r"(e[4] | (e[5] << 16)), "r"(e[6] | (e[7] << 16))
@@ -1210,13 +1249,16 @@ __device__ __forceinline__ void wg_single_conv_item(
 // both; the first conv's output stays in shared memory. !HEAD: written to
 // out as bf16; HEAD: kept fp32 into the 1x1 head, logits written instead.
 // after: the weight stream of a conv the caller runs right after this item
-// (its first stages are sent from here), or null.
+// (its first stages are sent from here), or null. pass0, n_pass2: the
+// second conv computes only its passes [pass0, pass0 + n_pass2) of 128
+// output channels (n_pass2 < 0: all of them; !HEAD only).
 // smem: WgGeom(t, 1, Cmid_p).smem_bytes(HEAD).
 template <bool HEAD>
 __device__ __forceinline__ void wg_double_conv_item(
     uint8_t* smem, WgPipe& pipe, const ConvSrc& src,
     const DoubleConvWeights& w, int B, int H, int W, int b0, int ty0, int tx0,
-    WgTile t, uint16_t* out, const HeadArgs& head, WgStream* after) {
+    WgTile t, uint16_t* out, const HeadArgs& head, WgStream* after,
+    int pass0 = 0, int n_pass2 = -1) {
   const WgGeom gm(t, 1, w.Cmid_p);
   const uint32_t inter = smem_u32(smem) + kWgBarBytes + kWgRingBytes;
   const uint32_t a_addr = inter + gm.inter_bytes;
@@ -1224,15 +1266,18 @@ __device__ __forceinline__ void wg_double_conv_item(
   const WgConv c1{gm.m1, gm.pw, gm.a_pitch};
   const WgConv c2{gm.m2, gm.rw, gm.ip};
   WgStream s1(w.w1t, 0, w.Cmid_p / kWgN, w.Cin_p / kWgKC, 9);
-  WgStream s2(w.w2t, 0, w.Cout_p / kWgN, w.Cmid_p / kWgKC, 9);
+  WgStream s2(w.w2t, pass0, n_pass2 < 0 ? w.Cout_p / kWgN : n_pass2,
+              w.Cmid_p / kWgKC, 9);
   WgStageLoad load{src, patch, gm.a_pitch};
   WgRingEpi ring{w.s1, w.b1, inter, gm.ip, t.g, gm.ph, gm.pw, gm.rh,
                  gm.rw, B,    H,     W,     b0,  ty0 - 1, tx0 - 1};
   wg_conv<true>(pipe, c1, s1, &s2, a_addr, gm.a_buf_bytes, load, ring);
   WgNoLoad none;
   if (!HEAD) {
-    WgOutEpi epi{w.s2, w.b2, out, w.Cout, w.Cout, t.g, gm.rh, gm.rw, t.th,
-                 t.tw, B,    H,   W,      b0,     ty0, tx0};
+    // the epilogue's pass counts from the stream's first
+    WgOutEpi epi{w.s2 + pass0 * kWgN, w.b2 + pass0 * kWgN, out + pass0 * kWgN,
+                 w.Cout - pass0 * kWgN, w.Cout, t.g, gm.rh, gm.rw, t.th, t.tw,
+                 B, H, W, b0, ty0, tx0};
     wg_conv<false>(pipe, c2, s2, after, inter, 0, none, epi);
   } else {
     float logit[kHeadOut];

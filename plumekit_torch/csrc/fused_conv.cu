@@ -53,7 +53,7 @@ fused_conv_kernel(const uint16_t* __restrict__ x,
   t /= tiles_x;
   const int ty = t % tiles_y;
   const int b = t / tiles_y;
-  const ConvSrc src{x, nullptr, Cin, Cin_p, 0};
+  const ConvSrc src{x, nullptr, Cin, Cin_p, 0, 1};
   conv_from_global<kTile, kTile, kKC, 0>(xs, ws, src, wt, sc, sh, Cin_p, Cout_p,
                                          b, H, W, ty * kTile, tx * kTile,
                                          nullptr, 0, out, Cout);
@@ -79,7 +79,7 @@ fused_conv_wg_kernel(const uint16_t* __restrict__ x,
   t /= tiles_x;
   const int ty = t % tiles_y;
   const int group = t / tiles_y;
-  const ConvSrc src{x, nullptr, Cin, Cin_p, 0};
+  const ConvSrc src{x, nullptr, Cin, Cin_p, 0, 1};
   wg_single_conv_item(smem, pipe, src, wstream, sc, sh, Cin_p, Cout, B, H, W,
                       group * tile.g, ty * tile.th, tx * tile.tw, tile, pass,
                       out);

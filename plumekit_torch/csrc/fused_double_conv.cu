@@ -62,7 +62,7 @@ fused_double_conv_kernel(const uint16_t* __restrict__ x,
   t /= tiles_x;
   const int ty = t % tiles_y;
   const int b = t / tiles_y;
-  const ConvSrc src{x, nullptr, Cin, Cin_p, 0};
+  const ConvSrc src{x, nullptr, Cin, Cin_p, 0, 1};
   const DoubleConvWeights w{w1t, s1, b1, w2t, s2, b2, Cin_p, Cmid_p, Cout, Cout_p};
   double_conv_tile<kTile, kTile, kKC, false>(
       reinterpret_cast<uint16_t*>(smem_u4), src, w, b, H, W, ty * kTile,
@@ -91,7 +91,7 @@ fused_double_conv_wg_kernel(const uint16_t* __restrict__ x,
   t /= tiles_x;
   const int ty = t % tiles_y;
   const int group = t / tiles_y;
-  const ConvSrc src{x, nullptr, Cin, Cin_p, 0};
+  const ConvSrc src{x, nullptr, Cin, Cin_p, 0, 1};
   const DoubleConvWeights w{w1s, s1, b1, w2s, s2, b2, Cin_p, Cmid_p, Cout, Cout_p};
   wg_double_conv_item<false>(smem, pipe, src, w, B, H, W, group * tile.g,
                              ty * tile.th, tx * tile.tw, tile, out,

@@ -7,8 +7,9 @@ concat-free skip joins, the 1×1 fp32 head) in one launch. The CUDA kernel is
 ``plumekit_torch/csrc/unet_mega.cu``, a persistent cooperative kernel with one
 stage per double conv and a grid-wide barrier between stages; its source note
 gives the design. Weights stream from L2 and the activation pyramid lives in
-one device-memory scratch buffer that the wrapper allocates; nothing between
-the stages is computed by a PyTorch operator.
+one device-memory scratch buffer that the wrapper keeps per model (planes
+whose readers are done give their room to later ones); nothing between the
+stages is computed by a PyTorch operator.
 
 Numerics, mirrored exactly by the plain version :func:`mega_forward_ref`:
 activations in the compute dtype, fp32 accumulation; every conv's result is
@@ -18,15 +19,16 @@ per-block fused forward rounds it first); folded scales and shifts are
 rounded to the compute dtype before use; the transposed conv rounds each
 tap's product to the compute dtype and adds the bias in that dtype.
 
-On the card the kernel is bf16 only, as K6 is: ``compute_dtype="float32"``
-runs the plain version on the CPU and raises on the card, through
-:class:`plumekit_torch.models.UNet` too: nothing gives way to another
-forward under a flag that names this kernel.
+``compute_dtype="bfloat16"`` runs the kernel's tensor-core body;
+``"float32"`` its fp32 body (FFMA on the CUDA cores, no rounding at all),
+one launch as well, as the JAX megakernel admits both. A CPU tensor takes
+the plain version; any other device launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
@@ -48,7 +50,10 @@ LAUNCHES = 0
 
 _HEAD_OUT = 8        # the head's padded width: out_channels <= 8
 _ALIGN = 256         # bytes: every packed tensor and scratch plane starts here
-_PLAN_FIELDS = 32    # kPlanFields of csrc/unet_mega.cu
+_PLAN_FIELDS = 34    # kPlanFields of csrc/unet_mega.cu
+_UP_ROW = conv_tiles.PASS_N + 8   # kUpRow: bf16 per staged upsample row
+_F32_FIELDS = 24     # kF32Fields: the fp32 body's plan
+F32_GROUP = 8        # kF32Group: output channels per thread of the fp32 body
 _POOL, _UP, _HEAD = 0, 1, 2
 
 
@@ -61,10 +66,10 @@ def mega_eligible(cfg: UNetConfig, h: int, w: int) -> bool:
     the same inputs; its estimate of the TPU's on-chip memory is not carried
     over. The card's kernel picks each stage's tile to fit a block's shared
     memory (:func:`conv_tiles.double_conv_tile`), so no tile size is
-    refused; its device-memory scratch (about 10 bytes per input pixel and base feature
-    at depth 4: 389 MB for 128 tiles of 96² at base 32) is allocated per
-    call, and a batch that does not fit raises torch's out-of-memory
-    error."""
+    refused; its device-memory scratch (about 7.5 bytes per input pixel and
+    base feature at depth 4 in bf16: 290 MB for 128 tiles of 96² at base 32,
+    twice that in fp32) is kept per model and grown to the largest batch,
+    and a batch that does not fit raises torch's out-of-memory error."""
     d = cfg.depth
     return (cfg.norm == "batch"
             and cfg.arch == "unet"
@@ -167,8 +172,13 @@ class MegaWeights:
     #: per stage, the fields of the plan that do not depend on the batch
     #: or the tile shape
     stages: List[dict] = field(default_factory=list)
-    #: (B, h, w) → (ctypes plan array, scratch elements)
-    plans: Dict[Tuple[int, int, int], tuple] = field(default_factory=dict)
+    #: (B, h, w, planes reused) → (ctypes plan array, scratch elements,
+    #: the plan as an array)
+    plans: Dict[Tuple[int, int, int, bool], tuple] = field(
+        default_factory=dict)
+    #: the forwards' scratch on one stream, grown to the largest need
+    scratch: torch.Tensor | None = None
+    scratch_stream: int = 0
 
 
 def _pack(folded: dict, device) -> Tuple[torch.Tensor, List[dict]]:
@@ -183,18 +193,8 @@ def _pack(folded: dict, device) -> Tuple[torch.Tensor, List[dict]]:
     Returns the byte blob and each stage's offsets and channel counts."""
     blocks, ups = folded["blocks"], folded["ups"]
     depth = len(ups)
-    pieces: List[torch.Tensor] = []
-    size = 0
-
-    def add(t: torch.Tensor) -> int:
-        nonlocal size
-        raw = t.contiguous().view(torch.uint8).reshape(-1)
-        offset = size
-        pad = round_up(raw.numel(), _ALIGN) - raw.numel()
-        pieces.append(torch.nn.functional.pad(raw, (0, pad)))
-        size += raw.numel() + pad
-        return offset
-
+    blob = _Blob()
+    add = blob.add
     pad = torch.nn.functional.pad
     stages = []
     for i, blk in enumerate(blocks):
@@ -248,7 +248,166 @@ def _pack(folded: dict, device) -> Tuple[torch.Tensor, List[dict]]:
                       head_b=add(pad(folded["head_b"],
                                      (0, _HEAD_OUT - n_out))))
         stages.append(st)
-    return torch.cat(pieces).to(device), stages
+    return blob.tensor(device), stages
+
+
+class _Blob:
+    """Tensors laid end to end as bytes, each at an ``_ALIGN``-byte
+    offset."""
+
+    def __init__(self):
+        self.pieces: List[torch.Tensor] = []
+        self.size = 0
+
+    def add(self, t: torch.Tensor) -> int:
+        raw = t.contiguous().view(torch.uint8).reshape(-1)
+        offset = self.size
+        pad = round_up(raw.numel(), _ALIGN) - raw.numel()
+        self.pieces.append(torch.nn.functional.pad(raw, (0, pad)))
+        self.size += raw.numel() + pad
+        return offset
+
+    def tensor(self, device) -> torch.Tensor:
+        return torch.cat(self.pieces).to(device)
+
+
+def _pack_f32(folded: dict, device) -> Tuple[torch.Tensor, List[dict]]:
+    """Lay the folded fp32 weights out for the kernel's fp32 body: per conv
+    the (9, Cin, Cn8) weight (Cn8: the output channels rounded up to
+    ``F32_GROUP``, zero padded; a decoder's Cin is the skip's channels,
+    then the upsampled ones), its scale and shift (Cn8,); per upsampling
+    stage the transposed conv as (Cout, 4, Cup8), column ``2·dy + dx``, and
+    its bias (Cup8,); the head (Cout, 8) and its bias (8,)."""
+    blocks, ups = folded["blocks"], folded["ups"]
+    depth = len(ups)
+    blob = _Blob()
+    pad = torch.nn.functional.pad
+
+    def conv(w, n):
+        taps = w.reshape(9, w.shape[2], w.shape[3]).float()
+        return blob.add(pad(taps, (0, round_up(n, F32_GROUP) - n)))
+
+    def vec(v, n):
+        return blob.add(pad(v.float(), (0, round_up(n, F32_GROUP) - n)))
+
+    stages = []
+    for i, blk in enumerate(blocks):
+        cin, cmid = blk["w1"].shape[2:]
+        cout = blk["w2"].shape[3]
+        c0, c1 = (cin, 0) if i <= depth else (cin // 2, cin // 2)
+        st = {"cin": cin, "cmid": cmid, "cout": cout, "c0": c0, "c1": c1,
+              "w1": conv(blk["w1"], cmid), "s1": vec(blk["s1"], cmid),
+              "b1": vec(blk["b1"], cmid), "w2": conv(blk["w2"], cout),
+              "s2": vec(blk["s2"], cout), "b2": vec(blk["b2"], cout)}
+        if i < depth:
+            st["kind"] = _POOL
+        elif i < 2 * depth:
+            up = ups[i - depth]
+            cup = up["w"].shape[1]
+            k = up["w"].float().permute(0, 2, 3, 1).reshape(cout, 4, cup)
+            st.update(kind=_UP, up_cout=cup,
+                      upw=blob.add(pad(k, (0, round_up(cup, F32_GROUP) - cup))),
+                      upb=vec(up["b"], cup))
+        else:
+            hw = folded["head_w"]
+            n_out = hw.shape[1]
+            st.update(kind=_HEAD, n_out=n_out,
+                      head_w=blob.add(pad(hw.float(), (0, _HEAD_OUT - n_out))),
+                      head_b=blob.add(pad(folded["head_b"].float(),
+                                          (0, _HEAD_OUT - n_out))))
+        stages.append(st)
+    return blob.tensor(device), stages
+
+
+def _chain(stages: List[dict], b: int, h: int, w: int, f32: bool):
+    """The planes of a (b, h, w) batch: per stage the keys of the planes it
+    reads (src0, src1) and writes (out, aux; fp32: mid, one plane every
+    stage's first conv takes), and per key [elements, the stage that writes
+    it, the last stage that reads it]. An encoder block's ``out`` is its
+    level's skip (read again by the decoder block of its level), ``aux``
+    the pooled plane the next block reads; an upsampling block's ``out`` is
+    read by its own upsample, ``aux`` the upsampled plane."""
+    depth = (len(stages) - 1) // 2
+    last = len(stages) - 1
+    planes: Dict[tuple, list] = {}
+    rows = []
+    skips = {}
+    feed = None                               # the plane the next block reads
+    levels = [i if i <= depth else 2 * depth - i for i in range(len(stages))]
+    if f32:
+        planes["mid"] = [max(b * (h >> lv) * (w >> lv) * st["cmid"]
+                             for lv, st in zip(levels, stages)), 0, last]
+    for i, st in enumerate(stages):
+        level = levels[i]
+        px = b * (h >> level) * (w >> level)
+        src0, src1 = (skips[level], feed) if i > depth else (feed, None)
+        for key in (src0, src1):
+            if key is not None:
+                planes[key][2] = i
+        out = aux = None
+        if st["kind"] == _POOL:
+            out = skips[level] = ("skip", level)
+            planes[out] = [px * st["cout"], i, i]
+            aux = feed = ("pooled", level + 1)
+            planes[aux] = [px // 4 * st["cout"], i, i]
+        elif st["kind"] == _UP or f32:
+            out = ("out", i)
+            planes[out] = [px * st["cout"], i, i]
+            if st["kind"] == _UP:
+                aux = feed = ("up", level - 1)
+                planes[aux] = [4 * px * st["up_cout"], i, i]
+        rows.append((src0, src1, out, aux))
+    return rows, planes
+
+
+def _place(planes: Dict[tuple, list], align: int, reuse: bool):
+    """Offsets for the planes, each a multiple of ``align`` elements, and
+    the scratch size. With ``reuse`` a plane may take the room of one whose
+    last reader ran in an earlier stage than the one that writes it (the
+    stages are apart by a grid-wide barrier); else every plane has its own
+    room."""
+    placed = []                                # (offset, size, first, last)
+    offsets = {}
+    for key, (elems, first, last) in sorted(
+            planes.items(), key=lambda kv: (kv[1][1], -kv[1][0])):
+        n = round_up(elems, align)
+        busy = sorted((o, m) for o, m, f, l in placed
+                      if not reuse or not (l < first or last < f))
+        off = 0
+        for o, m in busy:
+            if off + n <= o:
+                break
+            off = max(off, o + m)
+        offsets[key] = off
+        placed.append((off, n, first, last))
+    return offsets, max((o + m for o, m, _f, _l in placed), default=0)
+
+
+def _plan_f32(stages: List[dict], b: int, h: int, w: int,
+              reuse: bool = True):
+    """The fp32 body's stage table for a (b, h, w) batch as a (stages,
+    _F32_FIELDS) int64 array, and the scratch size in floats. Fields: kind,
+    H, W, src0, c0, src1, c1, Cmid, Cout, w1, s1, b1, w2, s2, b2, mid, out,
+    aux, upw, upb, up_cout, head_w, head_b, n_out. Plane offsets in floats
+    (-1: the network input, or no plane), weight offsets in bytes. The
+    head stage's ``out`` is its fp32 result, which the head reads."""
+    depth = (len(stages) - 1) // 2
+    rows, planes = _chain(stages, b, h, w, f32=True)
+    offsets, size = _place(planes, _ALIGN // 4, reuse)
+
+    def at(key):
+        return -1 if key is None else offsets[key]
+
+    plan = np.zeros((len(stages), _F32_FIELDS), np.int64)
+    for i, (st, (src0, src1, out, aux)) in enumerate(zip(stages, rows)):
+        level = i if i <= depth else 2 * depth - i
+        plan[i] = [
+            st["kind"], h >> level, w >> level, at(src0), st["c0"], at(src1),
+            st["c1"], st["cmid"], st["cout"], st["w1"], st["s1"], st["b1"],
+            st["w2"], st["s2"], st["b2"], offsets["mid"], at(out), at(aux),
+            st.get("upw", 0), st.get("upb", 0), st.get("up_cout", 0),
+            st.get("head_w", 0), st.get("head_b", 0), st.get("n_out", 0)]
+    return plan, size
 
 
 def stage_tile(st: dict, h: int, w: int) -> conv_tiles.Tile:
@@ -259,52 +418,89 @@ def stage_tile(st: dict, h: int, w: int) -> conv_tiles.Tile:
         head=st["kind"] == _HEAD)
 
 
-def _plan(stages: List[dict], b: int, h: int, w: int):
+def up_rows_smem(st: dict, tile: conv_tiles.Tile) -> int:
+    """Shared memory of a stage's upsample when its A operand lies in
+    shared memory (``up_rows_smem`` of the kernel): the barriers and the
+    weight ring, on the mma.sync path the ring tile before the kept tile,
+    the tile's input channels, one staged pass of 128 columns."""
+    rows = tile.images * tile.th * tile.tw
+    pitch = conv_tiles.round_up(max(rows, conv_tiles.round_up(rows, 64)),
+                                8) + 2
+    ring = 0
+    if tile.path == "mma":
+        ring = 2 * (conv_tiles.round_up(
+            (conv_tiles.MMA_TILE + 2) ** 2, 16) * (st["cmid_p"] + 8))
+    return (conv_tiles.BAR_BYTES + conv_tiles.STAGES * conv_tiles.STAGE_BYTES
+            + ring + st["up_kp"] // 8 * pitch * 16 + rows * _UP_ROW * 2)
+
+
+def stage_split(st: dict, tile: conv_tiles.Tile, items: int,
+                blocks: int | None) -> int:
+    """2 when each item of a stage goes to two blocks (each the whole first
+    conv and half of the second conv's 128-channel passes, then half of the
+    pool's channels or of the upsample's columns): a wgmma stage with fewer
+    than half as many items as the grid has blocks, and two passes or more
+    to share. All its half-items then run at once, in the grid's first
+    round, which a split upsample needs: its halves wait for each other.
+    ``blocks``: the grid's size (the card's SMs at one block per SM);
+    None: no split."""
+    if (blocks is None or tile.path != "wgmma" or st["kind"] == _HEAD
+            or st["cout_p"] // conv_tiles.PASS_N < 2 or 2 * items > blocks):
+        return 1
+    if st["kind"] == _UP and (
+            up_rows_smem(st, tile) > conv_tiles.SMEM_LIMIT
+            or 4 * st["up_cout_p"] // conv_tiles.PASS_N < 2):
+        return 1
+    return 2
+
+
+def _plan(stages: List[dict], b: int, h: int, w: int, reuse: bool = True,
+          blocks: int | None = None):
     """The kernel's stage table for a (b, h, w) batch as a
     (stages, _PLAN_FIELDS) int64 array, and the scratch size in bf16
     elements. Fields: kind, H, W, src0, c0, c0p, src1, c1, Cin_p, Cmid_p,
     Cout, Cout_p, w1t, s1, b1, w2t, s2, b2, out, aux, upw, upb, up_cout,
-    up_cout_p, head_w, head_b, n_out, path, th, tw, images, up_kp. Plane
-    offsets are in scratch elements (-1: the network input, or no plane),
-    weight offsets in bytes of the blob. A block's ``out`` plane is its
-    result (the skip of an encoder level), ``aux`` the pooled or the
-    upsampled plane that the next block reads; path, th, tw and images are
-    :func:`stage_tile`'s choice for the stage's plane."""
+    up_cout_p, head_w, head_b, n_out, path, th, tw, images, up_kp, split,
+    flags. Plane offsets are in scratch elements (-1: the network input,
+    or no plane), weight offsets in bytes of the blob. A block's ``out``
+    plane is its result (the skip of an encoder level), ``aux`` the pooled
+    or the upsampled plane that the next block reads (:func:`_chain`); with
+    ``reuse`` a plane takes the room of planes whose readers are done
+    (:func:`_place`). path, th, tw and images are :func:`stage_tile`'s
+    choice for the stage's plane, split :func:`stage_split`'s for a grid
+    of ``blocks``; a split upsampling stage has one int32 counter per item
+    at ``flags``, which the kernel zeroes first."""
     depth = (len(stages) - 1) // 2
-    size = 0
-
-    def plane(level: int, channels: int) -> int:
-        nonlocal size
-        offset = size
-        size += round_up(b * (h >> level) * (w >> level) * channels,
-                         _ALIGN // 2)
-        return offset
-
-    plan = np.zeros((len(stages), _PLAN_FIELDS), np.int64)
-    skips = {}
-    feed = -1                                 # the plane the next block reads
+    rows, planes = _chain(stages, b, h, w, f32=False)
+    tiles, splits = [], []
     for i, st in enumerate(stages):
         level = i if i <= depth else 2 * depth - i
-        out = aux = -1
-        src0, src1 = feed, -1
-        if st["kind"] == _POOL:
-            out = skips[level] = plane(level, st["cout"])
-            aux = feed = plane(level + 1, st["cout"])
-        else:
-            if i > depth:
-                src0, src1 = skips[level], feed
-            if st["kind"] == _UP:
-                out = plane(level, st["cout"])
-                aux = feed = plane(level - 1, st["up_cout"])
         tile = stage_tile(st, h >> level, w >> level)
+        items = (-(-b // tile.images) * -(-(h >> level) // tile.th)
+                 * -(-(w >> level) // tile.tw))
+        tiles.append(tile)
+        splits.append(stage_split(st, tile, items, blocks))
+        if splits[-1] == 2 and st["kind"] == _UP:
+            # zeroed when the kernel starts: live from stage 0 on
+            planes[("flags", i)] = [2 * items, 0, i]
+    offsets, size = _place(planes, _ALIGN // 2, reuse)
+
+    def at(key):
+        return offsets.get(key, -1) if key is not None else -1
+
+    plan = np.zeros((len(stages), _PLAN_FIELDS), np.int64)
+    for i, (st, (src0, src1, out, aux)) in enumerate(zip(stages, rows)):
+        level = i if i <= depth else 2 * depth - i
+        tile = tiles[i]
         plan[i] = [
-            st["kind"], h >> level, w >> level, src0, st["c0"], st["c0p"],
-            src1, st["c1"], st["cin_p"], st["cmid_p"], st["cout"],
+            st["kind"], h >> level, w >> level, at(src0), st["c0"], st["c0p"],
+            at(src1), st["c1"], st["cin_p"], st["cmid_p"], st["cout"],
             st["cout_p"], st["w1t"], st["s1"], st["b1"], st["w2t"], st["s2"],
-            st["b2"], out, aux, st.get("upw", 0), st.get("upb", 0),
+            st["b2"], at(out), at(aux), st.get("upw", 0), st.get("upb", 0),
             st.get("up_cout", 0), st.get("up_cout_p", 0),
             st.get("head_w", 0), st.get("head_b", 0), st.get("n_out", 0),
-            tile.path_id, tile.th, tile.tw, tile.images, st.get("up_kp", 0)]
+            tile.path_id, tile.th, tile.tw, tile.images, st.get("up_kp", 0),
+            splits[i], at(("flags", i))]
     return plan, size
 
 
@@ -313,7 +509,11 @@ _CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 def weights_of(model, dtype, device) -> MegaWeights:
     """The model's folded (and, on a card, packed) weights, cached on the
-    model: not once per forward."""
+    model: not once per forward. ``cuda`` and ``cuda:<current>`` are one
+    device here, so that both find the same weights, plans and scratch."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     key = state_key(model, device) + (dtype,)
     cached = _CACHE.get(model)
     if cached is None or cached[0] != key:
@@ -321,7 +521,8 @@ def weights_of(model, dtype, device) -> MegaWeights:
             folded = fold_weights(model, dtype)
             weights = MegaWeights(folded)
             if device.type == "cuda":
-                weights.blob, weights.stages = _pack(folded, device)
+                pack = _pack if dtype == torch.bfloat16 else _pack_f32
+                weights.blob, weights.stages = pack(folded, device)
         cached = _CACHE[model] = (key, weights)
     return cached[1]
 
@@ -329,49 +530,182 @@ def weights_of(model, dtype, device) -> MegaWeights:
 def _library():
     from plumekit_torch.cuda_build import load_entry
 
-    return load_entry("unet_mega.cu", "pk_unet_mega",
-                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                      + [ctypes.c_void_p])
+    lib = load_entry("unet_mega.cu", "pk_unet_mega",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                     + [ctypes.c_void_p])
+    if lib.pk_unet_mega_f32.argtypes is None:
+        lib.pk_unet_mega_f32.argtypes = lib.pk_unet_mega.argtypes
+        lib.pk_unet_mega_f32.restype = ctypes.c_int
+    if lib.pk_unet_mega_stamps.argtypes is None:
+        lib.pk_unet_mega_stamps.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+        lib.pk_unet_mega_stamps.restype = ctypes.c_int
+    return lib
 
 
-def mega_forward(weights: MegaWeights, x) -> torch.Tensor:
-    """One launch of the kernel: x (B, h, w, Cin) bf16 on the card, weights
-    packed for that card → fp32 logits (B, h, w, out)."""
+def _check(weights: MegaWeights, x):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if x.dtype != torch.bfloat16 or x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("the kernel takes a contiguous (B, h, w, C) bf16 "
+    dtype = weights.folded["blocks"][0]["w1"].dtype
+    if x.dtype != dtype or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"the kernel takes a contiguous (B, h, w, C) {dtype} "
                          f"tensor, got {tuple(x.shape)} {x.dtype}")
     if weights.blob is None or weights.blob.device != x.device:
         raise ValueError("weights and input lie on different devices")
-    b, h, w, cin = x.shape
-    if cin != weights.stages[0]["c0"]:
-        raise ValueError(f"input has {cin} channels, the packed weights "
-                         f"{weights.stages[0]['c0']}")
-    shape = (b, h, w)
-    if shape not in weights.plans:
-        plan, scratch_elems = _plan(weights.stages, b, h, w)
-        weights.plans[shape] = (
-            (ctypes.c_longlong * plan.size)(*plan.ravel().tolist()),
-            scratch_elems)
-    plan_arr, scratch_elems = weights.plans[shape]
+    if x.shape[3] != weights.stages[0]["c0"]:
+        raise ValueError(f"input has {x.shape[3]} channels, the packed "
+                         f"weights {weights.stages[0]['c0']}")
+
+
+def mega_forward(weights: MegaWeights, x) -> torch.Tensor:
+    """One launch of the kernel: x (B, h, w, Cin) in the weights' compute
+    dtype (bf16, or fp32 for the fp32 body) on the card, weights packed for
+    that card → fp32 logits (B, h, w, out)."""
+    _check(weights, x)
+    return launch_stages(weights, x)[0]
+
+
+def mega_forward_debug(weights: MegaWeights, x):
+    """The forward with every plane in a room of its own (no plane reused)
+    in a scratch buffer of its own: returns the logits, the scratch and the
+    plan (one row per stage; plane offsets in scratch elements, field
+    order of :func:`_plan` or :func:`_plan_f32`), so that each stage's
+    input and output planes can be read back (:func:`stage_errors`)."""
+    _check(weights, x)
+    logits, _blocks, scratch, plan = _launch(weights, x, None, None,
+                                             whole=True)
+    return logits, scratch, plan
+
+
+#: the per-stage gate: K6's, |got - ref| <= 2^-6 + 2^-6 |ref| (two bf16
+#: steps: both round from fp32 sums taken in another order)
+STAGE_ATOL = STAGE_RTOL = 2.0 ** -6
+
+
+def stage_errors(weights: MegaWeights, x, logits, scratch, plan) -> list:
+    """Each bf16 stage of a :func:`mega_forward_debug` run against the plain
+    version of that stage alone, fed the kernel's own input planes for it,
+    so that errors do not pile up from stage to stage: the double conv's
+    output plane against :func:`double_conv_ref` (the head stage: the
+    logits against the fp32 block times the head), the pooled plane
+    against :func:`max_pool_ref` and the upsampled one against
+    :func:`conv_transpose_ref` of the kernel's own output plane. Per stage
+    the worst ``|got - ref| / (STAGE_ATOL + STAGE_RTOL |ref|)`` of each
+    plane (at most 1 passes) and its largest ``|got - ref|``."""
+    blocks, ups = weights.folded["blocks"], weights.folded["ups"]
+    depth = len(ups)
+    b = x.shape[0]
+
+    def plane(off, h, w, c):
+        return scratch[off:off + b * h * w * c].view(b, h, w, c)
+
+    def worst(got, ref):
+        err = (got.float() - ref.float()).abs()
+        return {"ratio": float((err / (STAGE_ATOL + STAGE_RTOL
+                                       * ref.float().abs())).max()),
+                "max_abs": float(err.max())}
+
+    rows = []
+    for i, row in enumerate(plan):
+        kind, h, w, src0, c0, src1, c1, cout, out, aux, cup = (
+            int(row[j]) for j in (0, 1, 2, 3, 4, 6, 7, 10, 18, 19, 22))
+        inp = x if src0 < 0 else plane(src0, h, w, c0)
+        if src1 >= 0:
+            inp = torch.cat([inp, plane(src1, h, w, c1)], dim=-1)
+        ref = double_conv_ref(inp, blocks[i], out_f32=kind == _HEAD)
+        entry = {"stage": i, "kind": ("pool", "up", "head")[kind], "h": h}
+        if kind == _HEAD:
+            entry["logits"] = worst(logits, ref.float() @ weights.folded[
+                "head_w"] + weights.folded["head_b"])
+        else:
+            got = plane(out, h, w, cout)
+            entry["out"] = worst(got, ref)
+            entry["aux"] = worst(
+                plane(aux, h // 2, w // 2, cout), max_pool_ref(got)) \
+                if kind == _POOL else worst(
+                    plane(aux, 2 * h, 2 * w, cup),
+                    conv_transpose_ref(got, ups[i - depth]))
+        rows.append(entry)
+        del inp, ref
+    return rows
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_stages(weights: MegaWeights, x, n_stages: int | None = None,
+                  stamps: torch.Tensor | None = None):
+    """Launch the kernel on the first ``n_stages`` stages (all by default)
+    of a checked input; returns the logits (written only by the head stage)
+    and, when ``stamps`` asks for per-block stamps (``pk_unet_mega_stamps``,
+    bf16 only: uint64 (stages, blocks, 5) at most), the grid's block count,
+    else None. Every launch of the kernel comes through here and adds one
+    to :data:`LAUNCHES`; the per-stage timing experiment calls it directly."""
+    logits, blocks, _scratch, _plan_rows = _launch(weights, x, n_stages,
+                                                   stamps, whole=False)
+    return logits, blocks
+
+
+def _scratch(weights: MegaWeights, elems: int, dtype, device,
+             stream: int) -> torch.Tensor:
+    """The forwards' scratch: one buffer per model for the forwards on one
+    stream, kept on ``weights`` and grown to the largest need (a forward
+    needs ``elems`` of it); another stream, dtype or device gets a buffer
+    of its own, which then becomes the kept one."""
+    cached = weights.scratch
+    if (cached is None or cached.dtype != dtype or cached.device != device
+            or weights.scratch_stream != stream or cached.numel() < elems):
+        weights.scratch = None            # let the old buffer go first
+        cached = torch.empty(elems, dtype=dtype, device=device)
+        weights.scratch, weights.scratch_stream = cached, stream
+    return cached
+
+
+def _launch(weights: MegaWeights, x, n_stages, stamps, whole: bool):
+    b, h, w, _cin = x.shape
+    f32 = x.dtype == torch.float32
+    if stamps is not None and f32:
+        raise ValueError("per-block stamps are for the bf16 kernel")
+    key = (b, h, w, whole)
+    if key not in weights.plans:
+        if f32:
+            plan, elems = _plan_f32(weights.stages, b, h, w, reuse=not whole)
+        else:
+            plan, elems = _plan(weights.stages, b, h, w, reuse=not whole,
+                                blocks=_sms(x.device.index or 0))
+        weights.plans[key] = (
+            (ctypes.c_longlong * plan.size)(*plan.ravel().tolist()), elems,
+            plan)
+    plan_arr, elems, plan = weights.plans[key]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    scratch = torch.empty(elems, dtype=x.dtype, device=x.device) if whole \
+        else _scratch(weights, elems, x.dtype, x.device, stream)
     n_out = weights.stages[-1]["n_out"]
-    scratch = torch.empty(scratch_elems, dtype=torch.bfloat16, device=x.device)
     logits = torch.empty((b, h, w, n_out), dtype=torch.float32,
                          device=x.device)
     lib = _library()
-    global LAUNCHES
+    n = len(weights.stages) if n_stages is None else n_stages
+    blocks = ctypes.c_int(0)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pk_unet_mega(x.data_ptr(), weights.blob.data_ptr(),
-                               scratch.data_ptr(), logits.data_ptr(),
-                               ctypes.addressof(plan_arr),
-                               len(weights.stages), b, stream)
+        if stamps is not None:
+            err = lib.pk_unet_mega_stamps(
+                x.data_ptr(), weights.blob.data_ptr(), scratch.data_ptr(),
+                logits.data_ptr(), ctypes.addressof(plan_arr), n, b,
+                stamps.data_ptr(), ctypes.addressof(blocks), stream)
+        else:
+            entry = lib.pk_unet_mega_f32 if f32 else lib.pk_unet_mega
+            err = entry(x.data_ptr(), weights.blob.data_ptr(),
+                        scratch.data_ptr(), logits.data_ptr(),
+                        ctypes.addressof(plan_arr), n, b, stream)
     if err != 0:
         raise RuntimeError("whole-forward kernel launch failed: "
                            + lib.pk_error_string(err).decode())
+    global LAUNCHES
     LAUNCHES += 1
-    return logits
+    return (logits, blocks.value if stamps is not None else None, scratch,
+            plan)
 
 
 def make_mega_apply(cfg: UNetConfig):
@@ -402,9 +736,6 @@ def make_mega_apply(cfg: UNetConfig):
         if x.device.type == "cpu":
             return mega_forward_ref(
                 weights_of(model, dtype, x.device).folded, x)
-        if dtype != torch.bfloat16:
-            raise ValueError("the whole-forward kernel is bf16 only on the "
-                             f"card; compute_dtype is {cfg.compute_dtype}")
         return mega_forward(weights_of(model, dtype, x.device),
                             x.to(dtype).contiguous())
 

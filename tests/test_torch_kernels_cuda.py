@@ -39,6 +39,9 @@ LOGIT_RTOL, LOGIT_MIN_CORR = 2e-2, 0.999
 # block to bf16 before the head does to the plain version's logits: 0 for a
 # head that reads fp32, 1 for one that reads the rounded block
 HEAD_ROUNDING_SHARE = 0.25
+# K7's fp32 body against its plain version in fp32: FFMA sums in another
+# order than cuDNN's fp32 convs (TF32 off)
+F32_RTOL, F32_MIN_CORR = 1e-3, 0.99999
 
 
 @pytest.fixture
@@ -280,16 +283,73 @@ def test_use_mega_routes_the_module_through_the_kernel(card):
     with torch.inference_mode():
         want = plain(x)
     assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
-    # fp32 compute: the card's kernel is bf16 only and the module raises, as
-    # the fused double conv does; no other forward runs under the flag
+    # fp32 compute: the module runs the kernel's fp32 body, one launch, and
+    # no other forward under the flag
     f32 = build_model(UNetConfig(base_features=8, depth=2, use_mega=True,
                                  compute_dtype="float32")).to(card).eval()
     f32.load_state_dict(model.state_dict())
-    with torch.inference_mode(), pytest.raises(ValueError, match="bf16 only"):
-        f32(x)
-    with pytest.raises(ValueError, match="bf16 only"):
-        unet_mega.make_mega_apply(f32.cfg)(f32, x)
-    assert unet_mega.LAUNCHES == before[0] + 2
+    with torch.inference_mode():
+        got32 = f32(x)
+    weights32 = unet_mega.weights_of(f32, torch.float32, x.device)
+    _assert_fp32_close(got32, unet_mega.mega_forward_ref(weights32.folded, x))
+    assert fused_conv.LAUNCHES == before[1]
+    assert unet_mega.LAUNCHES == before[0] + 3
+
+
+def _assert_fp32_close(got, ref):
+    """The fp32 body against the plain version in fp32 (TF32 off): the same
+    arithmetic, sums in another order."""
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    g, r = got.cpu().numpy().ravel(), ref.cpu().numpy().ravel()
+    assert np.isfinite(g).all()
+    assert np.abs(g - r).max() <= F32_RTOL * np.abs(r).max()
+    assert np.corrcoef(g, r)[0, 1] > F32_MIN_CORR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 32, 32, 2), dict(base_features=8, depth=2)),
+    ((2, 64, 48, 2), dict(base_features=12, depth=3)),
+    ((1, 64, 64, 3), dict(in_channels=3, base_features=8, depth=4,
+                          out_channels=3)),
+    ((2, 96, 96, 2), dict())])             # UNetConfig(): base 32, depth 4
+def test_mega_fp32_kernel_matches_plain_version(card, shape, kw):
+    cfg = UNetConfig(compute_dtype="float32", **kw)
+    model, x = mega_case(cfg, shape, 11, card)
+    apply = unet_mega.make_mega_apply(cfg)
+    before = unet_mega.LAUNCHES
+    got = apply(model, x)
+    torch.cuda.synchronize()
+    assert unet_mega.LAUNCHES == before + 1
+    weights = unet_mega.weights_of(model, torch.float32, x.device)
+    _assert_fp32_close(got, unet_mega.mega_forward_ref(weights.folded, x))
+    assert torch.equal(apply(model, x), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 32, 32, 2), dict(base_features=8, depth=2)),
+    ((3, 16, 24, 2), dict(base_features=12, depth=1)),
+    ((1, 32, 32, 2), dict(base_features=160, depth=1)),
+    ((4, 96, 96, 2), dict()),              # the bottleneck split over pairs
+    ((1, 288, 288, 2), dict())])
+def test_mega_kernel_stages_match_plain_version(card, shape, kw):
+    """Each stage of the kernel against the plain version of that stage fed
+    the kernel's own input planes (no plane reused in the debug form), under
+    K6's gate; the debug form's logits equal the forward's."""
+    cfg = UNetConfig(**kw)
+    model, x = mega_case(cfg, shape, 13, card)
+    weights = unet_mega.weights_of(model, torch.bfloat16, x.device)
+    xb = x.to(torch.bfloat16).contiguous()
+    logits, scratch, plan = unet_mega.mega_forward_debug(weights, xb)
+    torch.cuda.synchronize()
+    assert torch.equal(logits, unet_mega.mega_forward(weights, xb))
+    rows = unet_mega.stage_errors(weights, xb, logits, scratch, plan)
+    assert len(rows) == 2 * cfg.depth + 1
+    for row in rows:
+        for key in ("out", "aux", "logits"):
+            if key in row:
+                assert row[key]["ratio"] <= 1.0, row
 
 
 @pytest.mark.cuda

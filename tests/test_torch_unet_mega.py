@@ -257,7 +257,10 @@ def test_plan_and_packing_cover_every_plane_and_weight_once():
     model = build_model(UNetConfig(**kw), torch.Generator().manual_seed(0))
     folded = unet_mega.fold_weights(model.eval(), torch.bfloat16)
     blob, stages = unet_mega._pack(folded, torch.device("cpu"))
-    plan, scratch = unet_mega._plan(stages, 3, 32, 48)
+    # every plane in its own room, as the kernel's per-stage check reads
+    # them; the table the forward runs reuses rooms, and
+    # tests/test_torch_mega_plan.py holds its liveness
+    plan, scratch = unet_mega._plan(stages, 3, 32, 48, reuse=False)
     depth = 2
     assert plan.shape == (2 * depth + 1, unet_mega._PLAN_FIELDS)
     assert [int(k) for k in plan[:, 0]] == [0, 0, 1, 1, 2]
@@ -337,15 +340,21 @@ def test_cuda_tensor_without_a_card_raises_and_never_takes_the_plain_version(
                 model, torch.from_numpy(x).to("cuda"))
 
 
-def test_fp32_off_the_cpu_raises_through_the_module():
-    """The card's kernel is bf16 only. A ``use_mega`` module in fp32 given a
-    tensor that is not on the CPU raises, alone and with ``use_pallas``: it
-    never serves another forward under the flag."""
+def test_fp32_off_the_cpu_raises_through_the_module(monkeypatch):
+    """An fp32 ``use_mega`` module has a kernel on the card (the fp32
+    body). Given a tensor that is neither on the CPU nor on a card, it
+    reaches the kernel's entry and raises there, alone and with
+    ``use_pallas``: the plain version is for CPU tensors only, and no other
+    forward runs under the flag."""
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for a tensor off the CPU")
+
+    monkeypatch.setattr(unet_mega, "mega_forward_ref", refuse)
     kw, _variables, x = _case(32, 32, 2, "float32")
     off_cpu = torch.from_numpy(x).to("meta")
     for extra in ({}, {"use_pallas": True}):
         model = UNet(UNetConfig(**kw, use_mega=True, **extra)).eval()
-        with pytest.raises(ValueError, match="bf16 only"):
+        with pytest.raises(ValueError, match="no kernel for device"):
             model(off_cpu)
         # an ineligible shape still falls through, as in the JAX package
         assert not unet_mega.mega_eligible(model.cfg, 4, 4)
