@@ -1,7 +1,7 @@
 """Smoke run of plumekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
-``nvcc`` per source, all at once) and drives the port's four paths:
+``nvcc`` per source, all at once) and drives the port's five paths:
 
 * megakernel serving: K7 (the whole U-Net forward in one launch) against
   its plain PyTorch version at the flagship U-Net over 128 tiles of 96²,
@@ -46,7 +46,21 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   ``gaussian.identify_granule`` at 1200² with the kernels and with the
   plain versions, split by phase; then ``build_features --detector basic``
   and ``--detector gaussian`` over four 1200² granules each, one of which
-  must equal a ``--device cpu`` run.
+  must equal a ``--device cpu`` run;
+* training (no TPU kernel on the step; K1 and K3 label, K6 and K7 evaluate
+  and serve): three steps of ``UNetConfig()`` widths at 8 × 128² on the card
+  in fp32 (TF32 off) and bf16 against the CPU in fp32 and float64 from the
+  same weights; the step timed at the JAX bench's geometry (16 × 128²,
+  device-resident data, 10 steps per chunk) and at ``TrainConfig()``'s
+  (16 × 512², host iterator) with MPix/s, TFLOP/s against the H100's 989,
+  the host's share and peak memory (``experiments/train_step_times.py``);
+  then the quick-start chain ``make_dataset`` (4 × 1200²) → ``build_features
+  --detector rg`` → ``train_model --weak-labels`` (40 steps of 16 × 512²,
+  then resumed to 60; K1 and K3 must launch while it labels, one weak-label
+  granule must equal its ``--device cpu`` labels, the metrics CSV must
+  continue) → ``predict_model`` plain and ``--fused``, and evals of the
+  trained weights through K6 and K7 before and after one more step against
+  the plain eval.
 
 Every kernel's time stands beside its bound: the bytes it must move (each
 input read once, each output written once) over the card's memory rate,
@@ -60,6 +74,7 @@ output directory that :func:`main` makes.
 
 from __future__ import annotations
 
+import copy
 import csv
 import dataclasses
 import json
@@ -103,6 +118,14 @@ from plumekit_torch.io.synthetic import (  # noqa: E402
     SyntheticSceneConfig, make_fire_table, make_scene, write_fire_csv)
 from plumekit_torch.ops.kernels import ccl_sweep, label_counts  # noqa: E402
 from plumekit_torch.ops.morphology import binary_opening_cross  # noqa: E402
+from plumekit_torch.config import DataConfig, TrainConfig  # noqa: E402
+from plumekit_torch.experiments import train_step_times  # noqa: E402
+from plumekit_torch.train.data import (  # noqa: E402
+    make_synthetic_dataset, tile_batches, weak_label_mask, weak_label_scene)
+from plumekit_torch.models.losses import dice_bce_loss  # noqa: E402
+from plumekit_torch.train.state import create_state, make_schedule  # noqa
+from plumekit_torch.train.step import (  # noqa: E402
+    make_train_step, step_generator)
 
 SEED = 0
 DEV = torch.device("cuda")
@@ -135,6 +158,7 @@ MEGA_HEAD_ROUNDING_SHARE = 0.25
 # arithmetic, sums in another order
 MEGA_F32_RTOL, MEGA_F32_MIN_CORR = 1e-3, 0.99999
 PROBE_SIZE, PROBE_LOOKUPS = 1024, 1024   # the gather probe's defaults
+TRAIN_TIMED_STEPS = 20                # per geometry, after 5 warm-up steps
 
 RG = RGIdentifyConfig()               # T = 20 thresholds 1.0 .. 0.05
 THRESHOLDS = np.asarray(RG.thresholds, np.float32)
@@ -486,7 +510,8 @@ def compare_served(got, want):
         flip = (p > 0.5) != (q > 0.5)
         flips += int(flip.sum())
         confident_flips += int((flip & (np.abs(q - 0.5) > PROB_ATOL)).sum())
-    return max_dp, flips / (GRANULES * GRANULE_PX**2), confident_flips
+    return max_dp, flips / sum(p.size for p in got.values()), \
+        confident_flips
 
 
 def main_path(model, root, tmp):
@@ -1203,9 +1228,10 @@ def sweep_split():
               "synthetic_8192": swath_scene(8192)}
     # a process's first run is a warm-up; at 1200² its first-use cost
     # reaches into the next run of the kernels, so the scene runs on until
-    # the last three kernel runs are steady
+    # the last three kernel runs are steady; at 8192² (48 s a run, host
+    # fire location 80% of it) one run each, the plain versions first
     orders = {"bench_1200": (False, True, False, True, False, False),
-              "synthetic_8192": (False, True, False)}
+              "synthetic_8192": (True, False)}
     res = {}
     for name, scene in scenes.items():
         runs = {"kernels": [], "plain": []}
@@ -1667,6 +1693,375 @@ def detector_features_path(tmp, detector, scene_kw):
     return res
 
 
+# ------------------------------------------------------------- training
+# step parity: UNetConfig() widths, 8 tiles of 128² from seed 0, three
+# steps from the same weights on the card in fp32 (TF32 off) and bf16 and on
+# the CPU in fp32 and in float64, the reference; warmup 1, so the first
+# update runs at lr 0 (as in optax) and the next two at the peak and down
+# the cosine
+PARITY_TRAIN = TrainConfig(batch_size=8, tile_size=128, warmup_steps=1,
+                           total_steps=4, augment=False)
+PARITY_STEPS = 3
+# fp32 against fp32: the loss and IoU of the same function, every step
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_IOU_ATOL = 1e-3                 # a few pixels at the 0.5 threshold
+# Gradients and running statistics of steps 1 and 2, whose forwards see the
+# same weights (step 1's lr is 0), against the float64 step's: fp32 is 1-2%
+# of a tensor's largest gradient away from it in the deep blocks (batch
+# norm's backward over 8 × 8² planes cancels), on the CPU as on the card, so
+# the card's largest distance is held to this many times the CPU fp32
+# step's, plus a floor of fp32 rounding. After a real update the runs part:
+# Adam turns the rounding of near-zero gradients into steps of about lr of
+# either sign, so from step 3 only the loss and IoU are compared, and the
+# update itself is checked on equal inputs (check_adamw)
+TRAIN_F64_FACTOR = 4.0
+TRAIN_F64_FLOOR = {"grads": 1e-5, "stats": 1e-6}
+# one AdamW update from the same state and gradients: 1e-3 of the peak lr
+TRAIN_PARAM_RTOL = 1e-3
+# bf16 on the card against the float64 step
+TRAIN_BF16_LOSS_RTOL = 2e-2
+TRAIN_BF16_MIN_CORR = 0.99            # of all gradients together
+# the quick-start chain on the card
+CHAIN_GRANULES, CHAIN_PX = 4, 1200
+CHAIN_TILE, CHAIN_BATCH = 512, 16
+CHAIN_STEPS = (40, 60)                # train_model, then its resume
+EVAL_TILE = 128                       # a tile K7 takes at UNetConfig()
+
+
+def train_parity_batches():
+    """PARITY_STEPS batches of 8 × 128² tiles of two synthetic 256²
+    granules, drawn from ``default_rng(0)``."""
+    samples = make_synthetic_dataset(DataConfig(granule_size=256,
+                                                n_train_granules=2))
+    stream = tile_batches(samples, PARITY_TRAIN.tile_size,
+                          PARITY_TRAIN.batch_size, np.random.default_rng(SEED))
+    return [next(stream) for _ in range(PARITY_STEPS)]
+
+
+def run_train_steps(cfg, device, weights, batches):
+    """Per step: loss, IoU, each parameter's gradient, and the parameters
+    and buffers after the step, on the CPU."""
+    state = create_state(cfg, PARITY_TRAIN, device)
+    state.model.load_state_dict(weights)
+    step = make_train_step(PARITY_TRAIN.dice_weight, augment=False)
+    out = []
+    for xs, ys in batches:
+        state, m = step(state, torch.from_numpy(xs).to(device),
+                        torch.from_numpy(ys).to(device), None)
+        out.append({
+            "loss": float(m["loss"]), "iou": float(m["iou"]),
+            "grads": {n: p.grad.detach().cpu().clone()
+                      for n, p in state.model.named_parameters()},
+            "state": {n: t.detach().cpu().clone()
+                      for n, t in state.model.state_dict().items()}})
+    return out
+
+
+def _distance(run, ref, key, pick):
+    """Largest |run - ref| over the tensors of ``run[key]`` that ``pick``
+    names, each over its own largest |ref| for gradients (their scales
+    differ by orders between blocks) and absolute otherwise."""
+    worst = 0.0
+    for n, w in ref[key].items():
+        if not pick(n):
+            continue
+        d = float((run[key][n] - w).abs().max())
+        if key == "grads":
+            d /= max(float(w.abs().max()), 1e-30)
+        worst = max(worst, d)
+    return worst
+
+
+def check_adamw(weights, batches):
+    """One AdamW update on the card and on the CPU from the same state (the
+    CPU fp32 run's after two steps, moments included) and the same
+    gradients (the CPU's, of the third batch): the updated parameters."""
+    f32 = UNetConfig(compute_dtype="float32")
+    cpu = create_state(f32, PARITY_TRAIN, torch.device("cpu"))
+    cpu.model.load_state_dict(weights)
+    step = make_train_step(PARITY_TRAIN.dice_weight, augment=False)
+    for xs, ys in batches[:2]:
+        step(cpu, torch.from_numpy(xs), torch.from_numpy(ys), None)
+    card = create_state(f32, PARITY_TRAIN, DEV)
+    card.load_state_dict(copy.deepcopy(cpu.state_dict()))
+    xs, ys = (torch.from_numpy(a) for a in batches[2])
+    cpu.optimizer.zero_grad(set_to_none=True)
+    dice_bce_loss(cpu.model(xs), ys, PARITY_TRAIN.dice_weight).backward()
+    for pc, pg in zip(cpu.model.parameters(), card.model.parameters()):
+        pg.grad = pc.grad.to(DEV)
+    lr = cpu.optimizer.param_groups[0]["lr"]
+    cpu.optimizer.step()
+    card.optimizer.step()
+    err = max(float((pc.detach() - pg.detach().cpu()).abs().max())
+              for pc, pg in zip(cpu.model.parameters(),
+                                card.model.parameters()))
+    tol = TRAIN_PARAM_RTOL * PARITY_TRAIN.learning_rate
+    print(f"AdamW update at lr {lr:.3g} from the same state and gradients: "
+          f"card against CPU max|dp| {err:.3g} (allowed {tol:.3g})",
+          flush=True)
+    if err > tol:
+        raise AssertionError(f"AdamW on the card: max|dp| {err} > {tol}")
+    return {"lr": lr, "max_abs_dparam": err}
+
+
+def _distance(run, ref, key, pick):
+    """Largest |run - ref| over the tensors of ``run[key]`` that ``pick``
+    names, each over its own largest |ref| for gradients (their scales
+    differ by orders between blocks) and absolute otherwise."""
+    worst = 0.0
+    for n, w in ref[key].items():
+        if not pick(n):
+            continue
+        d = float((run[key][n] - w).abs().max())
+        if key == "grads":
+            d /= max(float(w.abs().max()), 1e-30)
+        worst = max(worst, d)
+    return worst
+
+
+def check_train_parity():
+    """Three steps on the card in fp32 and bf16 against the CPU in fp32 and
+    float64, and one AdamW update on equal inputs (see PARITY_TRAIN)."""
+    t0 = time.perf_counter()
+    weights = build_model(UNetConfig(compute_dtype="float32"),
+                          torch.Generator().manual_seed(SEED)).state_dict()
+    batches = train_parity_batches()
+    cpu = torch.device("cpu")
+    runs = {name: run_train_steps(UNetConfig(compute_dtype=dtype), dev,
+                                  weights, batches)
+            for name, dtype, dev in (("cpu64", "float64", cpu),
+                                     ("cpu32", "float32", cpu),
+                                     ("card32", "float32", DEV),
+                                     ("bf16", "bfloat16", DEV))}
+    schedule = make_schedule(PARITY_TRAIN)
+
+    def params(n):
+        return not n.endswith(("running_mean", "running_var",
+                               "num_batches_tracked"))
+
+    def stats(n):
+        return n.endswith(("running_mean", "running_var"))
+
+    rows = []
+    for i in range(PARITY_STEPS):
+        ref, c, g, b = (runs[k][i] for k in ("cpu64", "cpu32", "card32",
+                                             "bf16"))
+        dist = {k: {"grads": _distance(runs[k][i], ref, "grads",
+                                       lambda n: True),
+                    "stats": _distance(runs[k][i], ref, "state", stats),
+                    "params": _distance(runs[k][i], ref, "state", params)}
+                for k in ("cpu32", "card32")}
+        flat64 = torch.cat([w.ravel() for w in ref["grads"].values()])
+        flat16 = torch.cat([b["grads"][n].ravel() for n in ref["grads"]])
+        corr = float(np.corrcoef(flat64.numpy(), flat16.numpy())[0, 1])
+        same_weights = i < 2          # the forward saw the initial weights
+        row = {"step": i + 1, "lr": schedule(i), "same_weights": same_weights,
+               **{f"{k}_loss": runs[k][i]["loss"] for k in runs},
+               **{f"{k}_iou": runs[k][i]["iou"] for k in runs},
+               "distance_to_float64": dist, "bf16_grad_corr": corr}
+        rows.append(row)
+        print(f"train step {i + 1} (lr {schedule(i):.3g}): loss float64 "
+              f"{ref['loss']:.7f}, cpu fp32 {c['loss']:.7f}, card fp32 "
+              f"{g['loss']:.7f}, bf16 {b['loss']:.7f}; iou {c['iou']:.5f} / "
+              f"{g['iou']:.5f} / {b['iou']:.5f}; distance to float64, cpu "
+              f"fp32 / card fp32: gradients {dist['cpu32']['grads']:.3g} / "
+              f"{dist['card32']['grads']:.3g} of each tensor's largest, "
+              f"running stats {dist['cpu32']['stats']:.3g} / "
+              f"{dist['card32']['stats']:.3g}, parameters after the step "
+              f"{dist['cpu32']['params']:.3g} / "
+              f"{dist['card32']['params']:.3g}; bf16 gradient correlation "
+              f"{corr:.5f}", flush=True)
+        ok = (abs(g["loss"] - c["loss"]) <= TRAIN_LOSS_RTOL * abs(c["loss"])
+              and abs(g["iou"] - c["iou"]) <= TRAIN_IOU_ATOL)
+        if same_weights:
+            ok = ok and all(
+                dist["card32"][k] <= TRAIN_F64_FACTOR * dist["cpu32"][k]
+                + floor for k, floor in TRAIN_F64_FLOOR.items())
+        if not ok:
+            raise AssertionError(f"fp32 train step {i + 1}: the card's step "
+                                 f"is off the CPU's: {row}")
+        if not (abs(b["loss"] - ref["loss"])
+                <= TRAIN_BF16_LOSS_RTOL * abs(ref["loss"])
+                and (corr > TRAIN_BF16_MIN_CORR or not same_weights)):
+            raise AssertionError(f"bf16 train step {i + 1}: off the float64 "
+                                 f"step: {row}")
+    return {"steps": rows, "adamw": check_adamw(weights, batches),
+            "seconds": time.perf_counter() - t0}
+
+
+def read_served(root):
+    """``{name: probs}`` of every prediction file of ``root``; each must
+    be finite probabilities with the mask thresholded from them."""
+    out = os.path.join(root, "processed", "predictions")
+    preds = {}
+    for f in sorted(os.listdir(out)):
+        with np.load(os.path.join(out, f)) as d:
+            probs, mask, th = d["probs"], d["mask"], float(d["threshold"])
+        if probs.shape != (CHAIN_PX, CHAIN_PX) or \
+                not np.isfinite(probs).all() or probs.min() < 0 or \
+                probs.max() > 1 or not np.array_equal(mask, probs > th):
+            raise AssertionError(f"{f}: bad prediction {probs.shape}")
+        preds[f] = probs
+    if len(preds) != CHAIN_GRANULES:
+        raise AssertionError(f"predict_model wrote {sorted(preds)}")
+    return preds
+
+
+def run_cli(*argv):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"{argv[0]} {argv} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def check_eval_routes(weights, samples):
+    """The trained weights in a ``use_pallas`` (K6) and a ``use_mega`` (K7)
+    model: an eval, one optimizer step, an eval again; each eval against
+    the plain eval of the same weights. Both routes cache packed weights
+    per model, so the second eval shows that a step refreshes them."""
+    xs, ys = (torch.from_numpy(a).to(DEV) for a in next(tile_batches(
+        samples, EVAL_TILE, 16, np.random.default_rng(1))))
+    plain = build_model(UNetConfig()).to(DEV).eval()
+    step = make_train_step()
+    res = {}
+    for flag, module, rtol in (("use_pallas", fused_conv, LOGIT_RTOL),
+                               ("use_mega", unet_mega, MEGA_RTOL)):
+        state = create_state(dataclasses.replace(UNetConfig(), **{flag: True}),
+                             TrainConfig(batch_size=16, tile_size=EVAL_TILE),
+                             DEV)
+        state.model.load_state_dict(weights)
+        rounds = []
+        for r in range(2):
+            module.LAUNCHES = 0
+            with torch.no_grad():
+                got = state.model.eval()(xs)
+            launches = module.LAUNCHES
+            plain.load_state_dict(state.model.state_dict())
+            with torch.no_grad():
+                want = plain(xs)
+            cmp = compare_logits(f"{flag} eval after {r} steps", got, want,
+                                 rtol)
+            blocks = 2 * state.model.cfg.depth + 1
+            if launches != (blocks if flag == "use_pallas" else 1):
+                raise AssertionError(f"{flag} eval launched its kernel "
+                                     f"{launches} times")
+            rounds.append({**cmp, "launches": launches})
+            state, _ = step(state, xs, ys, step_generator(SEED, r, DEV))
+        res[flag] = rounds
+        print(f"{flag} eval at {xs.shape[0]}x{EVAL_TILE}^2 after training, "
+              f"before and after one more step: max|diff| "
+              f"{rounds[0]['max_abs_diff']:.4g}, {rounds[1]['max_abs_diff']:.4g}"
+              f" of max|logit| {rounds[1]['max_abs_logit']:.4g}, corr "
+              f"{rounds[1]['corr']:.6f}, launches {rounds[1]['launches']}",
+              flush=True)
+    return res
+
+
+def train_chain(tmp):
+    """make_dataset → build_features --detector rg → train_model
+    --weak-labels (then resumed) → predict_model plain and --fused, on
+    the card, at UNetConfig()."""
+    root = os.path.join(tmp, "train_root")
+    res = {"seconds": {}}
+    res["seconds"]["make_dataset"] = run_cli(
+        "make_dataset", "--root", root, "--n-granules", str(CHAIN_GRANULES),
+        "--size", str(CHAIN_PX))
+    res["seconds"]["build_features"] = run_cli(
+        "build_features", "--root", root, "--detector", "rg")
+
+    # the weak labeller on the card and on the CPU: one granule, bit for bit
+    scene = weak_label_scene(0, DataConfig(granule_size=CHAIN_PX))
+    card_mask = weak_label_mask(scene, device=DEV)
+    cpu_mask = weak_label_mask(scene, device="cpu")
+    if not card_mask.any() or not np.array_equal(card_mask, cpu_mask):
+        raise AssertionError("weak labels on the card differ from the CPU's "
+                             f"({int(card_mask.sum())} vs "
+                             f"{int(cpu_mask.sum())} px)")
+
+    train_argv = ["train_model", "--root", root, "--weak-labels",
+                  "--granule-size", str(CHAIN_PX), "--tile", str(CHAIN_TILE),
+                  "--batch-size", str(CHAIN_BATCH)]
+    ccl_sweep.LAUNCHES = label_counts.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    res["seconds"]["train_model"] = run_cli(*train_argv, "--steps",
+                                            str(CHAIN_STEPS[0]))
+    res["launches"] = {"k1": ccl_sweep.LAUNCHES, "k3": label_counts.LAUNCHES}
+    res["train_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if not (res["launches"]["k1"] > 0 and res["launches"]["k3"] > 0):
+        raise AssertionError("train_model --weak-labels did not launch K1 "
+                             f"and K3: {res['launches']}")
+    ckpt = os.path.join(root, "models", "checkpoints")
+    metrics = ckpt + "_metrics.csv"
+    with open(metrics) as f:
+        first = list(csv.DictReader(f))
+    res["seconds"]["train_model_resumed"] = run_cli(
+        *train_argv, "--steps", str(CHAIN_STEPS[1]))
+    with open(metrics) as f:
+        rows = list(csv.DictReader(f))
+    want_steps = [str(s) for s in range(20, CHAIN_STEPS[1] + 1, 20)]
+    if [r["step"] for r in rows] != want_steps or rows[:len(first)] != first:
+        raise AssertionError(f"the resumed run's metrics do not continue the "
+                             f"first run's: {rows}")
+    res["metrics"] = rows
+    if sorted(os.listdir(ckpt)) != ["model_config.json", "step_00000040.pt",
+                                    "step_00000060.pt", "weights.pt"]:
+        raise AssertionError(f"checkpoints: {sorted(os.listdir(ckpt))}")
+
+    fused_conv.LAUNCHES = 0
+    res["seconds"]["predict_fused"] = run_cli("predict_model", "--root", root,
+                                              "--fused")
+    res["k6_serving_launches"] = fused_conv.LAUNCHES
+    fused = read_served(root)
+    res["seconds"]["predict_plain"] = run_cli("predict_model", "--root", root)
+    plain = read_served(root)
+    max_dp, share, confident = compare_served(fused, plain)
+    res["served"] = {"max_abs_dprobs": max_dp, "mask_flip_share": share,
+                     "confident_flips": confident,
+                     "plume_share": float(np.mean([(p > 0.5).mean()
+                                                   for p in plain.values()]))}
+    if max_dp > PROB_ATOL or confident or not res["k6_serving_launches"]:
+        raise AssertionError(f"served trained checkpoint: {res['served']}, "
+                             f"K6 launches {res['k6_serving_launches']}")
+
+    weights = torch.load(os.path.join(ckpt, "weights.pt"), map_location=DEV)
+    samples = make_synthetic_dataset(DataConfig(granule_size=256,
+                                                n_eval_granules=1),
+                                     train=False)
+    res["eval_routes"] = check_eval_routes(weights, samples)
+    print(f"train chain on the card: make_dataset {CHAIN_GRANULES}x"
+          f"{CHAIN_PX}^2, build_features rg, train_model --weak-labels "
+          f"{CHAIN_STEPS[0]} steps of {CHAIN_BATCH}x{CHAIN_TILE}^2 then "
+          f"resumed to "
+          f"{CHAIN_STEPS[1]} (loss {rows[-1]['loss']}, K1 "
+          f"{res['launches']['k1']} and K3 {res['launches']['k3']} launches "
+          f"while labelling, peak {res['train_peak_memory_gb']:.2f} GB), "
+          f"predict_model --fused against plain max|dprobs| {max_dp:.4g}; "
+          "seconds " + ", ".join(f"{k} {v:.2f}"
+                                 for k, v in res["seconds"].items()),
+          flush=True)
+    return res
+
+
+def train_phase(tmp):
+    """Step parity, timed steps at both geometries, and the chain."""
+    t0 = time.perf_counter()
+    res = {"parity": check_train_parity()}
+    torch.cuda.empty_cache()
+    res["step_times"] = []
+    for name in train_step_times.GEOMETRIES:
+        row = train_step_times.time_geometry(name, TRAIN_TIMED_STEPS, DEV)
+        res["step_times"].append(row)
+        print(train_step_times.summary(row), flush=True)
+        torch.cuda.empty_cache()
+    res["chain"] = train_chain(tmp)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"training phase {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -1729,6 +2124,13 @@ def main() -> int:
         gaussian_features = detector_features_path(tmp, "gaussian",
                                                    GAUSS_SCENE)
 
+    # training: step parity, timed steps, the quick-start chain (K1 and K3
+    # label, K6 and K7 evaluate and serve)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        training = train_phase(tmp)
+    chain = training["chain"]
+
     timed = [r for r in kernel_rows if r["set"] == str(ICFG.tile_size)]
     timed_mega = [r for r in kernel_rows if r["set"] == str(MEGA.tile_size)]
     single = [r for r in single_rows if "ms" in r]
@@ -1775,11 +2177,16 @@ def main() -> int:
         # the nine blocks at the megakernel's tile beside cuDNN
         "ms_with_packing": sum(r["wrapper_ms"] for r in timed),
         "ms_tile_96": sum(r["ms"] for r in timed_mega),
-        "library_ms_tile_96": sum(r["plain_ms"] for r in timed_mega)},
+        "library_ms_tile_96": sum(r["plain_ms"] for r in timed_mega),
+        # the trained checkpoint served with --fused, and use_pallas evals
+        "train_launches": chain["k6_serving_launches"] + sum(
+            r["launches"] for r in chain["eval_routes"]["use_pallas"])},
         ccl_entry("multi_threshold_ccl_fused",
                   "plumekit/ops/pallas/ccl_sweep.py:544", bench_ccl,
                   features["launches"]["k1"]
-                  + gaussian_features["launches"]["k1"], ccl_rows),
+                  + gaussian_features["launches"]["k1"], ccl_rows,
+                  # train_model --weak-labels, labelling its granules
+                  train_launches=chain["launches"]["k1"]),
         ccl_entry("multi_threshold_ccl",
                   "plumekit/ops/pallas/ccl_sweep.py:468", basic_mask,
                   basic_features["launches"]["k2"]
@@ -1789,6 +2196,7 @@ def main() -> int:
         "replaces": "plumekit/ops/pallas/label_counts.py:83",
         "launches": features["launches"]["k3"]
         + gaussian_features["launches"]["k3"],
+        "train_launches": chain["launches"]["k3"],
         "max_abs_err": max(r["max_abs_err"] for r in count_rows),
         "ms": bench_counts["ms"], "plain_ms": bench_counts["plain_ms"],
         "bound_ms": bench_counts["bound_ms"],
@@ -1829,6 +2237,8 @@ def main() -> int:
         # the fp32 body over the same batch, its bound at the fp32 rate
         "fp32_ms": mega["fp32"]["ms"], "fp32_bound_ms": mega["fp32"]["bound_ms"],
         "fp32_max_abs_err": mega["fp32"]["max_abs_diff"],
+        "train_launches": sum(r["launches"]
+                              for r in chain["eval_routes"]["use_mega"]),
         "at": f"one forward of UNetConfig(), {batch} tiles of "
               f"{MEGA.tile_size}x{MEGA.tile_size}"}, {
         "name": "scalar_gather_probe", "route": "cuda",
@@ -1869,6 +2279,7 @@ def main() -> int:
                    "detectors": detectors,
                    "build_features_basic": basic_features,
                    "build_features_gaussian": gaussian_features,
+                   "training": training,
                    "copy_rate_gb_per_s": copy_rate / 1e9,
                    "seconds": time.perf_counter() - t_start,
                    "kernels": kernels},

@@ -1,5 +1,5 @@
-"""Command-line entry points of the port: ``build_features``,
-``identify`` and ``predict_model``.
+"""Command-line entry points of the port: ``make_dataset``,
+``build_features``, ``identify``, ``train_model`` and ``predict_model``.
 
 Usage: ``plumekit-torch <command> --root R ...`` or
 ``python -m plumekit_torch.cli <command> ...``. ``build_features`` and
@@ -17,6 +17,15 @@ Usage: ``plumekit-torch <command> --root R ...`` or
   with a work log of its own;
 * ``identify GRANULE FIRES --detector D`` prints one granule's
   plume count and, with ``--out``, writes its hull table;
+* ``make_dataset`` writes synthetic granules under
+  ``raw/plume_identification/maiac`` and their fires to
+  ``raw/fires/fires.csv``, as ``plumekit make_dataset`` does;
+* ``train_model`` trains the U-Net on synthetic granules made from
+  ``DataConfig`` (``--weak-labels``: labelled by the rg detector), as
+  ``plumekit train_model`` does (the root's own granules are not read;
+  ``--root`` places the checkpoints), and writes ``model_config.json``,
+  ``weights.pt`` and step checkpoints under ``<root>/models/checkpoints``
+  and the metrics CSV beside them;
 * ``predict_model`` writes ``<root>/processed/predictions/<name>_pred.npz``
   (``probs``, ``mask``, ``threshold``) as ``plumekit predict_model`` does.
 
@@ -53,6 +62,23 @@ UNPORTED_FLAGS = {
     "quantize": "quantized transfers",
     "quantize_output": "quantized transfers",
     "plot": "prediction quicklooks",
+}
+
+#: training flags of the JAX CLI that this port does not take yet, with
+#: the ROADMAP.md item (queue A) that ports each; a flag counts as given
+#: when its value differs from the parser's default
+UNPORTED_TRAIN_FLAGS = {
+    "data_parallel": "multi-card serving",
+    "curated": "training and evaluation extras",
+    "distill_from": "training and evaluation extras",
+    "distill_alpha": "training and evaluation extras",
+    "distill_temp": "training and evaluation extras",
+    "distill_prune_level": "training and evaluation extras",
+    "distill_tta": "training and evaluation extras",
+    "distill_calibrate": "training and evaluation extras",
+    "arch": "UNet++",
+    "deep_supervision": "UNet++",
+    "quantize_transfer": "quantized transfers",
 }
 
 logger = get_logger("plumekit_torch.cli")
@@ -215,6 +241,74 @@ def cmd_predict_model(args) -> int:
                 granule_paths, infer, model, unet_cfg.depth, device,
                 batch_granules=args.batch_granules):
             _write_prediction(out_dir, name, probs, threshold=threshold)
+    return 0
+
+
+def cmd_make_dataset(args) -> int:
+    """Write synthetic granules and a VIIRS-like fire CSV into the
+    reference's directory layout."""
+    from plumekit_torch.io.granule import save_granule
+    from plumekit_torch.io.synthetic import (SyntheticSceneConfig,
+                                             make_scene, write_fire_csv)
+
+    for flag in ("viirs_swaths", "viirs_aod_pairs"):
+        if getattr(args, flag):
+            logger.error("--%s is not ported to plumekit_torch yet "
+                         "(ROADMAP.md, queue A: 'VIIRS swaths')",
+                         flag.replace("_", "-"))
+            return 1
+    paths = PathsConfig(root=args.root)
+    maiac_dir = paths.ensure("maiac_dir")
+    fires_dir = paths.ensure("fires_dir")
+    tables = []
+    for i in range(args.n_granules):
+        scene = make_scene(SyntheticSceneConfig(
+            size=args.size, n_plumes=args.plumes, seed=args.seed + i,
+            background_level=0.2, background_noise=0.05,
+            plume_amplitude=(0.6, 0.8), plume_sigma_major=(9.0, 14.0),
+            plume_sigma_minor=(1.8, 2.6), fires_per_plume=(7, 9),
+            extra_fires=4, null_blobs=1))
+        out = os.path.join(maiac_dir, scene.granule.name + ".npz")
+        save_granule(out, scene.granule)
+        tables.append(scene.fires)
+        logger.info("wrote %s (%d fires)", out, len(scene.fires["frp"]))
+    fires = {k: np.concatenate([t[k] for t in tables])
+             for k in ("latitude", "longitude", "frp", "acq_date")}
+    fire_csv = os.path.join(fires_dir, "fires.csv")
+    write_fire_csv(fire_csv, fires)
+    logger.info("wrote %s (%d rows)", fire_csv, len(fires["frp"]))
+    return 0
+
+
+def cmd_train_model(args) -> int:
+    """Train the U-Net (``plumekit_torch.train.loop.train``) on the device
+    of ``--device``."""
+    from plumekit_torch.config.train import DataConfig, TrainConfig
+    from plumekit_torch.train.loop import train
+
+    defaults = build_parser().parse_args(["train_model"])
+    for flag, item in UNPORTED_TRAIN_FLAGS.items():
+        if getattr(args, flag) != getattr(defaults, flag):
+            logger.error("--%s is not ported to plumekit_torch yet "
+                         "(ROADMAP.md, queue A: '%s')",
+                         flag.replace("_", "-"), item)
+            return 1
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        logger.error("%s", e)
+        return 1
+    history = train(
+        unet_cfg=UNetConfig(),
+        train_cfg=TrainConfig(
+            total_steps=args.steps, batch_size=args.batch_size,
+            tile_size=args.tile, checkpoint_dir=os.path.join(
+                args.root, PathsConfig().model_dir, "checkpoints"),
+            steps_per_dispatch=args.steps_per_dispatch,
+            device_data=args.device_data),
+        data_cfg=DataConfig(granule_size=args.granule_size),
+        weak_labels=args.weak_labels, device=device)
+    logger.info("final eval IoU %.3f", history["eval_iou"][-1])
     return 0
 
 
@@ -426,6 +520,65 @@ def _add_serving_args(p: argparse.ArgumentParser) -> None:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="plumekit-torch")
     sub = p.add_subparsers(dest="command", required=True)
+    unported = " (not ported yet: exits 1)"
+
+    d = sub.add_parser("make_dataset", help="generate granules + fire CSV")
+    d.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),
+                   help="workspace root")
+    d.add_argument("--n-granules", type=int, default=4)
+    d.add_argument("--size", type=int, default=512)
+    d.add_argument("--plumes", type=int, default=4)
+    d.add_argument("--seed", type=int, default=0)
+    d.add_argument("--viirs-swaths", type=int, default=0,
+                   help="synthetic VIIRS SDR swaths" + unported)
+    d.add_argument("--viirs-aod-pairs", type=int, default=0,
+                   help="synthetic IVAOT/GMTCO h5 pairs" + unported)
+    d.set_defaults(fn=cmd_make_dataset)
+
+    t = sub.add_parser("train_model", help="train the U-Net")
+    t.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),
+                   help="workspace root (checkpoints under "
+                        "<root>/models/checkpoints)")
+    t.add_argument("--device", default="cuda",
+                   help="torch device to train on (default: cuda)")
+    t.add_argument("--steps", type=int, default=200)
+    t.add_argument("--batch-size", type=int, default=8)
+    t.add_argument("--tile", type=int, default=256)
+    t.add_argument("--granule-size", type=int, default=512)
+    t.add_argument("--weak-labels", action="store_true",
+                   help="label granules with the rg detector instead of "
+                        "synthetic ground truth")
+    t.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="optimizer steps per chunk between log, eval and "
+                        "checkpoint boundaries")
+    t.add_argument("--device-data", action="store_true",
+                   help="keep the whole training set in the device's "
+                        "memory and draw and augment tiles there")
+    t.add_argument("--data-parallel", type=int, default=1,
+                   help="data-parallel cards" + unported + " above 1")
+    t.add_argument("--curated", action="store_true",
+                   help="train on curated samples" + unported)
+    t.add_argument("--quantize-transfer", action="store_true",
+                   help="uint16/uint8 tile transfers" + unported)
+    t.add_argument("--arch", choices=["unet", "unetpp"], default="unet",
+                   help="architecture family (unetpp" + unported + ")")
+    t.add_argument("--deep-supervision", action="store_true",
+                   help="UNet++ side heads" + unported)
+    t.add_argument("--distill-from", default=None, metavar="CKPT_DIR",
+                   help="offline distillation" + unported)
+    t.add_argument("--distill-alpha", type=float, default=1.0,
+                   help="distillation blend" + unported)
+    t.add_argument("--distill-temp", type=float, default=1.0,
+                   help="distillation temperature" + unported)
+    t.add_argument("--distill-prune-level", type=int, default=None,
+                   help="pruned UNet++ teacher" + unported)
+    t.add_argument("--distill-tta", action="store_true",
+                   help="D4-averaged teacher labels" + unported)
+    t.add_argument("--distill-calibrate", nargs="?", const="auto",
+                   default=None, metavar="THRESH",
+                   help="recentred teacher logits" + unported)
+    t.set_defaults(fn=cmd_train_model)
+
     pr = sub.add_parser("predict_model", help="sliding-window inference")
     _add_serving_args(pr)
     pr.set_defaults(fn=cmd_predict_model)

@@ -1,6 +1,8 @@
 """Configs, copied from ``plumekit.config`` (which imports JAX)."""
 
 from plumekit_torch.config.paths import PathsConfig
-from plumekit_torch.config.train import InferConfig, UNetConfig
+from plumekit_torch.config.train import (DataConfig, InferConfig,
+                                         TrainConfig, UNetConfig)
 
-__all__ = ["InferConfig", "PathsConfig", "UNetConfig"]
+__all__ = ["DataConfig", "InferConfig", "PathsConfig", "TrainConfig",
+           "UNetConfig"]

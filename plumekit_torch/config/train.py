@@ -1,10 +1,13 @@
-"""The model and serving configs of ``plumekit/config/train.py``: the same
-fields and defaults, so a ``model_config.json`` reads the same in both
-packages."""
+"""The model, training, data and serving configs of
+``plumekit/config/train.py``: the same fields and defaults, so a
+``model_config.json`` and a training call read the same in both packages.
+``MeshConfig`` is not here: data-parallel training is not ported yet
+(ROADMAP.md, queue A: 'multi-card serving')."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -33,6 +36,63 @@ class UNetConfig:
     #: (``models/kernels/unet_mega.py``) where ``mega_eligible`` holds; read
     #: before ``use_pallas``
     use_mega: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 16
+    tile_size: int = 512          # config 2: 512x512 multi-band tiles
+    learning_rate: float = 3e-4
+    weight_decay: float = 1e-4
+    warmup_steps: int = 100
+    total_steps: int = 2000
+    dice_weight: float = 0.5      # loss = w*dice + (1-w)*bce
+    seed: int = 0
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_every: int = 200
+    log_every: int = 20
+    augment: bool = True          # per-sample D4 flips and transposes
+    #: BCE target smoothing ε (y → y·(1−2ε)+ε) — weak-label noise hedge
+    label_smooth: float = 0.0
+    #: evaluate the dev set every N steps (0 = only at the end)
+    eval_every: int = 0
+    #: stop after this many consecutive evals without dev-IoU improvement
+    #: (0 = never stop early); requires eval_every > 0
+    early_stop_patience: int = 0
+    #: optimizer steps per chunk between host-visible boundaries; chunks
+    #: never cross a log, eval or checkpoint step, and every step's data and
+    #: augmentation are those of the single-step loop
+    steps_per_dispatch: int = 1
+    #: uint16/uint8 tile transfers: not ported yet (ROADMAP.md, queue A:
+    #: 'quantized transfers'); the trainer refuses it
+    quantize_transfer: bool = False
+    #: keep the whole training set in the card's memory and draw and
+    #: augment tiles there (``train/device_data.py``); the draws are
+    #: counter-based in (seed, step), a different sequence from the host
+    #: iterator's numpy draws
+    device_data: bool = False
+    #: offline distillation: kept so that the config reads as in the JAX
+    #: package, refused by the trainer until ROADMAP.md, queue A:
+    #: 'training and evaluation extras'
+    distill_from: Optional[str] = None
+    distill_alpha: float = 1.0
+    distill_temp: float = 1.0
+    distill_prune_level: Optional[int] = None
+    distill_infer: Optional["InferConfig"] = None
+    distill_tta: bool = False
+    distill_calibrate: Optional[float] = None
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Synthetic-granule dataset."""
+
+    granule_size: int = 1200      # a full MAIAC tile is 1200x1200
+    tile_size: int = 256
+    tiles_per_granule: int = 32
+    n_train_granules: int = 8
+    n_eval_granules: int = 2
+    seed: int = 1234
 
 
 @dataclass(frozen=True)

@@ -1,13 +1,22 @@
-"""U-Net segmentation model (``plumekit/models/unet.py``), inference only.
+"""U-Net segmentation model (``plumekit/models/unet.py``).
 
 The public interface is NHWC, as in the JAX package: ``UNet(cfg)(x)`` takes
 (B, H, W, in_channels) and returns fp32 logits (B, H, W, out_channels), with
 H and W divisible by ``2**depth``. Parameters are fp32 masters cast to the
-compute dtype per op; normalisation uses running statistics. Inside, the
-plain forward runs NCHW tensors in the channels-last memory format.
-``cfg.use_mega`` routes an eligible batch through the whole-forward kernel
-and ``cfg.use_pallas`` through the fused double-conv kernel, in that order,
-as the JAX module reads its flags.
+compute dtype per op. Inside, the plain forward runs NCHW tensors in the
+channels-last memory format.
+
+``self.training`` is the JAX module's ``train`` argument. In eval mode
+batch norm uses the running statistics, and ``cfg.use_mega`` routes an
+eligible batch through the whole-forward kernel and ``cfg.use_pallas``
+through the fused double-conv kernel, in that order, as the JAX module
+reads its flags. In train mode the plain forward always runs, and batch
+norm is flax's ``nn.BatchNorm(use_running_average=False)``: it normalises
+with the batch mean and biased variance, computed in fp32, and moves the
+running buffers as ``ra = 0.99·ra + 0.01·stat`` (flax's momentum sense,
+the biased variance; torch's ``momentum`` means 1 − flax's and its
+running update uses the unbiased variance, which :func:`_batch_norm`
+corrects).
 
 Layer order mirrors the flax module tree, which ``plumekit_torch.convert``
 maps one to one: ``blocks[i]`` is ``DoubleConv_i`` (encoder, bottleneck,
@@ -24,8 +33,13 @@ from torch import nn
 
 from plumekit_torch.config.train import UNetConfig
 
+#: compute dtypes; "float64" is the port's own, a reference for checks of
+#: the fp32 arithmetic (norms and the head then run in float64 too)
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-          "float16": torch.float16}
+          "float16": torch.float16, "float64": torch.float64}
+
+#: flax's ``nn.BatchNorm`` momentum: the running average's decay per step
+BN_MOMENTUM = 0.99
 
 
 def _norm(kind: str, features: int, groups: int) -> nn.Module:
@@ -39,6 +53,38 @@ def _norm(kind: str, features: int, groups: int) -> nn.Module:
     if kind == "none":
         return nn.Identity()
     raise ValueError(f"unknown norm {kind!r}")
+
+
+def _at_least_fp32(x):
+    """``x`` promoted to at least fp32, as flax promotes its statistics."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _batch_norm(x, norm: nn.BatchNorm2d, training: bool):
+    """Batch norm of NCHW ``x`` in at least fp32, back in ``x``'s dtype:
+    with the running statistics, or with the batch's (see the module
+    docstring)."""
+    xf = _at_least_fp32(x)
+    weight, bias = norm.weight.to(xf.dtype), norm.bias.to(xf.dtype)
+    if not training:
+        return F.batch_norm(xf, norm.running_mean.to(xf.dtype),
+                            norm.running_var.to(xf.dtype), weight, bias,
+                            False, 0.0, norm.eps).to(x.dtype)
+    # copies: autograd keeps the tensors the call moved
+    mean, var = (t.to(xf.dtype, copy=True) for t in (norm.running_mean,
+                                                     norm.running_var))
+    y = F.batch_norm(xf, mean, var, weight, bias, True, 1 - BN_MOMENTUM,
+                     norm.eps)
+    with torch.no_grad():
+        # torch moved the variance with the unbiased batch variance, v·n/(n
+        # − 1); take back its share over flax's biased v (n values per
+        # channel). Reading the statistics off the call costs no extra pass
+        # over the plane
+        n = xf.numel() // xf.shape[1]
+        norm.running_mean.copy_(mean)
+        norm.running_var.copy_(var - (var - BN_MOMENTUM * norm.running_var)
+                               / n)
+    return y.to(x.dtype)
 
 
 class DoubleConv(nn.Module):
@@ -59,18 +105,18 @@ class DoubleConv(nn.Module):
             bias = None if conv.bias is None else conv.bias.to(x.dtype)
             x = F.conv2d(x, conv.weight.to(x.dtype), bias, padding=1)
             if isinstance(norm, nn.BatchNorm2d):
-                x = F.batch_norm(x.float(), norm.running_mean,
-                                 norm.running_var, norm.weight, norm.bias,
-                                 False, 0.0, norm.eps).to(x.dtype)
+                x = _batch_norm(x, norm, self.training)
             elif isinstance(norm, nn.GroupNorm):
-                x = F.group_norm(x.float(), norm.num_groups, norm.weight,
-                                 norm.bias, norm.eps).to(x.dtype)
+                xf = _at_least_fp32(x)
+                x = F.group_norm(xf, norm.num_groups,
+                                 norm.weight.to(xf.dtype),
+                                 norm.bias.to(xf.dtype), norm.eps).to(x.dtype)
             x = torch.relu(x)
         return x
 
 
 class UNet(nn.Module):
-    """Configurable-depth U-Net over NHWC tensors (inference)."""
+    """Configurable-depth U-Net over NHWC tensors."""
 
     def __init__(self, cfg: UNetConfig = UNetConfig()):
         super().__init__()
@@ -92,7 +138,8 @@ class UNet(nn.Module):
 
     def forward(self, x):
         cfg = self.cfg
-        if cfg.use_mega and cfg.norm == "batch":
+        inference = not self.training and cfg.norm == "batch"
+        if inference and cfg.use_mega:
             from plumekit_torch.models.kernels.unet_mega import (
                 make_mega_apply, mega_eligible)
 
@@ -101,7 +148,7 @@ class UNet(nn.Module):
             # as in the JAX package, and nothing else does
             if mega_eligible(cfg, x.shape[1], x.shape[2]):
                 return make_mega_apply(cfg)(self, x)
-        if cfg.use_pallas and cfg.norm == "batch":
+        if inference and cfg.use_pallas:
             # the flag is read inside the module, as in the JAX package:
             # inference replays the net through the fused kernel
             from plumekit_torch.models.fused_forward import make_fused_apply
@@ -121,7 +168,9 @@ class UNet(nn.Module):
                                    stride=2)
             x = torch.cat([skip, x], dim=1)
             x = self.blocks[cfg.depth + 1 + u](x)
-        logits = F.conv2d(x.float(), self.head.weight, self.head.bias)
+        x = _at_least_fp32(x)
+        logits = F.conv2d(x, self.head.weight.to(x.dtype),
+                          self.head.bias.to(x.dtype))
         return logits.permute(0, 2, 3, 1)
 
 

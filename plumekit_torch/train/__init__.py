@@ -1,1 +1,2 @@
-"""Model-input contract and checkpoints."""
+"""Training (``plumekit/train``): data, device-resident data, augmentation,
+optimizer state, the step, the loop and checkpoints."""

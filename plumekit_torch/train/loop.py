@@ -1,0 +1,222 @@
+"""Training driver of ``plumekit/train/loop.py``: synthetic (or weakly
+labelled) granules → tile stream → train step → metrics CSV and step
+checkpoints, with resume, periodic dev evaluation and early stopping.
+
+Batches come from the host iterator (``tile_batches`` seeded with
+``np.random.default_rng((seed, start_step))``, as in the JAX package), each
+handed to the device in order through pinned memory, or, with
+``device_data``, are drawn on the device. Steps run in chunks that end at
+every log, checkpoint and eval step (``steps_per_dispatch`` caps a chunk);
+a step's augmentation draws from :func:`step_generator` of (seed, step).
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from plumekit_torch.config.train import DataConfig, TrainConfig, UNetConfig
+from plumekit_torch.device import resolve_device
+from plumekit_torch.models.flops import PEAK_TFLOPS, model_flops_per_pixel
+from plumekit_torch.train import checkpoint as ckpt
+from plumekit_torch.train.data import (make_synthetic_dataset,
+                                       make_weak_label_dataset, tile_batches)
+from plumekit_torch.train.device_data import (build_device_dataset,
+                                              make_device_multi_step)
+from plumekit_torch.train.state import create_state
+from plumekit_torch.train.step import (make_eval_step, make_train_step,
+                                       step_generator)
+from plumekit_torch.utils import MetricsWriter, get_logger
+
+logger = get_logger(__name__)
+
+
+def _refuse_unported(unet_cfg: UNetConfig, train_cfg: TrainConfig) -> None:
+    if unet_cfg.prune_level is not None:
+        raise ValueError(
+            "prune_level is serving-only; train with the full depth")
+    if train_cfg.quantize_transfer:
+        raise NotImplementedError(
+            "quantize_transfer is not ported to plumekit_torch yet "
+            "(ROADMAP.md, queue A: 'quantized transfers')")
+    if train_cfg.distill_from:
+        raise NotImplementedError(
+            "distillation is not ported to plumekit_torch yet (ROADMAP.md, "
+            "queue A: 'training and evaluation extras')")
+
+
+def chunk_schedule(start: int, total: int, k_max: int, intervals):
+    """Chunk sizes from ``start`` to ``total``: ``min(k_max, distance to
+    the next multiple of any interval or to total)``."""
+    intervals = [iv for iv in intervals if iv and iv > 0]
+    done = start
+    while done < total:
+        nxt = min([(done // iv + 1) * iv for iv in intervals] + [total])
+        c = min(k_max, nxt - done)
+        yield c
+        done += c
+
+
+def host_batches(samples, tile: int, batch_size: int, rng, device):
+    """The host tile stream handed to ``device`` in order: each batch is
+    copied from pinned memory without blocking the host, so the host draws
+    the next batch while the device runs the step."""
+    pin = torch.device(device).type == "cuda"
+    for xs, ys in tile_batches(samples, tile, batch_size, rng):
+        xs, ys = torch.from_numpy(xs), torch.from_numpy(ys)
+        if pin:
+            xs, ys = xs.pin_memory(), ys.pin_memory()
+        yield (xs.to(device, non_blocking=True),
+               ys.to(device, non_blocking=True))
+
+
+def train(unet_cfg: UNetConfig = UNetConfig(),
+          train_cfg: TrainConfig = TrainConfig(),
+          data_cfg: DataConfig = DataConfig(), weak_labels: bool = False,
+          device="cuda") -> Dict[str, List[float]]:
+    """Run the supervised loop on ``device``; returns the metric history.
+    ``weak_labels`` trains on the rg detector's masks instead of synthetic
+    ground truth. The run resumes from the newest step checkpoint in
+    ``train_cfg.checkpoint_dir`` (a step-0 checkpoint starts it from given
+    weights)."""
+    _refuse_unported(unet_cfg, train_cfg)
+    device = resolve_device(device)
+    state = create_state(unet_cfg, train_cfg, device)
+
+    start_step = 0
+    last = ckpt.latest_step(train_cfg.checkpoint_dir)
+    ckpt.save_model_config(train_cfg.checkpoint_dir, unet_cfg)
+    if last is not None and last <= train_cfg.total_steps:
+        ckpt.restore_checkpoint(train_cfg.checkpoint_dir, state, last)
+        start_step = last
+        logger.info("resumed from checkpoint step %d", last)
+
+    if weak_labels:
+        train_set = make_weak_label_dataset(data_cfg, True, device=device)
+        eval_set = make_weak_label_dataset(data_cfg, False, device=device)
+    else:
+        train_set = make_synthetic_dataset(data_cfg, train=True)
+        eval_set = make_synthetic_dataset(data_cfg, train=False)
+
+    tile, batch = train_cfg.tile_size, train_cfg.batch_size
+    step_fn = make_train_step(train_cfg.dice_weight, train_cfg.augment,
+                              train_cfg.label_smooth)
+    eval_fn = make_eval_step(train_cfg.dice_weight)
+    device_fn = batches = None
+    if train_cfg.device_data:
+        device_set = build_device_dataset(train_set, tile, device)
+        device_fn = make_device_multi_step(
+            train_cfg.dice_weight, train_cfg.augment, train_cfg.label_smooth,
+            seed=train_cfg.seed, tile=tile, batch_size=batch)
+        nbytes = sum(t.numel() * t.element_size() for t in device_set)
+        logger.info("device-resident dataset: %d granules, %.1f MB",
+                    device_set.channels.shape[0], nbytes / 1e6)
+    else:
+        batches = host_batches(
+            train_set, tile, batch,
+            np.random.default_rng((train_cfg.seed, start_step)), device)
+    eval_batches = [
+        (torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device))
+        for xs, ys in tile_batches(eval_set, tile, batch,
+                                   np.random.default_rng(1), steps=4)]
+
+    def dev_iou() -> float:
+        return float(np.mean([float(eval_fn(state, xs, ys)["iou"])
+                              for xs, ys in eval_batches]))
+
+    history: Dict[str, List[float]] = {"loss": [], "iou": [], "eval_iou": [],
+                                       "eval_steps": [],
+                                       "eval_iou_curve": []}
+    writer = MetricsWriter(train_cfg.checkpoint_dir.rstrip("/")
+                           + "_metrics.csv")
+    intervals = [train_cfg.log_every, train_cfg.eval_every,
+                 train_cfg.checkpoint_every]
+    px_per_step = batch * tile * tile
+    flops_per_step = 3.0 * model_flops_per_pixel(unet_cfg) * px_per_step
+    best_dev, best_step, misses, best_state = -1.0, -1, 0, None
+    last_log_step = done = start_step
+    t0 = time.perf_counter()
+    for k in chunk_schedule(start_step, train_cfg.total_steps,
+                            max(1, train_cfg.steps_per_dispatch), intervals):
+        if device_fn is not None:
+            state, metrics = device_fn(state, device_set,
+                                       range(done, done + k))
+        else:
+            for s in range(done, done + k):
+                xs, ys = next(batches)
+                state, metrics = step_fn(
+                    state, xs, ys, step_generator(train_cfg.seed, s, device))
+        done += k
+        if train_cfg.log_every and done % train_cfg.log_every == 0:
+            loss, iou = float(metrics["loss"]), float(metrics["iou"])
+            dt = time.perf_counter() - t0
+            steps = done - last_log_step
+            mpix_s = px_per_step * steps / dt / 1e6
+            tflops = flops_per_step * steps / dt / 1e12
+            last_log_step = done
+            rate = f"{tflops:.1f} TFLOP/s"
+            if device.type == "cuda":
+                rate += (f", {100.0 * tflops / PEAK_TFLOPS['bf16']:.1f}% of "
+                         f"the H100's {PEAK_TFLOPS['bf16']:.0f} bf16 peak")
+            logger.info("step %d loss=%.4f iou=%.3f %.2f MPix/s (%s)",
+                        done, loss, iou, mpix_s, rate)
+            history["loss"].append(loss)
+            history["iou"].append(iou)
+            writer.write(done, {"loss": loss, "iou": iou, "mpix_s": mpix_s})
+            t0 = time.perf_counter()
+        if (train_cfg.checkpoint_every
+                and done % train_cfg.checkpoint_every == 0):
+            ckpt.save_checkpoint(train_cfg.checkpoint_dir, state, done)
+
+        # dev-set early stopping: weak labels overfit, dev IoU peaks and
+        # then degrades; keep the peak
+        if train_cfg.eval_every and done % train_cfg.eval_every == 0:
+            dev = dev_iou()
+            history["eval_steps"].append(done)
+            history["eval_iou_curve"].append(dev)
+            if dev > best_dev:
+                best_dev, best_step, misses = dev, done, 0
+                best_state = copy.deepcopy(state.state_dict())
+            else:
+                misses += 1
+            logger.info("dev IoU %.3f @ step %d (best %.3f @ %d)",
+                        dev, done, best_dev, best_step)
+            if (train_cfg.early_stop_patience
+                    and misses >= train_cfg.early_stop_patience):
+                logger.info("early stop: no dev improvement in %d evals",
+                            misses)
+                break
+
+    restored_best = bool(train_cfg.eval_every) and best_state is not None
+    if restored_best:
+        # serve the peak: persist it at its own step and drop the later
+        # interval checkpoints, so latest_step is the peak and a resume
+        # continues from it
+        state.load_state_dict(best_state)
+        ckpt.prune_after(train_cfg.checkpoint_dir, best_step)
+        ckpt.save_checkpoint(train_cfg.checkpoint_dir, state, best_step,
+                             overwrite=True)
+        logger.info("restored best dev state (step %d, IoU %.3f)",
+                    best_step, best_dev)
+    if not restored_best and start_step < train_cfg.total_steps:
+        if (ckpt.latest_step(train_cfg.checkpoint_dir) or 0) < done:
+            # a run shorter than checkpoint_every ends with its state saved
+            ckpt.save_checkpoint(train_cfg.checkpoint_dir, state, done)
+        else:
+            ckpt.save_weights(train_cfg.checkpoint_dir, state.model)
+    history["eval_iou"].append(dev_iou())
+    if train_cfg.eval_every:
+        history["best_dev_iou"] = [best_dev]
+        history["best_dev_step"] = [float(best_step)]
+        logger.info("final eval IoU: %.3f", history["eval_iou"][-1])
+    else:
+        logger.info("final eval IoU: %.3f (eval_every=0: a smoke value, not "
+                    "a trained-quality metric)", history["eval_iou"][-1])
+    return history
+
+
+__all__ = ["chunk_schedule", "host_batches", "train"]

@@ -1,0 +1,82 @@
+"""Train and eval steps of ``plumekit/train/step.py``, eager.
+
+The step augments, runs the train-mode forward, takes
+``dice_bce_loss``, and applies one AdamW update; its metrics are the loss
+and ``iou(sigmoid(logits) > 0.5, ys > 0.5)``, left on the device until
+the loop logs them. The JAX package scans K steps inside one program
+(``make_multi_train_step``); here a chunk of K steps is K calls of the
+step, with the same data and augmentation per step. The training step
+reaches no hand-written kernel, as in the JAX package (its forward takes
+the fused routes only at inference): the forward and backward are plain
+PyTorch. The eval step runs the eval-mode forward, which takes them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from plumekit_torch.models.losses import dice_bce_loss, iou
+from plumekit_torch.train.augment import augment_batch
+from plumekit_torch.train.state import TrainState
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one step's random draws, on ``device``: a function
+    of (seed, step) alone, so a resumed run draws what the uninterrupted
+    run drew at that step (the JAX package folds the step into its key)."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(state[0]))
+    return generator
+
+
+def make_train_step(dice_weight: float = 0.5, augment: bool = True,
+                    label_smooth: float = 0.0):
+    """Returns ``step(state, xs, ys, generator) -> (state, metrics)``;
+    ``state`` is updated in place. xs: (B, T, T, C), ys: (B, T, T, 1) on
+    the model's device; ``generator`` draws the augmentation codes
+    (:func:`step_generator`; unused without augmentation)."""
+    def step(state: TrainState, xs, ys,
+             generator: Optional[torch.Generator]):
+        if augment:
+            xs, ys = augment_batch(generator, xs, ys)
+        state.model.train()
+        logits = state.model(xs)
+        loss = dice_bce_loss(logits, ys, dice_weight,
+                             label_smooth=label_smooth)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        with torch.no_grad():
+            metrics = {"loss": loss.detach(),
+                       "iou": iou(torch.sigmoid(logits) > 0.5, ys > 0.5)}
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(dice_weight: float = 0.5):
+    """``dice_weight`` must match the training objective, so that the eval
+    loss compares with the train loss."""
+    def eval_step(state: TrainState, xs, ys) -> Dict[str, torch.Tensor]:
+        model = state.model
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                logits = model(xs)
+                return {"loss": dice_bce_loss(logits, ys,
+                                              dice_weight=dice_weight),
+                        "iou": iou(torch.sigmoid(logits) > 0.5, ys > 0.5)}
+        finally:
+            model.train(was_training)
+
+    return eval_step
+
+
+__all__ = ["make_eval_step", "make_train_step", "step_generator"]

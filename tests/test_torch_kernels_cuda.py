@@ -432,3 +432,121 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="labs"):
         label_counts.fire_label_counts(
             labels, torch.zeros((3, 4), dtype=torch.int32, device=card))
+
+
+TRAIN_KW = dict(base_features=16, depth=3)
+
+
+def _train_setup():
+    from plumekit_torch.config import TrainConfig
+
+    tcfg = TrainConfig(batch_size=4, tile_size=64, warmup_steps=1,
+                       total_steps=4, augment=False)
+    rng = np.random.default_rng(0)
+    batches = [(rng.random((4, 64, 64, 2), dtype=np.float32),
+                (rng.random((4, 64, 64, 1)) < 0.2).astype(np.float32))
+               for _ in range(3)]
+    weights = build_model(UNetConfig(**TRAIN_KW),
+                          torch.Generator().manual_seed(0)).state_dict()
+    return tcfg, batches, weights
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """Three fp32 train steps on the card (TF32 off) against three on the
+    CPU in fp32 and in float64 from the same weights and batches: the same
+    loss at every step; at steps 1 and 2, whose forwards see the same
+    weights (step 1's lr is 0), gradients and running statistics at most 4
+    times as far from the float64 step's as the CPU fp32 step's, plus fp32
+    rounding (1e-5 of a tensor's largest gradient, 1e-6). Then one AdamW
+    update on the card and on the CPU from the same state and gradients:
+    parameters within 1e-3 of the lr."""
+    import copy
+
+    from plumekit_torch.models.losses import dice_bce_loss
+    from plumekit_torch.train.state import create_state
+    from plumekit_torch.train.step import make_train_step
+
+    kw = TRAIN_KW
+    tcfg, batches, weights = _train_setup()
+    runs = {}
+    for name, dtype, dev in (("cpu64", "float64", "cpu"),
+                             ("cpu32", "float32", "cpu"),
+                             ("card32", "float32", card)):
+        state = create_state(UNetConfig(compute_dtype=dtype, **kw), tcfg, dev)
+        state.model.load_state_dict(weights)
+        step = make_train_step(augment=False)
+        runs[name] = []
+        for xs, ys in batches:
+            state, m = step(state, torch.from_numpy(xs).to(dev),
+                            torch.from_numpy(ys).to(dev), None)
+            # copies: on the CPU .cpu() returns the live tensor
+            runs[name].append((float(m["loss"]), {
+                n: p.grad.cpu().clone()
+                for n, p in state.model.named_parameters()},
+                {n: t.cpu().clone()
+                 for n, t in state.model.state_dict().items()
+                 if n.endswith(("running_mean", "running_var"))}))
+
+    def distance(run, ref):
+        return (max(float((run[1][n] - g).abs().max() / g.abs().max())
+                    for n, g in ref[1].items()),
+                max(float((run[2][n] - t).abs().max())
+                    for n, t in ref[2].items()))
+
+    for i, (ref, cpu, got) in enumerate(zip(runs["cpu64"], runs["cpu32"],
+                                            runs["card32"])):
+        assert got[0] == pytest.approx(cpu[0], rel=1e-4)
+        if i < 2:
+            for d_card, d_cpu, floor in zip(distance(got, ref),
+                                            distance(cpu, ref), (1e-5, 1e-6)):
+                assert d_card <= 4 * d_cpu + floor
+
+    cpu = create_state(UNetConfig(compute_dtype="float32", **kw), tcfg, "cpu")
+    cpu.model.load_state_dict(weights)
+    step = make_train_step(augment=False)
+    for xs, ys in batches[:2]:
+        step(cpu, torch.from_numpy(xs), torch.from_numpy(ys), None)
+    on_card = create_state(UNetConfig(compute_dtype="float32", **kw), tcfg,
+                           card)
+    on_card.load_state_dict(copy.deepcopy(cpu.state_dict()))
+    xs, ys = (torch.from_numpy(a) for a in batches[2])
+    cpu.optimizer.zero_grad()
+    dice_bce_loss(cpu.model(xs), ys).backward()
+    for pc, pg in zip(cpu.model.parameters(), on_card.model.parameters()):
+        pg.grad = pc.grad.to(card)
+    cpu.optimizer.step()
+    on_card.optimizer.step()
+    for pc, pg in zip(cpu.model.parameters(), on_card.model.parameters()):
+        assert (pc.detach() - pg.detach().cpu()).abs().max() <= \
+            1e-3 * tcfg.learning_rate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", ["use_pallas", "use_mega"])
+def test_fused_eval_after_train_steps_reads_the_new_weights(card, flag):
+    """An eval through K6 or K7 after optimizer steps equals the plain eval
+    of the updated weights: the routes' packed weights follow the in-place
+    updates."""
+    from plumekit_torch.train.state import create_state
+    from plumekit_torch.train.step import make_train_step
+
+    tcfg, batches, weights = _train_setup()
+    bf16 = UNetConfig(**TRAIN_KW)
+    state = create_state(UNetConfig(**{**bf16.__dict__, flag: True}), tcfg,
+                         card)
+    state.model.load_state_dict(weights)
+    plain = build_model(bf16).to(card).eval()
+    xs = torch.from_numpy(batches[0][0]).to(card)
+    ys = torch.from_numpy(batches[0][1]).to(card)
+    step = make_train_step(augment=False)
+    for _ in range(2):
+        with torch.no_grad():
+            state.model.eval()(xs)
+        state, _ = step(state, xs, ys, None)
+        plain.load_state_dict(state.model.state_dict())
+        with torch.no_grad():
+            got = state.model.eval()(xs).float().cpu().numpy().ravel()
+            want = plain(xs).float().cpu().numpy().ravel()
+        assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max()
+        assert np.corrcoef(got, want)[0, 1] > LOGIT_MIN_CORR

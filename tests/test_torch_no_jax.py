@@ -18,7 +18,12 @@ for name in names:
 needed = {"plumekit_torch.models.kernels.unet_mega",
           "plumekit_torch.models.kernels.fused_conv",
           "plumekit_torch.experiments.scalar_gather_probe",
-          "plumekit_torch.experiments.ccl_pass_times"}
+          "plumekit_torch.experiments.ccl_pass_times",
+          "plumekit_torch.models.losses", "plumekit_torch.models.flops",
+          "plumekit_torch.train.state", "plumekit_torch.train.augment",
+          "plumekit_torch.train.step", "plumekit_torch.train.data",
+          "plumekit_torch.train.device_data", "plumekit_torch.train.loop",
+          "plumekit_torch.train.checkpoint", "plumekit_torch.data.make_dataset"}
 banned = {"jax", "jaxlib", "flax", "orbax", "pandas", "plumekit"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 missing = sorted(needed - set(names))
