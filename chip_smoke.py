@@ -1,7 +1,7 @@
 """Smoke run of plumekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
-``nvcc`` per source, all at once) and drives the port's five paths:
+``nvcc`` per source, all at once) and drives the port's six paths:
 
 * megakernel serving: K7 (the whole U-Net forward in one launch) against
   its plain PyTorch version at the flagship U-Net over 128 tiles of 96²,
@@ -26,6 +26,17 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   depth 4, bf16) through the fused and the plain forward, then four
   synthetic 2048² granules served end to end through ``predict_model
   --fused`` and through the plain forward;
+* the int8 forward: Q1 (the int8 conv) against its plain version, bit for
+  bit, at the 18 convs of the flagship net at 128 tiles of 288² (the
+  main path's forward: two granules of 64 tiles), timed
+  queued and single beside its plain version and the cuDNN bf16 conv of
+  the same shape (``experiments/int8_conv_times.py``); the int8 forward of
+  the flagship net on the card against the CPU's on the same quantized
+  state, every int8 plane equal; the forward rates of int8, plain bf16 and
+  fused at 128 tiles of 288²; the four 2048² granules served through
+  ``predict_model --int8`` (every 3×3 conv one launch of Q1), and the
+  trained checkpoint of the training phase served with ``--int8``, whose
+  masks must flip under 1% against the plain forward's;
 * the rg weak labeller: K1/K4 (multi-threshold CCL) and K3 (label counts)
   against their plain versions, bit for bit, on the identify benchmark's
   1200² scene, 4096², 8192², a ragged 1201 × 997 scene and a serpentine,
@@ -58,9 +69,9 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   --detector rg`` → ``train_model --weak-labels`` (40 steps of 16 × 512²,
   then resumed to 60; K1 and K3 must launch while it labels, one weak-label
   granule must equal its ``--device cpu`` labels, the metrics CSV must
-  continue) → ``predict_model`` plain and ``--fused``, and evals of the
-  trained weights through K6 and K7 before and after one more step against
-  the plain eval.
+  continue) → ``predict_model`` plain, ``--fused`` and ``--int8``, and
+  evals of the trained weights through K6 and K7 before and after one more
+  step against the plain eval.
 
 Every kernel's time stands beside its bound: the bytes it must move (each
 input read once, each output written once) over the card's memory rate,
@@ -120,6 +131,10 @@ from plumekit_torch.ops.kernels import ccl_sweep, label_counts  # noqa: E402
 from plumekit_torch.ops.morphology import binary_opening_cross  # noqa: E402
 from plumekit_torch.config import DataConfig, TrainConfig  # noqa: E402
 from plumekit_torch.experiments import train_step_times  # noqa: E402
+from plumekit_torch.experiments import int8_conv_times  # noqa: E402
+from plumekit_torch.models.kernels import int8_conv  # noqa: E402
+from plumekit_torch.models.quantized_forward import (  # noqa: E402
+    make_quantized_apply, quantize_unet, qvars_to)
 from plumekit_torch.train.data import (  # noqa: E402
     make_synthetic_dataset, tile_batches, weak_label_mask, weak_label_scene)
 from plumekit_torch.models.losses import dice_bce_loss  # noqa: E402
@@ -987,6 +1002,138 @@ def check_probe():
           f"({res['parallel_lookups_ms']:.4f} ms, a launch); whole probe "
           f"{res['ms']:.4f} ms (bound {res['bound_ms']:.4f} ms by "
           f"{res['bound_by']}), plain {res['plain_ms']:.4f} ms", flush=True)
+    return res
+
+
+# ------------------------------------------------- the int8 forward: Q1
+
+# tiles of 288² per timed int8 conv and forward: the main path's forward,
+# which carries BATCH_GRANULES granules' tiles (infer/sliding.py)
+INT8_BATCH = BATCH_GRANULES * ICFG.batch_tiles
+INT8_CHECK_TILES = 2                  # card against CPU, whole forward
+# the card's int8 forward against the CPU's on the same qvars: every int8
+# plane equal (Q1 and its plain version round alike; the transposed convs
+# and the requants are the same IEEE steps), the fp32 head sums in another
+# order
+INT8_LOGIT_RTOL = 1e-5
+# int8 against the plain forward, served on the trained checkpoint: the
+# JAX package's bound under sliding inference
+# (tests/test_quantized_forward.py:132)
+INT8_MAX_FLIP_SHARE = 1e-2
+
+
+def check_int8_conv(rng):
+    """Q1 against its plain version, bit for bit, at the 18 convs of
+    UNetConfig() at the main path's batch of 288² tiles (``INT8_BATCH``)
+    in the forward's output modes, timed queued and single beside the plain
+    version and the cuDNN bf16 conv of the same shape
+    (``experiments/int8_conv_times.py``), and whether ``F.conv2d`` takes
+    int8 CUDA tensors at all (the library column)."""
+    library = int8_conv_times.int8_library_conv(DEV)
+    print(f"F.conv2d on int8 CUDA tensors: {library}", flush=True)
+    rows = []
+    for case in int8_conv_times.conv_cases(UNetConfig(), ICFG.tile_size):
+        rows.append(int8_conv_times.time_case(rng, case, INT8_BATCH, DEV,
+                                              library["runs"]))
+        print(int8_conv_times.summary(rows[-1]), flush=True)
+    torch.cuda.empty_cache()
+    return rows, library
+
+
+def check_int8_forward(model, rng):
+    """The int8 forward of the flagship net on the card against the port's
+    int8 forward on the CPU with the same qvars (calibrated on the card on
+    the same tiles), every int8 plane equal; then the forward rates at the
+    main path's batch (``INT8_BATCH``), int8 against plain bf16 and fused,
+    and the int8 forward's kernel time by class under the profiler."""
+    cfg = model.cfg
+    apply = make_quantized_apply(cfg)
+    x = mega_tiles(rng, INT8_CHECK_TILES, ICFG.tile_size)
+    qvars = quantize_unet(model, cfg, x)
+    planes_card, planes_cpu = [], []
+    int8_conv.LAUNCHES = 0
+    got = apply(qvars, x, planes=planes_card)
+    torch.cuda.synchronize()
+    launches = int8_conv.LAUNCHES
+    if launches != 2 * (2 * cfg.depth + 1):
+        raise AssertionError(f"int8 forward launched Q1 {launches} times")
+    t0 = time.perf_counter()
+    want = apply(qvars_to(qvars, "cpu"), x.cpu(), planes=planes_cpu)
+    cpu_s = time.perf_counter() - t0
+    if len(planes_card) != len(planes_cpu):
+        raise AssertionError("int8 forward: the devices kept different planes")
+    unequal = [i for i, (p, q) in enumerate(zip(planes_card, planes_cpu))
+               if not torch.equal(p.cpu(), q)]
+    if unequal:
+        raise AssertionError(f"int8 forward: planes {unequal} differ between "
+                             "the card and the CPU")
+    cmp = compare_logits("int8 forward, card against CPU", got, want,
+                         INT8_LOGIT_RTOL, min_corr=0.999999)
+
+    xb = torch.rand((INT8_BATCH, ICFG.tile_size, ICFG.tile_size, 2),
+                    generator=torch.Generator().manual_seed(SEED)).to(DEV)
+    qvars_b = quantize_unet(model, cfg, xb[:9])
+    fused = make_fused_apply(cfg)
+    with torch.inference_mode():
+        ms = {"int8": time_ms(lambda: apply(qvars_b, xb), reps=5),
+              "plain_bf16": time_ms(lambda: model(xb), reps=5),
+              "fused": time_ms(lambda: fused(model, xb), reps=5)}
+        profile = int8_conv_times.forward_profile(apply, qvars_b, xb)
+    mpix = INT8_BATCH * ICFG.tile_size**2 / 1e6
+    res = {"tiles": INT8_CHECK_TILES, "planes": len(planes_card),
+           "launches": launches, "cpu_forward_s": cpu_s, **cmp,
+           "batch": INT8_BATCH, "forward_ms": ms,
+           "forward_mpix_s": {k: mpix / (v / 1e3) for k, v in ms.items()},
+           "profile": profile}
+    print(f"int8 forward {INT8_CHECK_TILES}x{ICFG.tile_size}^2 card against "
+          f"CPU: {len(planes_card)} int8 planes equal, max|dlogit| "
+          f"{cmp['max_abs_diff']:.3g} of {cmp['max_abs_logit']:.4g} "
+          f"(CPU {cpu_s:.1f} s); forwards of {INT8_BATCH}x{ICFG.tile_size}^2: "
+          + ", ".join(f"{k} {ms[k]:.2f} ms ({res['forward_mpix_s'][k]:.1f} "
+                      "MPix/s)" for k in ms)
+          + "; int8 " + int8_conv_times.profile_summary(profile), flush=True)
+    return res
+
+
+def int8_path(root, cfg):
+    """The slice's path: ``predict_model --int8`` over the 4 granules of
+    2048² (calibration on the first, every 3×3 conv of every forward one
+    launch of Q1), twice; ``cfg`` is the served checkpoint's."""
+    n_tiles, forwards = serving_geometry(ICFG)
+    mpix = GRANULES * GRANULE_PX**2 / 1e6
+    calib_s = []
+    real = cli._int8_quantize_from_paths
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        calib_s.append(time.perf_counter() - t0)
+        return out
+
+    cli._int8_quantize_from_paths = timed
+    try:
+        int8_conv.LAUNCHES = 0
+        int8_s, _preds = serve(root, "--int8")
+        launches = int8_conv.LAUNCHES
+        int8_s2, _ = serve(root, "--int8")
+    finally:
+        cli._int8_quantize_from_paths = real
+    per_forward = 2 * (2 * cfg.depth + 1)
+    if launches != per_forward * forwards or launches == 0:
+        raise AssertionError(f"predict_model --int8 launched Q1 {launches} "
+                             f"times for {forwards} forwards")
+    res = {"granules": GRANULES, "granule_px": GRANULE_PX,
+           "forwards": forwards, "q1_launches": launches,
+           "int8_s": [int8_s, int8_s2],
+           "int8_mpix_s": [mpix / int8_s, mpix / int8_s2],
+           "calibration_s": calib_s}
+    print(f"predict_model --int8 {GRANULES}x{GRANULE_PX}^2: Q1 launches "
+          f"{launches} ({forwards} forwards x {per_forward}); whole call "
+          f"{res['int8_mpix_s'][0]:.2f}/{res['int8_mpix_s'][1]:.2f} MPix/s, "
+          "calibration " + "/".join(f"{s:.2f}" for s in calib_s) + " s",
+          flush=True)
     return res
 
 
@@ -2025,6 +2172,20 @@ def train_chain(tmp):
     if max_dp > PROB_ATOL or confident or not res["k6_serving_launches"]:
         raise AssertionError(f"served trained checkpoint: {res['served']}, "
                              f"K6 launches {res['k6_serving_launches']}")
+    int8_conv.LAUNCHES = 0
+    res["seconds"]["predict_int8"] = run_cli("predict_model", "--root", root,
+                                             "--int8")
+    res["q1_serving_launches"] = int8_conv.LAUNCHES
+    max_dp8, share8, _ = compare_served(read_served(root), plain)
+    res["served_int8"] = {"max_abs_dprobs": max_dp8, "mask_flip_share": share8}
+    print(f"predict_model --int8 on the trained checkpoint: mask flips "
+          f"{share8:.3e} against the plain forward (bound "
+          f"{INT8_MAX_FLIP_SHARE}), max|dprobs| {max_dp8:.4g}, Q1 launches "
+          f"{res['q1_serving_launches']}", flush=True)
+    if share8 >= INT8_MAX_FLIP_SHARE or not res["q1_serving_launches"]:
+        raise AssertionError(f"int8 serving of the trained checkpoint: "
+                             f"{res['served_int8']}, Q1 launches "
+                             f"{res['q1_serving_launches']}")
 
     weights = torch.load(os.path.join(ckpt, "weights.pt"), map_location=DEV)
     samples = make_synthetic_dataset(DataConfig(granule_size=256,
@@ -2076,7 +2237,8 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
 
     sources = ["unet_mega.cu", "fused_double_conv.cu", "fused_conv.cu",
-               "scalar_gather_probe.cu", "ccl_sweep.cu", "label_counts.cu"]
+               "scalar_gather_probe.cu", "ccl_sweep.cu", "label_counts.cu",
+               "int8_conv.cu"]
     t0 = time.perf_counter()
     cuda_build.load_libraries(sources)
     build_s = time.perf_counter() - t0
@@ -2106,6 +2268,13 @@ def main() -> int:
         mega["by_stage"] = mega_stage_table(model, rng, batch, kernel_rows)
         forward = check_forward(model, rng)
         served = main_path(model, root, tmp)
+        # the int8 forward (Q1)
+        t_int8 = time.perf_counter()
+        q1_rows, q1_library = check_int8_conv(rng)
+        int8_forward = check_int8_forward(model, rng)
+        int8_served = int8_path(root, model.cfg)
+        int8_phase_s = time.perf_counter() - t_int8
+        print(f"int8 phase {int8_phase_s:.1f} s", flush=True)
     del model
     torch.cuda.empty_cache()
 
@@ -2141,6 +2310,9 @@ def main() -> int:
     # whichever kind bounds the larger share of it
     k6_bound = [(r["bound_ms"], r["bound_by"]) for r in timed]
     k6_share = {kind: sum(b for b, by in k6_bound if by == kind)
+                for kind in ("bytes", "operations")}
+    q1_share = {kind: sum(r["bound_ms"] for r in q1_rows
+                          if r["bound_by"] == kind)
                 for kind in ("bytes", "operations")}
     bench_ccl = next(r for r in ccl_rows if r["scene"] == "bench_1200")
     swath_ccl = next(r for r in ccl_rows if r["scene"] == "synthetic_8192")
@@ -2256,7 +2428,29 @@ def main() -> int:
         "chained_ns_per_lookup": probe["chained_ns_per_lookup"],
         "parallel_ns_per_lookup": probe["parallel_ns_per_lookup"],
         "at": f"{PROBE_SIZE}x{PROBE_SIZE}, {PROBE_LOOKUPS} lookups, copy "
-              "plus the parallel form"}]
+              "plus the parallel form"}, {
+        "name": "int8_conv3x3", "route": "cuda",
+        "source": "plumekit_torch/csrc/int8_conv.cu",
+        "replaces": "plumekit/models/quantized_forward.py:133 (XLA s8 conv, "
+                    "no Pallas)",
+        "launches": int8_served["q1_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in q1_rows),
+        # queued: 20 launches per event pair
+        "ms": sum(r["queued_ms"] for r in q1_rows),
+        "plain_ms": sum(r["plain_ms"] for r in q1_rows),
+        "bound_ms": sum(r["bound_ms"] for r in q1_rows),
+        "bound_by": max(q1_share, key=q1_share.get),
+        # F.conv2d does not take int8 CUDA tensors where this is None
+        "library_ms": (sum(r["library_ms"] for r in q1_rows)
+                       if q1_library["runs"] else None),
+        "library_error": q1_library["error"],
+        # the cuDNN bf16 conv of the same shapes, for context
+        "bf16_cudnn_ms": sum(r["bf16_cudnn_ms"] for r in q1_rows),
+        "single_ms": sum(r["single_ms"] for r in q1_rows),
+        # the trained checkpoint served with --int8
+        "train_launches": chain["q1_serving_launches"],
+        "at": f"the 18 convs of one int8 forward of UNetConfig(), "
+              f"{INT8_BATCH} tiles of {ICFG.tile_size}x{ICFG.tile_size}"}]
     copy_rate = measured_copy_rate()
     for k in kernels:
         k["bound_at_copy_rate_ms"] = k["bound_ms"] * (
@@ -2273,7 +2467,10 @@ def main() -> int:
                    "mega": mega, "mega_serving": mega_served,
                    "single_conv_rows": single_rows, "probe": probe,
                    "kernel_rows": kernel_rows, "forward": forward,
-                   "serving": served, "ccl_rows": ccl_rows,
+                   "serving": served, "int8_conv_rows": q1_rows,
+                   "int8_library": q1_library, "int8_forward": int8_forward,
+                   "int8_serving": int8_served, "int8_phase_s": int8_phase_s,
+                   "ccl_rows": ccl_rows,
                    "count_rows": count_rows, "identify": sweeps,
                    "build_features": features, "mask_rows": mask_rows,
                    "detectors": detectors,

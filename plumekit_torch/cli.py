@@ -27,7 +27,9 @@ Usage: ``plumekit-torch <command> --root R ...`` or
   ``weights.pt`` and step checkpoints under ``<root>/models/checkpoints``
   and the metrics CSV beside them;
 * ``predict_model`` writes ``<root>/processed/predictions/<name>_pred.npz``
-  (``probs``, ``mask``, ``threshold``) as ``plumekit predict_model`` does.
+  (``probs``, ``mask``, ``threshold``) as ``plumekit predict_model`` does;
+  ``--int8`` serves the int8 forward, calibrated on the first granule with
+  signal, through the int8 conv kernel on the card.
 
 The device is the card unless ``--device`` says otherwise.
 """
@@ -53,7 +55,6 @@ THRESHOLD_BASENAME = "threshold.json"
 #: serving flags of the JAX CLI that this port does not serve yet, with the
 #: ROADMAP.md item (queue A) that ports each
 UNPORTED_FLAGS = {
-    "int8": "int8 forward",
     "exported": "exported serving artifacts",
     "tta": "test-time augmentation",
     "mesh_devices": "multi-card serving",
@@ -80,6 +81,9 @@ UNPORTED_TRAIN_FLAGS = {
     "deep_supervision": "UNet++",
     "quantize_transfer": "quantized transfers",
 }
+
+#: granules the int8 calibration looks at for one with signal
+INT8_CALIBRATION_CANDIDATES = 4
 
 logger = get_logger("plumekit_torch.cli")
 
@@ -122,6 +126,9 @@ def _build_serving(args, unet_cfg, threshold: float):
     """The multi-granule inference program of the chosen forward."""
     from plumekit_torch.infer import make_multi_granule_infer
 
+    if args.fused and args.int8:
+        raise _CliError("--fused and --int8 are mutually exclusive forward "
+                        "paths")
     if args.fused:
         if unet_cfg.arch != "unet":
             raise _CliError("--fused supports the unet architecture only; "
@@ -132,6 +139,16 @@ def _build_serving(args, unet_cfg, threshold: float):
             apply_fn = make_fused_apply(unet_cfg)
         except ValueError as e:
             raise _CliError(f"--fused: {e}")
+    elif args.int8:
+        # the int8 forward reads the quantized variables, not the module; a
+        # use_mega checkpoint takes it too, as in the JAX CLI
+        from plumekit_torch.models.quantized_forward import (
+            make_quantized_apply)
+
+        try:
+            apply_fn = make_quantized_apply(unet_cfg)
+        except ValueError as e:
+            raise _CliError(f"--int8: {e}")
     else:
         def apply_fn(model, x):
             return model(x)
@@ -162,6 +179,45 @@ def _resolve_threshold(args) -> float:
                     payload.get("metric"), payload.get("value"))
         return t
     return 0.5
+
+
+def _int8_quantize_from_paths(granule_paths, tile, unet_cfg, model):
+    """Calibrate the int8 forward on the first granule with signal among
+    the first ``INT8_CALIBRATION_CANDIDATES`` of ``granule_paths``, on a 3×3
+    grid of tiles (the fp32 replay keeps full-resolution planes of every
+    level, so not on the whole granule), as ``plumekit predict_model
+    --int8`` does.
+
+    Returns ``(qvars or None, predecoded)``: every decode made here is
+    handed back for the stream, so that no granule is decoded twice; None
+    when none of the candidates has signal. An all-null granule (every
+    activation scale would collapse to about 0 and clip all later signal)
+    is skipped with a warning; it is still served once calibration
+    succeeds."""
+    from plumekit_torch.infer import streaming
+    from plumekit_torch.models.quantized_forward import quantize_unet
+
+    predecoded, chosen, calib = {}, None, None
+    for path in granule_paths[:INT8_CALIBRATION_CANDIDATES]:
+        cand = streaming.decode_granule_channels(path, unet_cfg.depth)
+        predecoded[path] = cand
+        if float(np.abs(cand[1]).max()) > 1e-3:
+            chosen, calib = path, cand[1]
+            break
+        logger.warning("int8: %s is all-null — not usable for calibration, "
+                       "trying the next granule", os.path.basename(path))
+    if chosen is None:
+        return None, predecoded
+    h, w = calib.shape[:2]
+    div = 2 ** unet_cfg.depth
+    t = max(div, min(tile - tile % div, h, w))
+    ys = sorted({int(v) for v in np.linspace(0, h - t, 3)})
+    xs = sorted({int(v) for v in np.linspace(0, w - t, 3)})
+    tiles = np.stack([calib[y:y + t, x:x + t] for y in ys for x in xs])
+    qvars = quantize_unet(model, unet_cfg, tiles)
+    logger.info("int8: calibrated on %d %d² tiles of %s, serving the s8 "
+                "forward", len(tiles), t, os.path.basename(chosen))
+    return qvars, predecoded
 
 
 def _pid_alive(pid: int) -> bool:
@@ -236,10 +292,21 @@ def cmd_predict_model(args) -> int:
     granule_paths = [os.path.join(maiac_dir, f)
                      for f in sorted(os.listdir(maiac_dir))
                      if f.endswith(GRANULE_EXTENSIONS)]
+    variables, predecoded = model, None
+    if args.int8 and granule_paths:
+        variables, predecoded = _int8_quantize_from_paths(
+            granule_paths, args.tile, unet_cfg, model)
+        if variables is None:
+            logger.error("int8: no granule with signal among the first %d "
+                         "of %d — refusing to serve with degenerate "
+                         "calibration scales",
+                         min(INT8_CALIBRATION_CANDIDATES, len(granule_paths)),
+                         len(granule_paths))
+            return 1
     with torch.inference_mode():
         for name, probs in stream_inference(
-                granule_paths, infer, model, unet_cfg.depth, device,
-                batch_granules=args.batch_granules):
+                granule_paths, infer, variables, unet_cfg.depth, device,
+                batch_granules=args.batch_granules, predecoded=predecoded):
             _write_prediction(out_dir, name, probs, threshold=threshold)
     return 0
 
@@ -499,8 +566,10 @@ def _add_serving_args(p: argparse.ArgumentParser) -> None:
     unported = " (not ported yet: exits 1)"
     p.add_argument("--plot", action="store_true", help="quicklook PNG"
                    + unported)
-    p.add_argument("--int8", action="store_true", help="int8 forward"
-                   + unported)
+    p.add_argument("--int8", action="store_true",
+                   help="int8 post-training-quantized forward, calibrated on "
+                        "the first granule with signal; every 3x3 conv "
+                        "through the hand-written int8 CUDA kernel")
     p.add_argument("--tta", action="store_true",
                    help="D4 test-time augmentation" + unported)
     p.add_argument("--quantize", action="store_true",

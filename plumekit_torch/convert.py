@@ -8,7 +8,9 @@ applies its kernel flipped relative to the output patch
 ``ConvTranspose2d`` does not, so the spatial axes are flipped on the way.
 BatchNorm ``scale/bias/mean/var`` become ``weight/bias/running_mean/
 running_var``. Both directions use plain numpy arrays on the flax side: a
-nested dict ``{"params": ..., "batch_stats": ...}``.
+nested dict ``{"params": ..., "batch_stats": ...}``. :func:`qvars_from_flax`
+carries the int8 serving variables over, which both packages keep in the
+JAX layout.
 """
 
 from __future__ import annotations
@@ -113,3 +115,28 @@ def to_flax(state_dict: dict, norm: str = "batch") -> dict:
     if stats:
         variables["batch_stats"] = stats
     return variables
+
+
+def qvars_from_flax(qvars, device="cpu") -> dict:
+    """The JAX package's int8 serving variables (``quantize_unet`` of
+    ``plumekit/models/quantized_forward.py``, U-Net, as numpy arrays) →
+    the port's (:func:`plumekit_torch.models.quantized_forward.quantize_unet`):
+    the same structure and values, int8 weights and fp32 vectors as tensors,
+    scales as 0-d float32 tensors, ``None`` kept, all on ``device``."""
+    def leaf(a):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        dtype = np.int8 if a.dtype == np.int8 else np.float32
+        return torch.from_numpy(np.array(a, dtype)).to(device)
+
+    if "heads" in qvars or isinstance(qvars.get("blocks"), dict):
+        raise ValueError("UNet++ int8 variables are not ported to "
+                         "plumekit_torch yet (ROADMAP.md, queue A: "
+                         "'A.13 UNet++')")
+    return {"s_in": leaf(qvars["s_in"]),
+            "blocks": [{k: leaf(v) for k, v in blk.items()}
+                       for blk in qvars["blocks"]],
+            "ups": [{k: leaf(v) for k, v in up.items()}
+                    for up in qvars["ups"]],
+            "head": {k: leaf(v) for k, v in qvars["head"].items()}}

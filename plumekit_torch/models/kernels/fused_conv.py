@@ -67,17 +67,21 @@ def double_conv3x3_bn_relu_ref(x, w1, scale1, shift1, w2, scale2, shift2):
     return conv3x3_bn_relu_ref(y, w2, scale2, shift2)
 
 
+def tensor_version(t) -> int:
+    """How often ``t`` was written in place (0 for an inference tensor,
+    which keeps no count)."""
+    try:
+        return t._version
+    except RuntimeError:
+        return 0
+
+
 def state_key(model, device):
     """Changes whenever a parameter or buffer of ``model`` is replaced or
     written in place, so that weights are folded and packed once per model
     and device and again only after the model changed."""
-    def version(t):
-        try:
-            return t._version
-        except RuntimeError:                 # an inference tensor has none
-            return 0
     return (str(device),) + tuple(
-        (t.data_ptr(), version(t))
+        (t.data_ptr(), tensor_version(t))
         for t in model.state_dict(keep_vars=True).values())
 
 

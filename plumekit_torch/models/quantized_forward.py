@@ -1,0 +1,316 @@
+"""Int8 post-training-quantized U-Net forward, weights and activations
+(``plumekit/models/quantized_forward.py:101-400``, its U-Net half).
+
+The scale algebra is the JAX package's, so every tensor is rounded once:
+
+* activations: per-tensor symmetric scales ``amax/127``, calibrated by an
+  fp32 replay of the BatchNorm-folded forward (:func:`calibrate_unet`);
+* weights: per-output-channel symmetric int8, each input channel's
+  activation scale folded into its weight column first
+  (:func:`_quant_weight`), so the decoder's ``concat([skip, up])`` halves
+  keep their own scales;
+* BatchNorm folds into the dequant multiplier: each conv ends in
+  ``relu(acc·a + b)``, and the block's output is requantized in the same
+  epilogue (Q1, :mod:`plumekit_torch.models.kernels.int8_conv`: one launch
+  per conv on the card, its plain version elsewhere);
+* max-pool runs on raw int8; the 2×2 stride-2 transposed conv is one s8
+  product (``torch._int_mm``) plus a pixel shuffle; the 1×1 head is fp32.
+
+Layouts are the JAX package's (NHWC activations, HWIO weights; the
+transposed conv's kernel ``(2, 2, Cin, Cout)`` pre-flipped, which is torch's
+``ConvTranspose2d`` weight with its axes moved), so
+:func:`plumekit_torch.convert.qvars_from_flax` carries the JAX quantized
+state over value for value. Scales are 0-d float32 tensors on the model's
+device. UNet++ (``arch="unetpp"``) is not ported (ROADMAP.md, queue A,
+A.13), nor is the JAX package's ``custom_vmap`` batch fold, which works
+around JAX's batching of int8 ops and has nothing to do here.
+
+Usage::
+
+    qvars = quantize_unet(model, cfg, calib)        # model: the port's UNet
+    apply = make_quantized_apply(cfg)               # (qvars, tiles) -> logits
+    infer = make_multi_granule_infer(apply, icfg)   # drop-in apply_fn
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Any, Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+
+from plumekit_torch.config.train import UNetConfig
+from plumekit_torch.models.kernels import int8_conv
+from plumekit_torch.models.kernels.fused_conv import fold_batchnorm
+
+_quant_act = int8_conv.quant_act
+
+
+def _check_cfg(cfg: UNetConfig) -> None:
+    if cfg.arch == "unetpp" or cfg.deep_supervision or cfg.prune_level:
+        raise ValueError(
+            "the int8 forward of UNet++ (arch 'unetpp', deep supervision, "
+            "prune levels) is not ported to plumekit_torch yet (ROADMAP.md, "
+            "queue A: 'A.13 UNet++')")
+    if cfg.arch != "unet":
+        raise ValueError(f"int8 quantized forward supports arch 'unet' or "
+                         f"'unetpp', got {cfg.arch!r}")
+    if cfg.norm != "batch":
+        raise ValueError("int8 quantized forward requires norm='batch' "
+                         "(BN folds into the dequant multiplier)")
+
+
+def _amax(x):
+    return torch.clamp(x.abs().max(), min=1e-8).float()
+
+
+def _quant_weight(w, in_scales):
+    """Per-output-channel int8 with input activation scales folded in.
+
+    ``w`` (kh, kw, cin, cout) fp32; ``in_scales`` (cin,). Returns ``(wq
+    int8, sw (cout,) fp32)`` with ``conv_fp(x, w) ≈ conv_s8(xq, wq) · sw``
+    for ``x ≈ xq·s_x``."""
+    wp = w.float() * in_scales[None, None, :, None]
+    sw = torch.clamp(wp.abs().amax(dim=(0, 1, 2)), min=1e-12) \
+        / int8_conv.scale_tensor(127.0, wp)
+    wq = torch.clamp(torch.round(wp / sw), -127, 127).to(torch.int8)
+    return wq, sw
+
+
+def _max_pool2_q(xq):
+    b, h, w, c = xq.shape
+    return xq.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def _upsample_q(xq, kq, sw, bias):
+    """2×2 stride-2 transposed conv in int8: one s8 product over
+    (B·h·w, Cin) × (Cin, 4·Cout) and a pixel shuffle; ``kq`` (2, 2, Cin,
+    Cout) pre-flipped, as the JAX package keeps it."""
+    b, h, w, cin = xq.shape
+    cout = kq.shape[-1]
+    k = kq.permute(2, 0, 1, 3).reshape(cin, 4 * cout)
+    acc = int8_conv.int_mm(xq.reshape(-1, cin), k).reshape(b, h, w, 2, 2, cout)
+    y = acc.float() * sw + bias
+    return y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, cout)
+
+
+def _qblock(xq, blk, skip=None, planes=None):
+    """Int8 DoubleConv, two Q1 launches: conv → dequant+BN+ReLU → requant at
+    ``s_mid`` → conv → dequant+BN+ReLU → requant at ``s_out``, or fp32 where
+    ``s_out`` is None (the last decoder block, which feeds the head). With
+    ``skip`` the first conv reads ``concat([skip, xq])``; a list ``planes``
+    gets the int8 planes made."""
+    mq = int8_conv.int8_conv3x3(xq, blk["wq1"], blk["a1"], blk["b1"],
+                                out_scale=blk["s_mid"], skip=skip)
+    y = int8_conv.int8_conv3x3(mq, blk["wq2"], blk["a2"], blk["b2"],
+                               out_scale=blk["s_out"])
+    if planes is not None:
+        planes += [mq] if blk["s_out"] is None else [mq, y]
+    return y
+
+
+def _folded_block(block):
+    """[(w1, a_bn1, b1), (w2, a_bn2, b2)] of one port ``DoubleConv``:
+    HWIO fp32 weights and the folded BatchNorm."""
+    out = []
+    for conv, bn in zip(block.conv, block.norm):
+        scale, shift = fold_batchnorm(bn.weight, bn.bias, bn.running_mean,
+                                      bn.running_var, bn.eps)
+        out.append((conv.weight.detach().permute(2, 3, 1, 0).float(),
+                    scale.detach().float(), shift.detach().float()))
+    return out
+
+
+def _conv_bn_relu(x, w, a, b):
+    """fp32 oracle tap of the calibration replay: NHWC ``x``, HWIO ``w``."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+    return torch.relu(y.permute(0, 2, 3, 1) * a + b)
+
+
+@contextmanager
+def _full_fp32():
+    """fp32 convolutions and products in full fp32, not TF32 (cuDNN's
+    default for convolutions), restored after: the JAX reference replays in
+    exact fp32, and a TF32 ``amax`` moves many weights to another int8."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@torch.no_grad()
+def calibrate_unet(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
+    """Record per-tensor |max| at every quantization point by replaying the
+    BN-folded fp32 forward of the port's ``UNet`` ``model`` on ``calib``
+    (B, H, W, C), H and W divisible by ``2**cfg.depth``, on the model's
+    device. Returns ``{name: amax}`` (0-d float32 tensors) under the JAX
+    package's names: ``in``; ``b{i}_mid``; ``b{i}_out`` for every block but
+    the last decoder block; ``up{u}``. Calibrate on a batch of tiles, not a
+    whole granule: the replay keeps full-resolution fp32 planes of every
+    level."""
+    _check_cfg(cfg)
+    depth = cfg.depth
+    amax: Dict[str, Any] = {}
+    with _full_fp32():
+        x = torch.as_tensor(calib, dtype=torch.float32,
+                            device=model.head.weight.device)
+        amax["in"] = _amax(x)
+        skips: List[Any] = []
+        idx = 0
+        for _ in range(depth):
+            (w1, a1, b1), (w2, a2, b2) = _folded_block(model.blocks[idx])
+            x = _conv_bn_relu(x, w1, a1, b1)
+            amax[f"b{idx}_mid"] = _amax(x)
+            x = _conv_bn_relu(x, w2, a2, b2)
+            amax[f"b{idx}_out"] = _amax(x)
+            skips.append(x)
+            x = _max_pool2_q(x)
+            idx += 1
+        (w1, a1, b1), (w2, a2, b2) = _folded_block(model.blocks[idx])
+        x = _conv_bn_relu(x, w1, a1, b1)
+        amax[f"b{idx}_mid"] = _amax(x)
+        x = _conv_bn_relu(x, w2, a2, b2)
+        amax[f"b{idx}_out"] = _amax(x)
+        idx += 1
+
+        for u, skip in enumerate(reversed(skips)):
+            up = model.ups[u]
+            k = up.weight.detach().float()                  # (cin, cout, 2, 2)
+            b_, h, w_, cin = x.shape
+            cout = k.shape[1]
+            y = (x.reshape(-1, cin) @ k.permute(0, 2, 3, 1).reshape(
+                cin, 4 * cout)).reshape(b_, h, w_, 2, 2, cout)
+            x = (y.permute(0, 1, 3, 2, 4, 5).reshape(b_, 2 * h, 2 * w_, cout)
+                 + up.bias.detach().float())
+            amax[f"up{u}"] = _amax(x)
+            x = torch.cat([skip, x], dim=-1)
+            (w1, a1, b1), (w2, a2, b2) = _folded_block(model.blocks[idx])
+            x = _conv_bn_relu(x, w1, a1, b1)
+            amax[f"b{idx}_mid"] = _amax(x)
+            x = _conv_bn_relu(x, w2, a2, b2)
+            if idx != 2 * depth:  # last decoder output stays fp32 for the head
+                amax[f"b{idx}_out"] = _amax(x)
+            idx += 1
+    return amax
+
+
+@torch.no_grad()
+def quantize_unet(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
+    """The int8 serving variables of the port's trained ``UNet`` ``model``
+    (conv weights, BatchNorm parameters and running statistics) and a
+    calibration batch, on the model's device, in the JAX package's
+    structure: ``{"s_in", "blocks": [...], "ups": [...], "head"}``. Runs
+    once, off the serving hot path."""
+    _check_cfg(cfg)
+    amax = calibrate_unet(model, cfg, calib)
+    s = {k: v / int8_conv.scale_tensor(127.0, v) for k, v in amax.items()}
+    depth = cfg.depth
+
+    def per_channel(scale, n):
+        return scale * torch.ones((n,), dtype=torch.float32,
+                                  device=scale.device)
+
+    def block_vars(idx, s_in, s_out):
+        (w1, a1, b1), (w2, a2, b2) = _folded_block(model.blocks[idx])
+        wq1, sw1 = _quant_weight(w1, s_in)
+        wq2, sw2 = _quant_weight(w2, per_channel(s[f"b{idx}_mid"],
+                                                 w2.shape[2]))
+        return {"wq1": wq1, "a1": sw1 * a1, "b1": b1,
+                "s_mid": s[f"b{idx}_mid"],
+                "wq2": wq2, "a2": sw2 * a2, "b2": b2, "s_out": s_out}
+
+    blocks = []
+    in_name = "in"
+    for idx in range(depth + 1):  # encoder levels + bottleneck
+        cin = model.blocks[idx].conv[0].weight.shape[1]
+        blocks.append(block_vars(idx, per_channel(s[in_name], cin),
+                                 s[f"b{idx}_out"]))
+        in_name = f"b{idx}_out"
+
+    ups = []
+    for u in range(depth):
+        up = model.ups[u]
+        # torch's ConvTranspose2d weight (cin, cout, 2, 2) is the flax
+        # kernel flipped in both spatial axes: moved to (2, 2, cin, cout) it
+        # is the JAX package's pre-flipped kernel
+        k = up.weight.detach().float().permute(2, 3, 0, 1)
+        src = f"b{depth + u}_out"  # u=0 reads the bottleneck output
+        kq, sw = _quant_weight(k, per_channel(s[src], k.shape[2]))
+        ups.append({"kq": kq, "sw": sw, "bias": up.bias.detach().float(),
+                    "s_up": s[f"up{u}"]})
+
+        # decoder block DoubleConv_{depth+1+u}: conv1 reads concat([skip
+        # (encoder level depth-1-u), up u]); each half keeps its own scale
+        idx = depth + 1 + u
+        c_skip = model.blocks[depth - 1 - u].conv[1].weight.shape[0]
+        s_cat = torch.cat([per_channel(s[f"b{depth - 1 - u}_out"], c_skip),
+                           per_channel(s[f"up{u}"], k.shape[-1])])
+        last = idx == 2 * depth
+        # the last decoder output feeds the fp32 head un-quantized
+        blocks.append(block_vars(idx, s_cat,
+                                 None if last else s[f"b{idx}_out"]))
+
+    head = model.head
+    return {
+        "s_in": s["in"],
+        "blocks": blocks,
+        "ups": ups,
+        "head": {"kernel": head.weight.detach().float().permute(2, 3, 1, 0),
+                 "bias": head.bias.detach().float()},
+    }
+
+
+def make_quantized_apply(cfg: UNetConfig):
+    """Returns ``apply(qvars, x, train=False, planes=None) -> logits (B, H,
+    W, out)``, the int8 twin of the U-Net's forward, drop-in as
+    ``make_multi_granule_infer``'s ``apply_fn``. Every 3×3 conv is Q1, the
+    transposed convs s8 products; the only fp32 work is in the epilogues,
+    the transposed convs' dequant and the 1×1 head. With a list
+    ``planes``, every int8 plane of the forward is appended to it in order
+    (a debug form for comparing two devices)."""
+    _check_cfg(cfg)
+    depth = cfg.depth
+
+    @torch.no_grad()
+    def apply(qvars, x, train: bool = False,
+              planes: Optional[list] = None):
+        if train:
+            raise ValueError("int8 quantized forward is inference-only")
+
+        def keep(t):
+            if planes is not None:
+                planes.append(t)
+            return t
+
+        xq = keep(_quant_act(x.float(), qvars["s_in"]))
+        skips = []
+        for i in range(depth):
+            skips.append(_qblock(xq, qvars["blocks"][i], planes=planes))
+            xq = keep(_max_pool2_q(skips[-1]))
+        xq = _qblock(xq, qvars["blocks"][depth], planes=planes)
+        for u, skip in enumerate(reversed(skips)):
+            up = qvars["ups"][u]
+            uq = keep(_quant_act(_upsample_q(xq, up["kq"], up["sw"],
+                                             up["bias"]), up["s_up"]))
+            xq = _qblock(uq, qvars["blocks"][depth + 1 + u], skip, planes)
+        head = qvars["head"]          # xq: the last block's fp32 output
+        return xq @ head["kernel"][0, 0] + head["bias"]
+
+    return apply
+
+
+def qvars_to(qvars, device) -> Dict[str, Any]:
+    """A copy of the int8 serving variables on ``device``."""
+    def move(d):
+        return {k: None if v is None else v.to(device) for k, v in d.items()}
+
+    return {"s_in": qvars["s_in"].to(device),
+            "blocks": [move(blk) for blk in qvars["blocks"]],
+            "ups": [move(up) for up in qvars["ups"]],
+            "head": move(qvars["head"])}

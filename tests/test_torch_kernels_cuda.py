@@ -550,3 +550,137 @@ def test_fused_eval_after_train_steps_reads_the_new_weights(card, flag):
             want = plain(xs).float().cpu().numpy().ravel()
         assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max()
         assert np.corrcoef(got, want)[0, 1] > LOGIT_MIN_CORR
+
+
+# ------------------------------------------------------------ Q1, int8 conv
+
+def _int8_conv_cases():
+    from plumekit_torch.experiments.int8_conv_times import conv_cases
+
+    return conv_cases(UNetConfig(), 288)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _int8_conv_cases(),
+                         ids=lambda c: f"{c[0]}+{c[1]}-{c[2]}-{c[3]}"
+                                       f"{'-i8' if c[4] else '-f32'}")
+def test_int8_conv_kernel_matches_plain_version(card, case):
+    """Q1 at the 18 convs of UNetConfig() at 288² tiles, batch 2, in the
+    output mode the forward gives each (int8, fp32 for the last), with the
+    decoder's two-plane concat: equal bit for bit (the epilogue rounds step
+    by step, as the plain version does), and once more in the other mode."""
+    from plumekit_torch.experiments.int8_conv_times import case_inputs
+    from plumekit_torch.models.kernels import int8_conv
+
+    rng = np.random.default_rng(sum(case[:4]))
+    x, w, a, b, scale, skip = case_inputs(rng, case, 2, card)
+    for out_scale in (scale, None if scale is not None else
+                      torch.tensor(0.05, device=card)):
+        before = int8_conv.LAUNCHES
+        got = int8_conv.int8_conv3x3(x, w, a, b, out_scale, skip)
+        torch.cuda.synchronize()
+        assert int8_conv.LAUNCHES == before + 1
+        ref = int8_conv.int8_conv3x3_ref(x, w, a, b, out_scale, skip)
+        assert got.dtype == ref.dtype
+        assert got.dtype == (torch.float32 if out_scale is None
+                             else torch.int8)
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c_skip,cout", [
+    ((1, 5, 7, 2), 0, 8),          # tiny plane, Cin 2, Cout under a chunk
+    ((3, 37, 29, 48), 0, 40),      # ragged, 16-aligned, two output chunks
+    ((2, 20, 21, 24), 40, 33),     # two sources, odd Cout
+    ((1, 18, 18, 64), 64, 64)])    # the 8-px tile
+def test_int8_conv_kernel_ragged_shapes(card, shape, c_skip, cout):
+    from plumekit_torch.models.kernels import int8_conv
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)
+                         ).to(card)
+    skip = (torch.from_numpy(rng.integers(0, 128, shape[:3] + (c_skip,),
+                                          dtype=np.int8)).to(card)
+            if c_skip else None)
+    w = torch.from_numpy(rng.integers(-127, 128, (3, 3, shape[3] + c_skip,
+                                                  cout), dtype=np.int8)
+                         ).to(card)
+    a = torch.from_numpy(rng.uniform(1e-4, 1e-3, cout).astype(np.float32)
+                         ).to(card)
+    b = torch.from_numpy(rng.normal(0, 1, cout).astype(np.float32)).to(card)
+    for scale in (torch.tensor(0.03, device=card), None):
+        got = int8_conv.int8_conv3x3(x, w, a, b, scale, skip)
+        assert torch.equal(got, int8_conv.int8_conv3x3_ref(x, w, a, b, scale,
+                                                           skip))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 8])
+def test_int8_conv_kernel_at_either_tile(card, tile):
+    """Q1 at each output tile the caller may ask for, whatever the tile
+    rule would pick: a ragged two-source plane, both output modes."""
+    from plumekit_torch.models.kernels import int8_conv
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(0, 128, (2, 20, 21, 24),
+                                      dtype=np.int8)).to(card)
+    skip = torch.from_numpy(rng.integers(0, 128, (2, 20, 21, 40),
+                                         dtype=np.int8)).to(card)
+    w = torch.from_numpy(rng.integers(-127, 128, (3, 3, 64, 33),
+                                      dtype=np.int8)).to(card)
+    a = torch.from_numpy(rng.uniform(1e-4, 1e-3, 33).astype(np.float32)
+                         ).to(card)
+    b = torch.from_numpy(rng.normal(0, 1, 33).astype(np.float32)).to(card)
+    packed = int8_conv.pack_conv(w, a, b, 40)
+    for scale in (torch.tensor(0.03, device=card), None):
+        got = int8_conv.int8_conv3x3_packed(x, packed, scale, skip, tile=tile)
+        assert torch.equal(got, int8_conv.int8_conv3x3_ref(x, w, a, b, scale,
+                                                           skip))
+
+
+@pytest.mark.cuda
+def test_int8_forward_on_the_card_matches_the_cpu(card):
+    """The int8 forward of a seeded base-16 depth-3 U-Net, its qvars
+    calibrated on the card: every int8 plane equal to the CPU's plain
+    forward on the same qvars, the logits within 1e-5 of the largest."""
+    from plumekit_torch.models.kernels import int8_conv
+    from plumekit_torch.models.quantized_forward import (
+        make_quantized_apply, quantize_unet, qvars_to)
+
+    cfg = UNetConfig(base_features=16, depth=3)
+    model = build_model(cfg, torch.Generator().manual_seed(3)).to(card).eval()
+    rng = np.random.default_rng(6)
+    x = rng.random((2, 64, 64, 2), dtype=np.float32)
+    qvars = quantize_unet(model, cfg, x)
+    cpu_qvars = qvars_to(qvars, "cpu")
+    apply = make_quantized_apply(cfg)
+    planes_card, planes_cpu = [], []
+    before = int8_conv.LAUNCHES
+    got = apply(qvars, torch.from_numpy(x).to(card), planes=planes_card)
+    assert int8_conv.LAUNCHES == before + 2 * (2 * cfg.depth + 1)
+    want = apply(cpu_qvars, torch.from_numpy(x), planes=planes_cpu)
+    assert len(planes_card) == len(planes_cpu) > 0
+    for p, q in zip(planes_card, planes_cpu):
+        assert p.dtype == torch.int8 and torch.equal(p.cpu(), q)
+    assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_int8_conv_wrapper_refuses_what_the_kernel_does_not_take(card):
+    from plumekit_torch.models.kernels import int8_conv
+
+    x = torch.zeros((1, 8, 8, 32), dtype=torch.int8, device=card)
+    w = torch.zeros((3, 3, 32, 32), dtype=torch.int8, device=card)
+    a = torch.zeros(32, device=card)
+    with pytest.raises(ValueError, match="int8"):
+        int8_conv.int8_conv3x3(x.float(), w, a, a)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_conv.int8_conv3x3(x.transpose(1, 2), w, a, a)
+    with pytest.raises(ValueError, match="do not fit"):
+        int8_conv.int8_conv3x3(x, w[:, :, :16], a, a)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(8 * 8 * 32 + 1, dtype=torch.int8, device=card)
+        int8_conv.int8_conv3x3(flat[1:].view(1, 8, 8, 32), w, a, a)
+    with pytest.raises(ValueError, match="no tile of side 12"):
+        int8_conv.int8_conv3x3_packed(x, int8_conv.pack_conv(w, a, a),
+                                      tile=12)
