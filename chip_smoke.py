@@ -30,13 +30,19 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   bit, at the 18 convs of the flagship net at 128 tiles of 288² (the
   main path's forward: two granules of 64 tiles), timed
   queued and single beside its plain version and the cuDNN bf16 conv of
-  the same shape (``experiments/int8_conv_times.py``); the int8 forward of
+  the same shape; Q2 (the transposed conv with its requant) against its
+  plain version, bit for bit, at the net's four upsamples at the same
+  batch, timed beside its plain version (``torch._int_mm`` and the eager
+  glue it replaced) and ``torch._int_mm`` alone
+  (``experiments/int8_conv_times.py``); the int8 forward of
   the flagship net on the card against the CPU's on the same quantized
   state, every int8 plane equal; the forward rates of int8, plain bf16 and
-  fused at 128 tiles of 288²; the four 2048² granules served through
-  ``predict_model --int8`` (every 3×3 conv one launch of Q1), and the
-  trained checkpoint of the training phase served with ``--int8``, whose
-  masks must flip under 1% against the plain forward's;
+  fused at 128 tiles of 288², and the int8 forward's profile by class,
+  where ``torch._int_mm`` must take no time; the four 2048² granules served
+  through ``predict_model --int8`` (every 3×3 conv one launch of Q1, every
+  upsample one of Q2), and the trained checkpoint of the training phase
+  served with ``--int8``, whose masks must flip under 1% against the plain
+  forward's;
 * the rg weak labeller: K1/K4 (multi-threshold CCL) and K3 (label counts)
   against their plain versions, bit for bit, on the identify benchmark's
   1200² scene, 4096², 8192², a ragged 1201 × 997 scene and a serpentine,
@@ -132,7 +138,8 @@ from plumekit_torch.ops.morphology import binary_opening_cross  # noqa: E402
 from plumekit_torch.config import DataConfig, TrainConfig  # noqa: E402
 from plumekit_torch.experiments import train_step_times  # noqa: E402
 from plumekit_torch.experiments import int8_conv_times  # noqa: E402
-from plumekit_torch.models.kernels import int8_conv  # noqa: E402
+from plumekit_torch.models.kernels import (  # noqa: E402
+    int8_conv, int8_upsample)
 from plumekit_torch.models.quantized_forward import (  # noqa: E402
     make_quantized_apply, quantize_unet, qvars_to)
 from plumekit_torch.train.data import (  # noqa: E402
@@ -1005,7 +1012,7 @@ def check_probe():
     return res
 
 
-# ------------------------------------------------- the int8 forward: Q1
+# --------------------------------------------- the int8 forward: Q1, Q2
 
 # tiles of 288² per timed int8 conv and forward: the main path's forward,
 # which carries BATCH_GRANULES granules' tiles (infer/sliding.py)
@@ -1040,23 +1047,40 @@ def check_int8_conv(rng):
     return rows, library
 
 
+def check_int8_upsample(rng):
+    """Q2 against its plain version, bit for bit, at the four upsamples of
+    UNetConfig() at the main path's batch of 288² tiles, timed queued and
+    single beside its plain version (the forward's path before Q2:
+    ``torch._int_mm`` and the eager dequant, shuffle and requant) and
+    ``torch._int_mm`` of the same product alone."""
+    rows = []
+    for case in int8_conv_times.upsample_cases(UNetConfig(), ICFG.tile_size):
+        rows.append(int8_conv_times.time_upsample(rng, case, INT8_BATCH, DEV))
+        print(int8_conv_times.upsample_summary(rows[-1]), flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def check_int8_forward(model, rng):
     """The int8 forward of the flagship net on the card against the port's
     int8 forward on the CPU with the same qvars (calibrated on the card on
     the same tiles), every int8 plane equal; then the forward rates at the
     main path's batch (``INT8_BATCH``), int8 against plain bf16 and fused,
-    and the int8 forward's kernel time by class under the profiler."""
+    and the int8 forward's kernel time by class under the profiler, where
+    ``torch._int_mm`` must take no time (every product is Q1's or Q2's)."""
     cfg = model.cfg
     apply = make_quantized_apply(cfg)
     x = mega_tiles(rng, INT8_CHECK_TILES, ICFG.tile_size)
     qvars = quantize_unet(model, cfg, x)
     planes_card, planes_cpu = [], []
-    int8_conv.LAUNCHES = 0
+    int8_conv.LAUNCHES = int8_upsample.LAUNCHES = 0
     got = apply(qvars, x, planes=planes_card)
     torch.cuda.synchronize()
     launches = int8_conv.LAUNCHES
-    if launches != 2 * (2 * cfg.depth + 1):
-        raise AssertionError(f"int8 forward launched Q1 {launches} times")
+    q2_launches = int8_upsample.LAUNCHES
+    if launches != 2 * (2 * cfg.depth + 1) or q2_launches != cfg.depth:
+        raise AssertionError(f"int8 forward launched Q1 {launches} and Q2 "
+                             f"{q2_launches} times")
     t0 = time.perf_counter()
     want = apply(qvars_to(qvars, "cpu"), x.cpu(), planes=planes_cpu)
     cpu_s = time.perf_counter() - t0
@@ -1079,9 +1103,15 @@ def check_int8_forward(model, rng):
               "plain_bf16": time_ms(lambda: model(xb), reps=5),
               "fused": time_ms(lambda: fused(model, xb), reps=5)}
         profile = int8_conv_times.forward_profile(apply, qvars_b, xb)
+    if profile["busy_share"] is None or "unsplit" in profile["device_ms"] \
+            or profile["device_ms"].get("int_mm", 0.0) != 0.0 \
+            or not profile["device_ms"].get("q2"):
+        raise AssertionError(f"int8 forward profile: {profile['device_ms']}"
+                             " (torch._int_mm must take no time, Q2 some)")
     mpix = INT8_BATCH * ICFG.tile_size**2 / 1e6
     res = {"tiles": INT8_CHECK_TILES, "planes": len(planes_card),
-           "launches": launches, "cpu_forward_s": cpu_s, **cmp,
+           "launches": launches, "q2_launches": q2_launches,
+           "cpu_forward_s": cpu_s, **cmp,
            "batch": INT8_BATCH, "forward_ms": ms,
            "forward_mpix_s": {k: mpix / (v / 1e3) for k, v in ms.items()},
            "profile": profile}
@@ -1098,7 +1128,8 @@ def check_int8_forward(model, rng):
 def int8_path(root, cfg):
     """The slice's path: ``predict_model --int8`` over the 4 granules of
     2048² (calibration on the first, every 3×3 conv of every forward one
-    launch of Q1), twice; ``cfg`` is the served checkpoint's."""
+    launch of Q1, every upsample one of Q2), twice; ``cfg`` is the served
+    checkpoint's."""
     n_tiles, forwards = serving_geometry(ICFG)
     mpix = GRANULES * GRANULE_PX**2 / 1e6
     calib_s = []
@@ -1114,23 +1145,28 @@ def int8_path(root, cfg):
 
     cli._int8_quantize_from_paths = timed
     try:
-        int8_conv.LAUNCHES = 0
+        int8_conv.LAUNCHES = int8_upsample.LAUNCHES = 0
         int8_s, _preds = serve(root, "--int8")
         launches = int8_conv.LAUNCHES
+        q2_launches = int8_upsample.LAUNCHES
         int8_s2, _ = serve(root, "--int8")
     finally:
         cli._int8_quantize_from_paths = real
     per_forward = 2 * (2 * cfg.depth + 1)
-    if launches != per_forward * forwards or launches == 0:
+    if (launches != per_forward * forwards or launches == 0
+            or q2_launches != cfg.depth * forwards):
         raise AssertionError(f"predict_model --int8 launched Q1 {launches} "
-                             f"times for {forwards} forwards")
+                             f"and Q2 {q2_launches} times for {forwards} "
+                             "forwards")
     res = {"granules": GRANULES, "granule_px": GRANULE_PX,
            "forwards": forwards, "q1_launches": launches,
+           "q2_launches": q2_launches,
            "int8_s": [int8_s, int8_s2],
            "int8_mpix_s": [mpix / int8_s, mpix / int8_s2],
            "calibration_s": calib_s}
     print(f"predict_model --int8 {GRANULES}x{GRANULE_PX}^2: Q1 launches "
-          f"{launches} ({forwards} forwards x {per_forward}); whole call "
+          f"{launches} ({forwards} forwards x {per_forward}), Q2 launches "
+          f"{q2_launches}; whole call "
           f"{res['int8_mpix_s'][0]:.2f}/{res['int8_mpix_s'][1]:.2f} MPix/s, "
           "calibration " + "/".join(f"{s:.2f}" for s in calib_s) + " s",
           flush=True)
@@ -2172,20 +2208,24 @@ def train_chain(tmp):
     if max_dp > PROB_ATOL or confident or not res["k6_serving_launches"]:
         raise AssertionError(f"served trained checkpoint: {res['served']}, "
                              f"K6 launches {res['k6_serving_launches']}")
-    int8_conv.LAUNCHES = 0
+    int8_conv.LAUNCHES = int8_upsample.LAUNCHES = 0
     res["seconds"]["predict_int8"] = run_cli("predict_model", "--root", root,
                                              "--int8")
     res["q1_serving_launches"] = int8_conv.LAUNCHES
+    res["q2_serving_launches"] = int8_upsample.LAUNCHES
     max_dp8, share8, _ = compare_served(read_served(root), plain)
     res["served_int8"] = {"max_abs_dprobs": max_dp8, "mask_flip_share": share8}
     print(f"predict_model --int8 on the trained checkpoint: mask flips "
           f"{share8:.3e} against the plain forward (bound "
           f"{INT8_MAX_FLIP_SHARE}), max|dprobs| {max_dp8:.4g}, Q1 launches "
-          f"{res['q1_serving_launches']}", flush=True)
-    if share8 >= INT8_MAX_FLIP_SHARE or not res["q1_serving_launches"]:
+          f"{res['q1_serving_launches']}, Q2 launches "
+          f"{res['q2_serving_launches']}", flush=True)
+    if (share8 >= INT8_MAX_FLIP_SHARE or not res["q1_serving_launches"]
+            or not res["q2_serving_launches"]):
         raise AssertionError(f"int8 serving of the trained checkpoint: "
                              f"{res['served_int8']}, Q1 launches "
-                             f"{res['q1_serving_launches']}")
+                             f"{res['q1_serving_launches']}, Q2 launches "
+                             f"{res['q2_serving_launches']}")
 
     weights = torch.load(os.path.join(ckpt, "weights.pt"), map_location=DEV)
     samples = make_synthetic_dataset(DataConfig(granule_size=256,
@@ -2268,9 +2308,10 @@ def main() -> int:
         mega["by_stage"] = mega_stage_table(model, rng, batch, kernel_rows)
         forward = check_forward(model, rng)
         served = main_path(model, root, tmp)
-        # the int8 forward (Q1)
+        # the int8 forward (Q1, Q2)
         t_int8 = time.perf_counter()
         q1_rows, q1_library = check_int8_conv(rng)
+        q2_rows = check_int8_upsample(rng)
         int8_forward = check_int8_forward(model, rng)
         int8_served = int8_path(root, model.cfg)
         int8_phase_s = time.perf_counter() - t_int8
@@ -2312,6 +2353,9 @@ def main() -> int:
     k6_share = {kind: sum(b for b, by in k6_bound if by == kind)
                 for kind in ("bytes", "operations")}
     q1_share = {kind: sum(r["bound_ms"] for r in q1_rows
+                          if r["bound_by"] == kind)
+                for kind in ("bytes", "operations")}
+    q2_share = {kind: sum(r["bound_ms"] for r in q2_rows
                           if r["bound_by"] == kind)
                 for kind in ("bytes", "operations")}
     bench_ccl = next(r for r in ccl_rows if r["scene"] == "bench_1200")
@@ -2450,6 +2494,29 @@ def main() -> int:
         # the trained checkpoint served with --int8
         "train_launches": chain["q1_serving_launches"],
         "at": f"the 18 convs of one int8 forward of UNetConfig(), "
+              f"{INT8_BATCH} tiles of {ICFG.tile_size}x{ICFG.tile_size}"}, {
+        "name": "int8_upsample2x2", "route": "cuda",
+        "source": "plumekit_torch/csrc/int8_conv.cu",
+        "replaces": "plumekit/models/quantized_forward.py:145 (XLA s8 "
+                    "einsum with its dequant, shuffle and requant, no "
+                    "Pallas)",
+        "launches": int8_served["q2_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in q2_rows),
+        # queued: 20 launches per event pair
+        "ms": sum(r["queued_ms"] for r in q2_rows),
+        # the plain version is the forward's path before Q2:
+        # torch._int_mm and the eager dequant, shuffle and requant
+        "plain_ms": sum(r["plain_ms"] for r in q2_rows),
+        "bound_ms": sum(r["bound_ms"] for r in q2_rows),
+        "bound_by": max(q2_share, key=q2_share.get),
+        # no one PyTorch call computes the product with its requant and
+        # shuffle; torch._int_mm of the same product alone beside it
+        "library_ms": None,
+        "int_mm_ms": sum(r["int_mm_ms"] for r in q2_rows),
+        "single_ms": sum(r["single_ms"] for r in q2_rows),
+        # the trained checkpoint served with --int8
+        "train_launches": chain["q2_serving_launches"],
+        "at": f"the 4 upsamples of one int8 forward of UNetConfig(), "
               f"{INT8_BATCH} tiles of {ICFG.tile_size}x{ICFG.tile_size}"}]
     copy_rate = measured_copy_rate()
     for k in kernels:
@@ -2468,6 +2535,7 @@ def main() -> int:
                    "single_conv_rows": single_rows, "probe": probe,
                    "kernel_rows": kernel_rows, "forward": forward,
                    "serving": served, "int8_conv_rows": q1_rows,
+                   "int8_upsample_rows": q2_rows,
                    "int8_library": q1_library, "int8_forward": int8_forward,
                    "int8_serving": int8_served, "int8_phase_s": int8_phase_s,
                    "ccl_rows": ccl_rows,

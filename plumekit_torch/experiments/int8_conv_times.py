@@ -1,21 +1,25 @@
-"""Times of Q1, the int8 conv kernel, per conv of the int8 forward: the
-eighteen 3×3 convs of ``UNetConfig()`` at a batch of 288² tiles (the
-decoder blocks' first convs read the skip and the upsampled half as two
+"""Times of the int8 forward's kernels on the card. Q1, the int8 conv, per
+conv: the eighteen 3×3 convs of ``UNetConfig()`` at a batch of 288² tiles
+(the decoder blocks' first convs read the skip and the upsampled half as two
 planes, the last conv writes fp32), each beside its plain version (nine
 ``torch._int_mm`` over shifted copies) and the cuDNN bf16 convolution of the
 same shape with scale, shift and ReLU (the bf16 forward's conv, for
-context). ``single_ms`` is one launch per pair of CUDA events, ``queued_ms``
+context). Q2, the transposed conv with its requant, per upsample: beside its
+plain version (``torch._int_mm`` and the eager dequant, shuffle and requant:
+the forward's path before Q2) and ``torch._int_mm`` of the same product
+alone. ``single_ms`` is one launch per pair of CUDA events, ``queued_ms``
 20, which leaves the wrapper's host time out; the bound is the larger of the
 operations at the data sheet's 1,979 int8 TOPS and the bytes at 3,350 GB/s.
 Each case is also held against its plain version, bit for bit. With
 ``--forward`` it also profiles the whole int8 forward of a seeded
-``UNetConfig()`` at the same batch (``torch.profiler``: the card's time in
-Q1, in ``torch._int_mm`` and in the other kernels, and its busy share).
-With ``--tiles`` it times each conv queued at both of Q1's output tiles,
-16² and 8², each held bit for bit, beside the side ``conv_tile`` picks.
-``python -m plumekit_torch.experiments.int8_conv_times [--batch 128]
-[--tile 288] [--forward] [--tiles]`` on a card; prints one line per conv and
-writes ``chiprun_out/int8_conv_times.json``."""
+``UNetConfig()`` at the same batch (``torch.profiler``: the card's time by
+class, Q1, Q2, ``torch._int_mm`` and the other kernels by their place in the
+forward, and its busy share). With ``--tiles`` it times each conv and each
+upsample queued at every shape the kernel may take (``shape_candidates``,
+``upsample_candidates``), each held bit for bit, beside the shape the rule
+picks. ``python -m plumekit_torch.experiments.int8_conv_times [--batch 128]
+[--tile 288] [--forward] [--tiles] [--out PATH]`` on a card; prints one line
+per case and writes ``chiprun_out/int8_conv_times.json`` (or PATH)."""
 
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from plumekit_torch.config import UNetConfig
-from plumekit_torch.models.kernels import int8_conv
+from plumekit_torch.models.kernels import int8_conv, int8_upsample
 
 QUEUED = 20   # launches per event pair of the queued reading
 PEAK_INT8_OPS_PER_S = 1979e12
@@ -91,6 +95,40 @@ def ops_and_bytes(case, batch):
                                                             else 4))
 
 
+def upsample_cases(cfg: UNetConfig, tile: int):
+    """(c_in, c_out, side of the input) of the forward's ``depth``
+    transposed convs, the bottleneck's first."""
+    f = [cfg.base_features * 2**i for i in range(cfg.depth + 1)]
+    return [(f[cfg.depth - u], f[cfg.depth - 1 - u], tile >> (cfg.depth - u))
+            for u in range(cfg.depth)]
+
+
+def upsample_inputs(rng, case, batch, device):
+    """Seeded (x, kq, sw, bias, scale) of one transposed conv, with ``sw``
+    and ``bias`` that spread the outputs over the int8 range."""
+    cin, cout, side = case
+    x = torch.from_numpy(rng.integers(0, 128, (batch, side, side, cin),
+                                      dtype=np.int8)).to(device)
+    kq = torch.from_numpy(rng.integers(-127, 128, (2, 2, cin, cout),
+                                       dtype=np.int8)).to(device)
+    sw = torch.from_numpy((rng.uniform(0.5, 1.5, cout) * 4.0
+                           / (64 * 73 * cin ** 0.5)).astype(np.float32)
+                          ).to(device)
+    bias = torch.from_numpy(rng.normal(0, 0.5, cout).astype(np.float32)
+                            ).to(device)
+    scale = torch.tensor(12.0 / 127, dtype=torch.float32, device=device)
+    return x, kq, sw, bias, scale
+
+
+def upsample_ops_and_bytes(case, batch):
+    """Integer operations and bytes moved once (input, kernel, sw, bias and
+    the int8 output) of one transposed conv."""
+    cin, cout, side = case
+    px = batch * side * side
+    return (2 * px * cin * 4 * cout,
+            px * cin + 4 * cin * cout + 8 * cout + 4 * px * cout)
+
+
 def bound(n_ops, n_bytes):
     """(bound_ms, bound_by) at the data sheet's int8 and memory rates."""
     by_ops = n_ops / PEAK_INT8_OPS_PER_S * 1e3
@@ -130,20 +168,61 @@ def int8_library_conv(device):
     return {"runs": True, "error": None}
 
 
-#: kernel classes of the forward's profile, by substrings of kernel names:
-#: Q1, cuBLASLt's int8 products (the transposed convs), and the rest
-#: (quantization, pooling, the fp32 head, copies)
-KERNEL_CLASSES = (("q1", ("int8_conv_kernel",)),
-                  ("int_mm", ("gemm", "imma", "xmma", "cutlass", "cublas")))
+#: kernels of the forward's profile known by name: Q1 and Q2 (each a
+#: kernel of csrc/int8_conv.cu; neither name holds a key of the other
+#: classes), and cuBLASLt's products
+Q1_KEYS = ("int8_conv_kernel",)
+Q2_KEYS = ("int8_upsample_kernel",)
+GEMM_KEYS = ("gemm", "imma", "xmma", "cutlass", "cublas")
 PROFILED_FORWARDS = 3
+
+
+def place_class(n_q1: int, depth: int, name: str) -> str:
+    """The class of a kernel that is neither Q1 nor Q2, by its place in
+    the forward: ``n_q1`` Q1 launches came before it. Before the first
+    conv it quantizes the input; after an encoder block's second conv it
+    pools; after the bottleneck's or a decoder block's second conv, up to
+    the next decoder block, it belongs to the transposed conv (a product,
+    by name, or its glue: dequant, shuffle, requant); after the last conv
+    it is the fp32 head."""
+    if n_q1 == 0:
+        return "input_quant"
+    if n_q1 == 2 * (2 * depth + 1):
+        return "head"
+    if n_q1 % 2:
+        return "rest"
+    if n_q1 <= 2 * depth:
+        return "max_pool"
+    return "int_mm" if any(k in name for k in GEMM_KEYS) else "upsample_glue"
+
+
+def classify_forward(names, depth: int):
+    """The class of each kernel of one forward, ``names`` in launch order:
+    Q1 and Q2 by name, every other kernel by :func:`place_class`."""
+    classes = []
+    n_q1 = 0
+    for name in names:
+        low = name.lower()
+        if any(k in low for k in Q1_KEYS):
+            classes.append("q1")
+            n_q1 += 1
+        elif any(k in low for k in Q2_KEYS):
+            classes.append("q2")
+        else:
+            classes.append(place_class(n_q1, depth, low))
+    return classes
 
 
 def forward_profile(apply, qvars, x) -> dict:
     """``PROFILED_FORWARDS`` calls of ``apply(qvars, x)`` under
     ``torch.profiler`` after one warm-up call: the card's kernel time per
-    forward by class and its busy share of the wall time."""
+    forward by class (:func:`classify_forward`; every forward launches the
+    same kernels in the same order, so the time-ordered list cuts into
+    equal runs, one per forward), the longest kernels by class and name,
+    and the card's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
+    depth = len(qvars["ups"])
     apply(qvars, x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -153,20 +232,32 @@ def forward_profile(apply, qvars, x) -> dict:
             apply(qvars, x)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = sorted(
+        ((e.time_range.start, e.name, e.time_range.elapsed_us())
+         for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)),
+        key=lambda k: k[0])
+    busy = sum(us for _, _, us in kernels)
+    per = len(kernels) // PROFILED_FORWARDS
     by_class: dict = {}
-    for e in prof.events():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        name = e.name.lower()
-        cls = next((c for c, keys in KERNEL_CLASSES
-                    if any(k in name for k in keys)), "other")
-        by_class[cls] = by_class.get(cls, 0.0) + e.time_range.elapsed_us()
-    busy = sum(by_class.values())
-    return {"forwards": PROFILED_FORWARDS,
-            "wall_ms": wall_us / 1e3 / PROFILED_FORWARDS,
-            "device_ms": {c: us / 1e3 / PROFILED_FORWARDS
-                          for c, us in by_class.items()},
+    by_name: dict = {}
+    if kernels and per * PROFILED_FORWARDS == len(kernels):
+        for f in range(PROFILED_FORWARDS):
+            run = kernels[f * per:(f + 1) * per]
+            for (_, name, us), cls in zip(
+                    run, classify_forward([k[1] for k in run], depth)):
+                by_class[cls] = by_class.get(cls, 0.0) + us
+                by_name[cls, name[:90]] = by_name.get((cls, name[:90]),
+                                                      0.0) + us
+    elif kernels:
+        by_class["unsplit"] = busy
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
+    per_fwd = 1e3 * PROFILED_FORWARDS
+    return {"forwards": PROFILED_FORWARDS, "kernels_per_forward": per,
+            "wall_ms": wall_us / per_fwd,
+            "device_ms": {c: us / per_fwd for c, us in by_class.items()},
+            "top_kernels_ms": [[c, n, us / per_fwd] for (c, n), us in top],
             "busy_share": busy / wall_us if busy else None}
 
 
@@ -186,6 +277,7 @@ def time_case(rng, case, batch, device, int8_library=False):
     c_skip, cin, cout, side, int8_out = case
     x, w, a, b, scale, skip = case_inputs(rng, case, batch, device)
     packed = int8_conv.pack_conv(w, a, b, c_skip or None)
+    tile = int8_conv.conv_tile(side, side, batch, packed.shape)
     got = int8_conv.int8_conv3x3_packed(x, packed, scale, skip)
     ref = int8_conv.int8_conv3x3_ref(x, w, a, b, scale, skip)
     torch.cuda.synchronize()
@@ -197,7 +289,7 @@ def time_case(rng, case, batch, device, int8_library=False):
     n_ops, n_bytes = ops_and_bytes(case, batch)
     row = {"c_skip": c_skip, "cin": cin, "cout": cout, "h": side,
            "batch": batch, "out": "int8" if int8_out else "fp32",
-           "tile": int8_conv.conv_tile(side, side), "max_abs_err": 0.0,
+           "tile": tile_label(tile), "max_abs_err": 0.0,
            "ops": n_ops, "bytes": n_bytes,
            "single_ms": time_ms(
                lambda: int8_conv.int8_conv3x3_packed(x, packed, scale, skip)),
@@ -229,37 +321,120 @@ def time_case(rng, case, batch, device, int8_library=False):
     return row
 
 
-TILE_SIDES = (16, 8)
+def shape_label(shape) -> str:
+    return f"{shape.nb}x{shape.mt}" + ("-fold" if shape.fold else "")
+
+
+def tile_label(tile) -> str:
+    return (f"{shape_label(tile.shape)} {tile.th}x{tile.tw}"
+            + (f"x{tile.images}" if tile.images > 1 else ""))
 
 
 def time_tiles(rng, case, batch, device):
-    """One conv queued at each of Q1's output tiles, each held bit for bit
-    against the plain version: {"h", "picked", "queued_ms": {side: ms}}."""
+    """One conv queued at each shape it may take (its rule's tile at that
+    shape), each held bit for bit against the plain version: {"h",
+    "picked", "queued_ms": {shape: ms}}."""
     c_skip, cin, cout, side, int8_out = case
     x, w, a, b, scale, skip = case_inputs(rng, case, batch, device)
-    packed = int8_conv.pack_conv(w, a, b, c_skip or None)
+    c0, c1 = (c_skip, cin) if c_skip else (cin, 0)
     ref = int8_conv.int8_conv3x3_ref(x, w, a, b, scale, skip)
     row = {"c_skip": c_skip, "cin": cin, "cout": cout, "h": side,
-           "batch": batch, "picked": int8_conv.conv_tile(side, side),
-           "queued_ms": {}}
-    for t in TILE_SIDES:
-        got = int8_conv.int8_conv3x3_packed(x, packed, scale, skip, tile=t)
+           "batch": batch,
+           "picked": shape_label(int8_conv.conv_shape(c0, c1, cout)),
+           "queued_ms": {}, "tiles": {}}
+    for shape in int8_conv.shape_candidates(c0, c1, cout):
+        packed = int8_conv.pack_conv(w, a, b, c_skip or None, shape)
+        got = int8_conv.int8_conv3x3_packed(x, packed, scale, skip)
         if not torch.equal(got, ref):
-            raise AssertionError(f"Q1 at tile {t} differs from its plain "
+            raise AssertionError(f"Q1 at {shape} differs from its plain "
                                  f"version at {case}")
-        row["queued_ms"][t] = time_ms(
-            lambda: int8_conv.int8_conv3x3_packed(x, packed, scale, skip,
-                                                  tile=t), calls=QUEUED)
-    del x, w, skip, ref, packed
+        key = shape_label(shape)
+        row["tiles"][key] = tile_label(
+            int8_conv.conv_tile(side, side, batch, shape))
+        row["queued_ms"][key] = time_ms(
+            lambda: int8_conv.int8_conv3x3_packed(x, packed, scale, skip),
+            calls=QUEUED)
+    del x, w, skip, ref, got
     return row
 
 
-def tiles_summary(row):
+def tiles_summary(row, name="Q1"):
     ms = row["queued_ms"]
-    return (f"Q1 {row['c_skip']:>3}+{row['cin']:>3}->{row['cout']:>3} "
-            f"{row['batch']}x{row['h']}^2 queued: "
-            + ", ".join(f"tile {t} {ms[t]:.3f} ms" for t in TILE_SIDES)
+    where = (f"{row['c_skip']:>3}+{row['cin']:>3}->{row['cout']:>3}"
+             if "c_skip" in row else f"{row['cin']:>3}->{row['cout']:>3}")
+    return (f"{name} {where} {row['batch']}x{row['h']}^2 queued: "
+            + ", ".join(f"{k} {ms[k]:.3f} ms" for k in ms)
             + f"; the rule picks {row['picked']}")
+
+
+def time_upsample(rng, case, batch, device):
+    """One transposed conv: Q2 against its plain version (bit for bit,
+    raises on a difference), Q2 single and queued, the plain version (the
+    forward's path before Q2: ``torch._int_mm`` and eager glue) and
+    ``torch._int_mm`` of the same product alone."""
+    cin, cout, side = case
+    x, kq, sw, bias, scale = upsample_inputs(rng, case, batch, device)
+    packed = int8_upsample.pack_upsample(kq, sw, bias)
+    got = int8_upsample.int8_upsample2x2_packed(x, packed, scale)
+    ref = int8_upsample.int8_upsample2x2_ref(x, kq, sw, bias, scale)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        diff = (got.float() - ref.float()).abs()
+        raise AssertionError(
+            f"Q2 differs from its plain version at {case}: "
+            f"{int((diff > 0).sum())} values, max |diff| {float(diff.max())}")
+    n_ops, n_bytes = upsample_ops_and_bytes(case, batch)
+    a2 = x.reshape(-1, cin)
+    cols = int8_upsample.upsample_columns(kq)
+    row = {"cin": cin, "cout": cout, "h": side, "batch": batch,
+           "shape": shape_label(packed.shape), "max_abs_err": 0.0,
+           "ops": n_ops, "bytes": n_bytes,
+           "single_ms": time_ms(
+               lambda: int8_upsample.int8_upsample2x2_packed(x, packed,
+                                                             scale)),
+           "queued_ms": time_ms(
+               lambda: int8_upsample.int8_upsample2x2_packed(x, packed,
+                                                             scale),
+               calls=QUEUED),
+           "plain_ms": time_ms(
+               lambda: int8_upsample.int8_upsample2x2_ref(x, kq, sw, bias,
+                                                          scale), reps=5),
+           "int_mm_ms": time_ms(lambda: int8_conv.int_mm(a2, cols))}
+    row["bound_ms"], row["bound_by"] = bound(n_ops, n_bytes)
+    row["gb_per_s"] = n_bytes / row["queued_ms"] / 1e6
+    del x, kq, got, ref, a2
+    return row
+
+
+def time_upsample_tiles(rng, case, batch, device):
+    """One transposed conv queued at each shape it may take, each held bit
+    for bit against the plain version."""
+    cin, cout, side = case
+    x, kq, sw, bias, scale = upsample_inputs(rng, case, batch, device)
+    ref = int8_upsample.int8_upsample2x2_ref(x, kq, sw, bias, scale)
+    row = {"cin": cin, "cout": cout, "h": side, "batch": batch,
+           "picked": shape_label(int8_upsample.upsample_shape(cout)),
+           "queued_ms": {}}
+    for shape in int8_upsample.upsample_candidates(cout):
+        packed = int8_upsample.pack_upsample(kq, sw, bias, shape)
+        if not torch.equal(int8_upsample.int8_upsample2x2_packed(
+                x, packed, scale), ref):
+            raise AssertionError(f"Q2 at {shape} differs from its plain "
+                                 f"version at {case}")
+        row["queued_ms"][shape_label(shape)] = time_ms(
+            lambda: int8_upsample.int8_upsample2x2_packed(x, packed, scale),
+            calls=QUEUED)
+    del x, kq, ref
+    return row
+
+
+def upsample_summary(row):
+    return (f"Q2 {row['cin']:>3}->{row['cout']:>3} {row['batch']}x"
+            f"{row['h']}^2 [{row['shape']}]: queued {row['queued_ms']:.3f} "
+            f"ms ({row['gb_per_s']:.0f} GB/s), single {row['single_ms']:.3f}"
+            f", bound {row['bound_ms']:.4f} by {row['bound_by']}, plain "
+            f"(int_mm + glue) {row['plain_ms']:.3f}, int_mm alone "
+            f"{row['int_mm_ms']:.3f}")
 
 
 def summary(row):
@@ -276,9 +451,10 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--tile", type=int, default=288)
     p.add_argument("--forward", action="store_true",
-                   help="also profile the whole int8 forward")
+                   help="also time and profile the whole int8 forward")
     p.add_argument("--tiles", action="store_true",
-                   help="also time each conv at both output tiles")
+                   help="also time each case at every shape it may take")
+    p.add_argument("--out", default="chiprun_out/int8_conv_times.json")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("int8_conv_times: no CUDA device", file=sys.stderr)
@@ -288,11 +464,12 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi)
+    cfg = UNetConfig()
     rng = np.random.default_rng(0)
     library = int8_library_conv(dev)
     print(f"F.conv2d on int8 CUDA tensors: {library}")
     rows = []
-    for case in conv_cases(UNetConfig(), args.tile):
+    for case in conv_cases(cfg, args.tile):
         rows.append(time_case(rng, case, args.batch, dev, library["runs"]))
         print(summary(rows[-1]), flush=True)
         torch.cuda.empty_cache()
@@ -303,29 +480,51 @@ def main(argv=None):
           f"{totals['single_ms']:.3f}, bound {totals['bound_ms']:.3f}, plain "
           f"{totals['plain_ms']:.3f}, cuDNN bf16 "
           f"{totals['bf16_cudnn_ms']:.3f}")
+    up_rows = []
+    for case in upsample_cases(cfg, args.tile):
+        up_rows.append(time_upsample(rng, case, args.batch, dev))
+        print(upsample_summary(up_rows[-1]), flush=True)
+        torch.cuda.empty_cache()
+    up_totals = {k: sum(r[k] for r in up_rows)
+                 for k in ("queued_ms", "single_ms", "plain_ms", "int_mm_ms",
+                           "bound_ms", "bytes")}
+    print(f"Q2 over the {len(up_rows)} upsamples: queued "
+          f"{up_totals['queued_ms']:.3f} ms, single "
+          f"{up_totals['single_ms']:.3f}, bound {up_totals['bound_ms']:.3f},"
+          f" plain (int_mm + glue) {up_totals['plain_ms']:.3f}, int_mm alone"
+          f" {up_totals['int_mm_ms']:.3f}")
     out = {"device": smi, "library": library, "rows": rows,
-           "totals": totals}
+           "totals": totals, "upsample_rows": up_rows,
+           "upsample_totals": up_totals}
     if args.tiles:
         out["tiles"] = []
-        for case in conv_cases(UNetConfig(), args.tile):
+        for case in conv_cases(cfg, args.tile):
             out["tiles"].append(time_tiles(rng, case, args.batch, dev))
             print(tiles_summary(out["tiles"][-1]), flush=True)
+            torch.cuda.empty_cache()
+        out["upsample_tiles"] = []
+        for case in upsample_cases(cfg, args.tile):
+            out["upsample_tiles"].append(
+                time_upsample_tiles(rng, case, args.batch, dev))
+            print(tiles_summary(out["upsample_tiles"][-1], "Q2"), flush=True)
             torch.cuda.empty_cache()
     if args.forward:
         from plumekit_torch.models import build_model
         from plumekit_torch.models.quantized_forward import (
             make_quantized_apply, quantize_unet)
 
-        model = build_model(UNetConfig(), torch.Generator().manual_seed(0)
+        model = build_model(cfg, torch.Generator().manual_seed(0)
                             ).to(dev).eval()
         x = torch.rand((args.batch, args.tile, args.tile, 2),
                        generator=torch.Generator().manual_seed(0)).to(dev)
-        out["forward"] = forward_profile(
-            make_quantized_apply(UNetConfig()),
-            quantize_unet(model, UNetConfig(), x[:9]), x)
-        print("int8 forward " + profile_summary(out["forward"]))
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open("chiprun_out/int8_conv_times.json", "w") as f:
+        apply = make_quantized_apply(cfg)
+        qvars = quantize_unet(model, cfg, x[:9])
+        out["forward"] = forward_profile(apply, qvars, x)
+        out["forward"]["ms"] = time_ms(lambda: apply(qvars, x), reps=5)
+        print(f"int8 forward {out['forward']['ms']:.3f} ms; "
+              + profile_summary(out["forward"]))
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     return 0
 

@@ -5,9 +5,15 @@ Replaces no Pallas kernel: the JAX package leaves this conv to XLA
 (``_qconv``, ``plumekit/models/quantized_forward.py:133``), which the TPU
 runs on its native int8 path. PyTorch has no int8 convolution on CUDA, so
 the card runs the hand-written kernel ``plumekit_torch/csrc/int8_conv.cu``
-(``mma.sync`` m16n8k32 s8; the source notes give the design), one launch
-per conv, and every other device the plain version here, nine shifted views
-of the padded input through ``torch._int_mm``.
+(``wgmma`` m64nNk32 s8 over the padded raster of the staged input patch;
+the source notes give the design), one launch per conv, and every other
+device the plain version here, nine shifted views of the padded input
+through ``torch._int_mm``.
+
+The kernel's shape per conv (:class:`Shape`: output channels per block,
+rows per block, the input conv's tap fold) and its tile (:func:`conv_tile`)
+come from the rule here, which timing each conv at each shape decided
+(``experiments/int8_conv_times.py --tiles``).
 
 Layouts follow the JAX package: activations NHWC int8, weights HWIO int8,
 the epilogue's multiplier ``a`` and shift ``b`` per output channel in fp32,
@@ -22,6 +28,7 @@ only after the tensor changed in place.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -35,10 +42,11 @@ from plumekit_torch.models.kernels.fused_conv import tensor_version
 #: launches of Q1 since import (or since a caller reset it)
 LAUNCHES = 0
 
-#: input channels per k step of the kernel (m16n8k32): each source's
-#: channels are padded to a multiple of this, and output channels to blocks
-#: of as many
+#: input channels per k step of the kernel (m64nNk32): each source's
+#: channels are padded to a multiple of this
 KC = 32
+#: shared memory one block may opt in to on an H100 (227 KB)
+SMEM_LIMIT = 232_448
 
 _PACKED = WeakIdKeyDictionary()
 
@@ -109,11 +117,147 @@ def int8_conv3x3_ref(xq, wq, a, b, out_scale=None, skip=None):
     return y if out_scale is None else quant_act(y, out_scale)
 
 
+@dataclass(frozen=True)
+class Shape:
+    """One instantiation of the kernel: ``nb`` output channels per block
+    (one wgmma m64n``nb``k32 per m64 tile, tap and chunk), ``mt`` m64 tiles
+    per warpgroup (``128·mt`` GEMM rows per block: the accumulators take
+    ``nb·mt/2`` registers a thread), and ``fold``: the 9 taps × at most 3
+    input channels of a pixel as its one k32 row (the network's input
+    conv), the rows then the tile's pixels, not a padded raster."""
+
+    nb: int
+    mt: int
+    fold: bool = False
+
+    @property
+    def rows(self) -> int:
+        return 128 * self.mt
+
+    @property
+    def taps(self) -> int:
+        return 1 if self.fold else 9
+
+
+#: the shapes the kernel is built for (``dispatch`` in the source)
+SHAPES = (Shape(32, 4), Shape(32, 4, True), Shape(64, 2), Shape(128, 2),
+          Shape(256, 1))
+
+
+def can_fold(c0: int, c1: int) -> bool:
+    """Whether a conv's 9 taps × input channels fit one k32 row."""
+    return c1 == 0 and 9 * c0 <= KC
+
+
+def shape_candidates(c0: int, c1: int, cout: int):
+    """The shapes a conv may take: the fold where it fits, and every
+    unfolded shape whose blocks are no wider than the padded output and
+    at least an eighth of it."""
+    cout_p = round_up(cout, KC)
+    return [s for s in SHAPES
+            if (not s.fold or can_fold(c0, c1))
+            and s.nb <= cout_p and 8 * s.nb >= min(cout_p, 256)]
+
+
+def conv_shape(c0: int, c1: int, cout: int) -> Shape:
+    """The rule, from timing every conv of the int8 forward at 128 × 288²
+    at every candidate shape (PERF.md §6): the fold for the input
+    conv; 32 and 64 channels all in one block of 512 and 256 rows; up to
+    256 in blocks of 128 over 256 rows (at 128 channels 64 over 256 ran
+    2-5% faster, but staged the input twice); 512 in blocks of 256 over
+    128 rows (20-30% ahead of 128 there)."""
+    if can_fold(c0, c1):
+        return Shape(32, 4, True)
+    if cout <= 32:
+        return Shape(32, 4)
+    if cout <= 64:
+        return Shape(64, 2)
+    if cout <= 256:
+        return Shape(128, 2)
+    return Shape(256, 1)
+
+
+@dataclass(frozen=True)
+class Q1Tile:
+    """What the C entry takes besides the planes: the shape, a th × tw
+    output tile of ``images`` images per block."""
+
+    shape: Shape
+    th: int
+    tw: int
+    images: int
+
+
+def raster_rows(th: int, tw: int, images: int) -> int:
+    """GEMM rows of a raster block: the padded raster of ``images``
+    patches of (th + 2) × (tw + 2) pixels, less the rows past the last
+    kept one."""
+    return images * (th + 2) * (tw + 2) - 2 * (tw + 2) - 2
+
+
+def a_pitch(tile: Q1Tile) -> int:
+    """Pixels per 16-channel group of a staged input chunk (the C entry's
+    ``pitch``): every row an m64 tile reaches through a tap, +2 to spread
+    the two groups over the banks."""
+    rows = tile.shape.rows
+    if tile.shape.fold:
+        return rows + 2
+    pw = tile.tw + 2
+    patch = tile.images * (tile.th + 2) * pw
+    return round_up(max(patch, rows + 2 * pw + 2), 8) + 2
+
+
+def smem_bytes(tile: Q1Tile, c0: int = 0) -> int:
+    """Shared memory of a block with its weights streamed: two step
+    buffers, each a staged input chunk and its weights (the fold: and the
+    raw input rows of the patch, ``c0`` bytes a pixel, from up to 3 bytes
+    into a word), and the int8 stash of an item's results, each 128-byte
+    aligned. (The kernel keeps a block's pass of weights resident instead
+    where that fits too.)"""
+    s = tile.shape
+    step = 2 * a_pitch(tile) * 16 + s.taps * s.nb * 32
+    if s.fold:
+        step += tile.images * (tile.th + 2) * round_up((tile.tw + 2) * c0
+                                                       + 3, 4)
+    return 2 * round_up(step, 128) + round_up(s.rows * (s.nb + 16), 128)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_tile(h: int, w: int, batch: int, shape: Shape) -> Q1Tile:
+    """The tile of a conv over (batch, h, w) planes at ``shape``: the
+    fewest blocks, each block's rows within ``shape.rows`` (every block
+    costs its full rows), and among those the smallest staged patch. Tiles
+    are balanced (``ceil(h / n)`` for n tile rows); a plane that fits
+    whole puts several images into a block."""
+    rows = shape.rows
+    best = None
+    for th in sorted({-(-h // n) for n in range(1, h + 1)}):
+        tw_max = rows // th if shape.fold else (rows + 2) // th - 2
+        if tw_max < 1:
+            break
+        tw = -(-w // -(-w // min(w, tw_max)))
+        n_y, n_x = -(-h // th), -(-w // tw)
+        images = 1
+        if n_y == 1 and n_x == 1:      # whole planes: as many as fit
+            while images < batch and (
+                    (images + 1) * th * tw <= rows if shape.fold
+                    else raster_rows(th, tw, images + 1) <= rows):
+                images += 1
+        blocks = -(-batch // images) * n_y * n_x
+        patch = images * (th * tw if shape.fold else (th + 2) * (tw + 2))
+        key = (blocks, patch)
+        if best is None or key < best[0]:
+            best = (key, Q1Tile(shape, th, tw, images))
+    if best is None:
+        raise ValueError(f"no tile of a {h}x{w} plane fits {rows} rows")
+    return best[1]
+
+
 @dataclass
 class PackedInt8Conv:
-    """One conv as Q1 reads it: weights (Np, 9, Kp) int8, the first
-    source's ``c0`` channels at k < ``c0p``, the second source's ``c1``
-    from ``c0p`` on, zero in every padding; ``a`` and ``b`` (Np,) fp32."""
+    """One conv as Q1 reads it at ``shape``: weights [Np / nb][Kp / 32]
+    [taps][2][nb][16] int8 (:func:`pack_int8_weights`), ``a`` and ``b``
+    (Np,) fp32, zero padded."""
 
     wt: torch.Tensor
     a: torch.Tensor
@@ -121,31 +265,54 @@ class PackedInt8Conv:
     c0: int
     c1: int
     cout: int
+    shape: Shape
 
     @property
     def c0p(self) -> int:
-        return round_up(self.c0, KC)
+        return KC if self.shape.fold else round_up(self.c0, KC)
+
+    @property
+    def kp(self) -> int:
+        return self.wt.shape[1] * KC
+
+    @property
+    def np_(self) -> int:
+        return self.wt.shape[0] * self.shape.nb
 
 
-def pack_int8_weights(wq, c0: int):
-    """HWIO int8 ``wq`` → Q1's (Np, 9, Kp) layout; input channels below
-    ``c0`` are the first source's."""
+def pack_int8_weights(wq, c0: int, shape: Shape):
+    """HWIO int8 ``wq`` → Q1's layout at ``shape``: per pass of ``nb``
+    output channels, per 32-channel chunk, per tap, the chunk's two groups
+    of 16 channels, each ``nb`` rows of 16 bytes (the K-major core matrices
+    of the wgmma B operand, read front to back). Input channels below
+    ``c0`` are the first source's, padded to 32, the rest the second's.
+    The fold has one chunk and one tap: byte ``tap·c0 + c``."""
     cin, cout = wq.shape[2:]
-    c1 = cin - c0
-    c0p = round_up(c0, KC)
-    kp = c0p + round_up(c1, KC)
-    packed = torch.zeros((round_up(cout, KC), 9, kp), dtype=torch.int8,
-                         device=wq.device)
+    np_ = round_up(cout, shape.nb)
     taps = wq.reshape(9, cin, cout).permute(2, 0, 1)        # (cout, 9, cin)
-    packed[:cout, :, :c0] = taps[:, :, :c0]
-    packed[:cout, :, c0p:c0p + c1] = taps[:, :, c0:]
-    return packed
+    if shape.fold:
+        if not can_fold(cin, 0) or c0 != cin:
+            raise ValueError(f"a conv of {cin} input channels does not fold")
+        flat = torch.zeros((np_, 1, KC), dtype=torch.int8, device=wq.device)
+        flat[:cout, 0, :9 * cin] = taps.reshape(cout, 9 * cin)
+    else:
+        c1 = cin - c0
+        c0p = round_up(c0, KC)
+        flat = torch.zeros((np_, 9, c0p + round_up(c1, KC)),
+                           dtype=torch.int8, device=wq.device)
+        flat[:cout, :, :c0] = taps[:, :, :c0]
+        flat[:cout, :, c0p:c0p + c1] = taps[:, :, c0:]
+    n_tap, kp = flat.shape[1:]
+    return flat.reshape(np_ // shape.nb, shape.nb, n_tap, kp // KC, 2, 16) \
+        .permute(0, 3, 2, 4, 1, 5).contiguous()
 
 
-def pack_conv(wq, a, b, c0: Optional[int] = None) -> PackedInt8Conv:
-    """``wq``, ``a`` and ``b`` packed for Q1, cached per weight tensor and
-    refreshed when ``wq``, ``a`` or ``b`` is another tensor or was written
-    in place. ``c0``: the first source's channels (all by default)."""
+def pack_conv(wq, a, b, c0: Optional[int] = None,
+              shape: Optional[Shape] = None) -> PackedInt8Conv:
+    """``wq``, ``a`` and ``b`` packed for Q1 at ``shape`` (the rule's by
+    default), cached per weight tensor and shape and refreshed when ``wq``,
+    ``a`` or ``b`` is another tensor or was written in place. ``c0``: the
+    first source's channels (all by default)."""
     cin, cout = wq.shape[2:]
     c0 = cin if c0 is None else c0
     if (tuple(wq.shape) != (3, 3, cin, cout) or wq.dtype != torch.int8
@@ -153,35 +320,29 @@ def pack_conv(wq, a, b, c0: Optional[int] = None) -> PackedInt8Conv:
         raise ValueError(f"weight {tuple(wq.shape)} {wq.dtype}, a "
                          f"{tuple(a.shape)}, b {tuple(b.shape)} and a first "
                          f"source of {c0} channels do not fit")
-    key = (c0, tensor_version(wq), tensor_version(a), tensor_version(b))
-    hit = _PACKED.get(wq)
+    shape = conv_shape(c0, cin - c0, cout) if shape is None else shape
+    key = (c0, shape, tensor_version(wq), tensor_version(a),
+           tensor_version(b))
+    cache = _PACKED.setdefault(wq, {})
+    hit = cache.get((c0, shape))
     if hit is not None and hit[0] == key and hit[1] is a and hit[2] is b:
         return hit[3]
-    np_ = round_up(cout, KC)
+    np_ = round_up(cout, shape.nb)
     with torch.no_grad():
         packed = PackedInt8Conv(
-            pack_int8_weights(wq, c0),
+            pack_int8_weights(wq, c0, shape),
             F.pad(a.float(), (0, np_ - cout)).contiguous(),
             F.pad(b.float(), (0, np_ - cout)).contiguous(), c0, cin - c0,
-            cout)
-    _PACKED[wq] = (key, a, b, packed)
+            cout, shape)
+    cache[(c0, shape)] = (key, a, b, packed)
     return packed
-
-
-def conv_tile(h: int, w: int) -> int:
-    """Q1's output tile side: 16, or 8 where 16 would cover more than 1.5
-    times the pixels 8 covers (the 18² bottleneck of 288² tiles)."""
-    def covered(t):
-        return -(-h // t) * -(-w // t) * t * t
-
-    return 8 if covered(16) > 1.5 * covered(8) else 16
 
 
 def _library():
     from plumekit_torch.cuda_build import load_entry
 
     return load_entry("int8_conv.cu", "pk_int8_conv3x3",
-                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15
                       + [ctypes.c_void_p])
 
 
@@ -194,9 +355,9 @@ def _check_plane(x, name):
 
 
 def int8_conv3x3_packed(xq, packed: PackedInt8Conv, out_scale=None,
-                        skip=None, tile: Optional[int] = None):
-    """Q1 on weights packed by :func:`pack_conv`: one launch. ``tile``: the
-    output tile side, 16 or 8 (:func:`conv_tile` by default)."""
+                        skip=None, tile: Optional[Q1Tile] = None):
+    """Q1 on weights packed by :func:`pack_conv`: one launch. ``tile``: a
+    tile at ``packed.shape`` (:func:`conv_tile` by default)."""
     x0, x1 = (xq, None) if skip is None else (skip, xq)
     for name, t in (("x", xq), ("skip", skip)):
         if t is not None:
@@ -213,9 +374,14 @@ def int8_conv3x3_packed(xq, packed: PackedInt8Conv, out_scale=None,
         if t.device != xq.device:
             raise ValueError("weights and input lie on different devices")
     bsz, h, w, _ = x0.shape
-    tile = conv_tile(h, w) if tile is None else tile
-    if tile not in (8, 16):
-        raise ValueError(f"Q1 has no tile of side {tile}")
+    tile = conv_tile(h, w, bsz, packed.shape) if tile is None else tile
+    if tile.shape != packed.shape:
+        raise ValueError(f"a tile of shape {tile.shape} for weights packed "
+                         f"at {packed.shape}")
+    rows = (tile.images * tile.th * tile.tw if tile.shape.fold
+            else raster_rows(tile.th, tile.tw, tile.images))
+    if rows > tile.shape.rows or smem_bytes(tile, packed.c0) > SMEM_LIMIT:
+        raise ValueError(f"{tile} does not fit a block")
     if out_scale is not None:
         scale = scale_tensor(out_scale, xq).reshape(1).contiguous()
         out = torch.empty((bsz, h, w, packed.cout), dtype=torch.int8,
@@ -232,8 +398,9 @@ def int8_conv3x3_packed(xq, packed: PackedInt8Conv, out_scale=None,
             x0.data_ptr(), None if x1 is None else x1.data_ptr(),
             packed.wt.data_ptr(), packed.a.data_ptr(), packed.b.data_ptr(),
             None if scale is None else scale.data_ptr(), out.data_ptr(),
-            bsz, h, w, packed.c0, packed.c0p, packed.c1, packed.wt.shape[2],
-            packed.cout, packed.wt.shape[0], tile, stream)
+            bsz, h, w, packed.c0, packed.c0p, packed.c1, packed.kp,
+            packed.cout, packed.np_, tile.shape.nb, tile.shape.mt,
+            int(tile.shape.fold), tile.th, tile.tw, tile.images, stream)
     if err != 0:
         raise RuntimeError("int8 conv kernel launch failed: "
                            + lib.pk_error_string(err).decode())

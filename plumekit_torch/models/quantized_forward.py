@@ -14,7 +14,10 @@ The scale algebra is the JAX package's, so every tensor is rounded once:
   epilogue (Q1, :mod:`plumekit_torch.models.kernels.int8_conv`: one launch
   per conv on the card, its plain version elsewhere);
 * max-pool runs on raw int8; the 2×2 stride-2 transposed conv is one s8
-  product (``torch._int_mm``) plus a pixel shuffle; the 1×1 head is fp32.
+  product with its dequant, pixel shuffle and requant (Q2,
+  :mod:`plumekit_torch.models.kernels.int8_upsample`: one launch per
+  upsample on the card, its plain version, ``torch._int_mm`` and eager
+  glue, elsewhere); the 1×1 head is fp32.
 
 Layouts are the JAX package's (NHWC activations, HWIO weights; the
 transposed conv's kernel ``(2, 2, Cin, Cout)`` pre-flipped, which is torch's
@@ -41,10 +44,11 @@ import torch
 import torch.nn.functional as F
 
 from plumekit_torch.config.train import UNetConfig
-from plumekit_torch.models.kernels import int8_conv
+from plumekit_torch.models.kernels import int8_conv, int8_upsample
 from plumekit_torch.models.kernels.fused_conv import fold_batchnorm
 
 _quant_act = int8_conv.quant_act
+_upsample_q = int8_upsample.upsample_dequant_ref
 
 
 def _check_cfg(cfg: UNetConfig) -> None:
@@ -81,18 +85,6 @@ def _quant_weight(w, in_scales):
 def _max_pool2_q(xq):
     b, h, w, c = xq.shape
     return xq.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
-
-
-def _upsample_q(xq, kq, sw, bias):
-    """2×2 stride-2 transposed conv in int8: one s8 product over
-    (B·h·w, Cin) × (Cin, 4·Cout) and a pixel shuffle; ``kq`` (2, 2, Cin,
-    Cout) pre-flipped, as the JAX package keeps it."""
-    b, h, w, cin = xq.shape
-    cout = kq.shape[-1]
-    k = kq.permute(2, 0, 1, 3).reshape(cin, 4 * cout)
-    acc = int8_conv.int_mm(xq.reshape(-1, cin), k).reshape(b, h, w, 2, 2, cout)
-    y = acc.float() * sw + bias
-    return y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, cout)
 
 
 def _qblock(xq, blk, skip=None, planes=None):
@@ -269,9 +261,9 @@ def quantize_unet(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
 def make_quantized_apply(cfg: UNetConfig):
     """Returns ``apply(qvars, x, train=False, planes=None) -> logits (B, H,
     W, out)``, the int8 twin of the U-Net's forward, drop-in as
-    ``make_multi_granule_infer``'s ``apply_fn``. Every 3×3 conv is Q1, the
-    transposed convs s8 products; the only fp32 work is in the epilogues,
-    the transposed convs' dequant and the 1×1 head. With a list
+    ``make_multi_granule_infer``'s ``apply_fn``. Every 3×3 conv is Q1,
+    every transposed conv with its requant Q2; the only fp32 work is in
+    their epilogues and the 1×1 head. With a list
     ``planes``, every int8 plane of the forward is appended to it in order
     (a debug form for comparing two devices)."""
     _check_cfg(cfg)
@@ -296,8 +288,8 @@ def make_quantized_apply(cfg: UNetConfig):
         xq = _qblock(xq, qvars["blocks"][depth], planes=planes)
         for u, skip in enumerate(reversed(skips)):
             up = qvars["ups"][u]
-            uq = keep(_quant_act(_upsample_q(xq, up["kq"], up["sw"],
-                                             up["bias"]), up["s_up"]))
+            uq = keep(int8_upsample.int8_upsample2x2(
+                xq, up["kq"], up["sw"], up["bias"], up["s_up"]))
             xq = _qblock(uq, qvars["blocks"][depth + 1 + u], skip, planes)
         head = qvars["head"]          # xq: the last block's fp32 output
         return xq @ head["kernel"][0, 0] + head["bias"]

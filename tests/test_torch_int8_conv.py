@@ -1,12 +1,15 @@
 """plumekit_torch's int8 conv Q1 (``models/kernels/int8_conv.py``): its
 plain version against the JAX package's int8 conv (``_qconv``, an XLA s8
 convolution) and int8 block (``_qblock``) on the same numpy inputs, the
-weight packing, the tile rule, and a plain emulation of the CUDA kernel's
-index scheme (the staged chunks, the ldmatrix row providers, the
-m16n8k32 s8 fragment order and the epilogue's pixel and channel map)
-against the plain version. The kernel itself is held against the plain
+weight packing, the shape and tile rule, and a plain emulation of the CUDA
+kernel's index scheme (tests/torch_int8_emulation.py: the padded-raster
+rows of the staged patch, the folded taps of the input conv, the s8 wgmma
+descriptor addresses, the m64nNk32 accumulator fragments, the stash and
+the 16-byte stores) against the plain version. The kernel itself is held against the plain
 version on the card by tests/test_torch_kernels_cuda.py and chip_smoke.py.
 """
+
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -17,7 +20,8 @@ import jax.numpy as jnp
 from plumekit.models import quantized_forward as jq
 from plumekit_torch.models import quantized_forward as tq
 from plumekit_torch.models.kernels import int8_conv
-from plumekit_torch.models.kernels.int8_conv import KC, round_up
+from plumekit_torch.models.kernels.int8_conv import KC, Shape, round_up
+from torch_int8_emulation import Block, run_grid
 
 # fp32 epilogue outputs: the same two roundings on both sides, but XLA's
 # CPU may contract acc·a + b into one FMA, which moves a result by an ulp
@@ -161,12 +165,87 @@ def test_int_mm_pads_and_cuts_exactly(m, k, n):
                                   a.astype(np.int64) @ b.astype(np.int64))
 
 
+# ---------------------------------------- the kernel's quotient, emulated
+
+def _round32(x):
+    """The float32 nearest the exact rational ``x``, ties to even."""
+    f = np.float32(float(x))
+    best = None
+    for c in (np.nextafter(f, np.float32(-np.inf)), f,
+              np.nextafter(f, np.float32(np.inf))):
+        d = abs(Fraction(float(c)) - x)
+        even = int(np.array(c, np.float32).view(np.int32)) % 2 == 0
+        if best is None or d < best[0] or (d == best[0] and even):
+            best = (d, c)
+    return np.float32(best[1])
+
+
+def _fma32(a, b, c):
+    return _round32(Fraction(float(a)) * Fraction(float(b))
+                    + Fraction(float(c)))
+
+
+def _kernel_quotient(y, s):
+    """csrc/int8_conv.cu's Quantizer before its rounding to an integer:
+    y clamped to ±128·s, r = RN(1/s), q0 = RN(y·r), two corrections by
+    the exact residual."""
+    hi = np.float32(128) * s
+    y = min(max(y, -hi), hi)
+    r = _round32(1 / Fraction(float(s)))
+    q0 = _round32(Fraction(float(y)) * Fraction(float(r)))
+    q = _fma32(_fma32(-s, q0, y), r, q0)
+    return _fma32(_fma32(-s, q, y), r, q)
+
+
+def test_kernel_quotient_is_the_ieee_quotient():
+    """The kernel divides by the output scale through its reciprocal and
+    two FMA corrections (Markstein); the plain version divides. Held here
+    in exact arithmetic against float32 division, on the epilogue's values
+    and on values one ulp around every rounding boundary k + 1/2 of the
+    int8 range (within the ±128·s the kernel clamps y to first), at
+    scales of the forward's sizes."""
+    rng = np.random.default_rng(12)
+    for s in np.float32([16.0 / 127, 12.0 / 127, 0.0371, 3.1e-3, 1.7,
+                         rng.uniform(1e-4, 1.0)]):
+        ys = list(rng.normal(0, 8 * s, 150).astype(np.float32))
+        for k in rng.integers(-128, 128, 60):
+            mid = np.float32((k + 0.5) * s)
+            ys += [np.nextafter(mid, np.float32(-np.inf)), mid,
+                   np.nextafter(mid, np.float32(np.inf))]
+        for y in ys:
+            assert _kernel_quotient(np.float32(y), s) == np.float32(y) / s, \
+                (y, s)
+
+
+def test_kernel_rounding_is_clamp_of_rint():
+    """The kernel clamps the quotient to ±127 and rounds it by adding
+    1.5·2^23 (a float's ulp is 1 there, ties to even); the plain version
+    rounds half to even, then clamps."""
+    rng = np.random.default_rng(13)
+    k = np.arange(-140, 141, dtype=np.float32)
+    q = np.concatenate([k + 0.5, k - 0.5, k,
+                        np.nextafter(k + 0.5, np.float32(np.inf)),
+                        np.nextafter(k + 0.5, np.float32(-np.inf)),
+                        rng.normal(0, 90, 5000).astype(np.float32),
+                        np.float32([3e38, -3e38, np.inf, -np.inf, 1e-30])])
+    c = (np.clip(q, -127, 127).astype(np.float32)
+         + np.float32(12582912.0)).astype(np.float32)
+    got = c.view(np.int32) - 0x4B400000
+    np.testing.assert_array_equal(got, np.clip(np.rint(q), -127, 127))
+
+
 # --------------------------------------------------------- packing, tiles
 
-def _unpack(packed, c0, c1, cout):
-    """The HWIO weights back from Q1's (Np, 9, Kp) layout."""
+def _unpack(packed, c0, c1, cout, shape):
+    """The HWIO weights back from Q1's layout at ``shape``."""
+    n_pass, n_k, taps = packed.shape[:3]
+    flat = packed.permute(0, 4, 2, 1, 3, 5).reshape(n_pass * shape.nb, taps,
+                                                     n_k * KC)
+    if shape.fold:
+        return flat[:cout, 0, :9 * c0].reshape(cout, 9, c0) \
+            .permute(1, 2, 0).reshape(3, 3, c0, cout)
     c0p = round_up(c0, KC)
-    taps = torch.cat([packed[:cout, :, :c0], packed[:cout, :, c0p:c0p + c1]],
+    taps = torch.cat([flat[:cout, :, :c0], flat[:cout, :, c0p:c0p + c1]],
                      dim=-1)                                  # (cout, 9, cin)
     return taps.permute(1, 2, 0).reshape(3, 3, c0 + c1, cout)
 
@@ -177,16 +256,40 @@ def _unpack(packed, c0, c1, cout):
 def test_weight_packing_round_trips(c0, c1, cout):
     rng = np.random.default_rng(c0 + c1 + cout)
     w = torch.from_numpy(_int8(rng, (3, 3, c0 + c1, cout)))
-    packed = int8_conv.pack_int8_weights(w, c0)
-    kp = round_up(c0, KC) + round_up(c1, KC)
-    assert packed.shape == (round_up(cout, KC), 9, kp)
-    assert packed.dtype == torch.int8 and packed.is_contiguous()
-    assert torch.equal(_unpack(packed, c0, c1, cout), w)
-    # every padding is zero: the packed sum of |w| is the weights' own
-    assert packed.abs().sum() == w.abs().sum()
-    # (n, tap, k) of the packed tensor is w[tap // 3, tap % 3, k, n]
-    n, tap, k = cout - 1, 5, c0 - 1
-    assert packed[n, tap, k] == w[tap // 3, tap % 3, k, n]
+    for shape in int8_conv.shape_candidates(c0, c1, cout):
+        packed = int8_conv.pack_int8_weights(w, c0, shape)
+        kp = KC if shape.fold else round_up(c0, KC) + round_up(c1, KC)
+        assert packed.shape == (round_up(cout, shape.nb) // shape.nb,
+                                kp // KC, shape.taps, 2, shape.nb, 16)
+        assert packed.dtype == torch.int8 and packed.is_contiguous()
+        assert torch.equal(_unpack(packed, c0, c1, cout, shape), w)
+        # every padding is zero: the packed sum of |w| is the weights' own
+        assert packed.abs().sum() == w.abs().sum()
+    # (pass, chunk, tap, group, n, byte) of the unfolded layout is
+    # w[tap // 3, tap % 3, 32·chunk + 16·group + byte, nb·pass + n]
+    shape = Shape(32, 4)
+    packed = int8_conv.pack_int8_weights(w, c0 + c1, shape)
+    n, tap, k = cout - 1, 5, c0 + c1 - 1
+    assert packed[n // 32, k // 32, tap, (k % 32) // 16, n % 32, k % 16] \
+        == w[tap // 3, tap % 3, k, n]
+
+
+def test_the_input_conv_folds_its_taps_into_one_k_row():
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy(_int8(rng, (3, 3, 2, 32)))
+    packed = int8_conv.pack_int8_weights(w, 2, Shape(32, 4, True))
+    assert packed.shape == (1, 1, 1, 2, 32, 16)
+    row = packed[0, 0, 0].permute(1, 0, 2).reshape(32, 32)  # (n, byte k)
+    for tap in range(9):
+        for c in range(2):
+            assert torch.equal(row[:, 2 * tap + c], w[tap // 3, tap % 3, c])
+    assert not row[:, 18:].any()
+    assert int8_conv.can_fold(3, 0) and not int8_conv.can_fold(4, 0)
+    assert not int8_conv.can_fold(2, 2)
+    with pytest.raises(ValueError, match="does not fold"):
+        int8_conv.pack_int8_weights(torch.zeros((3, 3, 4, 8),
+                                                dtype=torch.int8), 4,
+                                    Shape(32, 4, True))
 
 
 def test_packed_weights_are_cached_and_refreshed():
@@ -196,20 +299,66 @@ def test_packed_weights_are_cached_and_refreshed():
     b = torch.zeros(32)
     first = int8_conv.pack_conv(w, a, b)
     assert int8_conv.pack_conv(w, a, b) is first
+    other = int8_conv.pack_conv(w, a, b, shape=Shape(32, 4))
+    assert int8_conv.pack_conv(w, a, b, shape=Shape(32, 4)) is other
     w[0, 0, 0, 0] = 5 if w[0, 0, 0, 0] != 5 else 6      # in place
     second = int8_conv.pack_conv(w, a, b)
-    assert second is not first and second.wt[0, 0, 0] == w[0, 0, 0, 0]
+    assert second is not first and \
+        second.wt[0, 0, 0, 0, 0, 0] == w[0, 0, 0, 0]
     third = int8_conv.pack_conv(w, a.clone(), b)           # another tensor
     assert third is not second
     with pytest.raises(ValueError, match="do not fit"):
         int8_conv.pack_conv(w, torch.ones(31), b)
 
 
-@pytest.mark.parametrize("side,tile", [(288, 16), (144, 16), (72, 16),
-                                       (36, 16), (18, 8), (96, 16), (12, 16),
-                                       (9, 16)])
-def test_tile_rule(side, tile):
-    assert int8_conv.conv_tile(side, side) == tile
+def _unet_convs():
+    from plumekit_torch.config import UNetConfig
+    from plumekit_torch.experiments.int8_conv_times import conv_cases
+
+    return conv_cases(UNetConfig(), 288)
+
+
+@pytest.mark.parametrize("case", _unet_convs(),
+                         ids=lambda c: f"{c[0]}+{c[1]}-{c[2]}-{c[3]}")
+def test_rule_shape_and_tile_fit_every_unet_conv(case):
+    """Every conv of UNetConfig() at 288² tiles, 128 of them: the rule's
+    shape is a candidate, and at every candidate the tile's rows fit the
+    block, its shared memory the card, and the tiles cover the plane."""
+    c_skip, cin, cout, side, int8_out = case
+    c0, c1 = (c_skip, cin) if c_skip else (cin, 0)
+    cands = int8_conv.shape_candidates(c0, c1, cout)
+    assert int8_conv.conv_shape(c0, c1, cout) in cands
+    for shape in cands:
+        t = int8_conv.conv_tile(side, side, 128, shape)
+        rows = (t.images * t.th * t.tw if shape.fold
+                else int8_conv.raster_rows(t.th, t.tw, t.images))
+        assert t.shape == shape and rows <= shape.rows
+        assert int8_conv.smem_bytes(t, c0) <= int8_conv.SMEM_LIMIT
+        assert t.th <= side and t.tw <= side and t.images <= 128
+
+
+@pytest.mark.parametrize("side,shape,tile", [
+    (288, Shape(32, 4), (10, 48, 1)), (288, Shape(32, 4, True), (16, 32, 1)),
+    (144, Shape(64, 2), (5, 48, 1)), (72, Shape(128, 2), (12, 18, 1)),
+    (36, Shape(128, 2), (12, 18, 1)), (18, Shape(128, 2), (9, 18, 1)),
+    (18, Shape(256, 1), (6, 18, 1)), (9, Shape(32, 4), (9, 9, 4))])
+def test_tile_rule(side, shape, tile):
+    assert int8_conv.conv_tile(side, side, 128, shape) == \
+        int8_conv.Q1Tile(shape, *tile)
+
+
+def test_tile_rule_takes_the_fewest_blocks():
+    """Against every tile that fits, at a ragged plane and a small one."""
+    for h, w, shape in ((37, 29, Shape(64, 2)), (12, 10, Shape(32, 4)),
+                        (30, 31, Shape(32, 4, True))):
+        t = int8_conv.conv_tile(h, w, 3, shape)
+        blocks = -(-3 // t.images) * -(-h // t.th) * -(-w // t.tw)
+        for th in range(1, h + 1):
+            for tw in range(1, w + 1):
+                rows = th * tw if shape.fold else \
+                    int8_conv.raster_rows(th, tw, 1)
+                if rows <= shape.rows:
+                    assert blocks <= 3 * -(-h // th) * -(-w // tw)
 
 
 def test_wrapper_runs_the_plain_version_on_the_cpu_only():
@@ -223,141 +372,54 @@ def test_wrapper_runs_the_plain_version_on_the_cpu_only():
     assert int8_conv.LAUNCHES == before
     with pytest.raises(ValueError, match="no kernel"):
         int8_conv.int8_conv3x3(x.to("meta"), w, a, b)
+    with pytest.raises(ValueError, match="no kernel"):
+        int8_conv.int8_conv3x3_packed(x, int8_conv.pack_conv(w, a, b))
 
 
 # ------------------------------------- the kernel's index scheme, emulated
 
-KS = KC + 16        # bytes per staged row (csrc/int8_conv.cu: kKS)
-N_CHUNK = 32        # output channels per block (kNC)
-LANES = np.arange(32)
-
-
-def _stage_x(x0, x1, c0, b, y0, x0_, k0, xw):
-    """load_x: padded channels [k0, k0 + 32) of the xw × xw patch at (y0,
-    x0_) into a flat byte buffer of xw² rows of KS bytes."""
-    c0p = round_up(c0, KC)
-    plane, kb = (x0, k0) if k0 < c0p else (x1, k0 - c0p)
-    h, w, c = plane.shape[1:]
-    buf = np.zeros((xw * xw, KS), np.uint8)
-    for pix in range(xw * xw):
-        gy, gx = y0 + pix // xw, x0_ + pix % xw
-        if 0 <= gy < h and 0 <= gx < w:
-            vals = plane[b, gy, gx, kb:min(kb + KC, c)].view(np.uint8)
-            buf[pix, :len(vals)] = vals
-    return buf.reshape(-1)
-
-
-def _stage_w(wt, n0, k0):
-    """load_w: rows n·9 + tap of output channels [n0, n0 + 32), bytes
-    [k0, k0 + 32)."""
-    buf = np.zeros((N_CHUNK * 9, KS), np.uint8)
-    buf[:, :KC] = wt[n0:n0 + N_CHUNK, :, k0:k0 + KC].reshape(
-        N_CHUNK * 9, KC).view(np.uint8)
-    return buf.reshape(-1)
-
-
-def _ldmatrix_x4(buf, addr):
-    """ldmatrix.x4.b16: matrix j's rows come from lanes 8j..8j+7; lane L
-    receives bytes 4·(L & 3) .. +3 of row L >> 2 of each matrix. Returns
-    (4 registers, 32 lanes, 4 bytes)."""
-    regs = np.empty((4, 32, 4), np.int8)
-    for j in range(4):
-        rows = addr[8 * j + (LANES >> 2)]
-        idx = rows[:, None] + 4 * (LANES & 3)[:, None] + np.arange(4)
-        regs[j] = buf[idx].view(np.int8)
-    return regs
-
-
-def _mma_m16n8k32(acc, a, b0, b1):
-    """mma.sync m16n8k32 s8: A row (L >> 2) + 8·(j & 1), columns 4·(L & 3)
-    + 16·(j >> 1); B column L >> 2, rows 4·(L & 3) (+16 for b1); C rows
-    L >> 2 (e0, e1) and + 8 (e2, e3), columns 2·(L & 3) + (e & 1)."""
-    A = np.zeros((16, 32), np.int64)
-    B = np.zeros((32, 8), np.int64)
-    for j in range(4):
-        rows = (LANES >> 2) + 8 * (j & 1)
-        cols = 4 * (LANES & 3) + 16 * (j >> 1)
-        for e in range(4):
-            A[rows, cols + e] = a[j, :, e]
-    for reg, off in ((b0, 0), (b1, 16)):
-        for e in range(4):
-            B[4 * (LANES & 3) + off + e, LANES >> 2] = reg[:, e]
-    C = A @ B
-    for e in range(4):
-        acc[:, e] += C[(LANES >> 2) + 8 * (e >> 1), 2 * (LANES & 3) + (e & 1)]
-
-
-def emulate_q1(x0, x1, packed, tile):
-    """The accumulators Q1 computes, by its own index scheme: one block
-    per (image, tile, 32-channel chunk), 8 warps (4 along the pixels, 2
-    along the channels), the k loop over staged chunks, nine taps each."""
-    c0, cout = packed.c0, packed.cout
-    wt = packed.wt.numpy()
-    n_p, _, kp = wt.shape
+def emulate_q1(x0, x1, packed, tile, out_scale):
+    """Q1's output by the kernel's own index scheme
+    (tests/torch_int8_emulation.py), with the C entry's arguments."""
     bsz, h, w, _ = x0.shape
-    xw, mt = tile + 2, tile * tile // 16
-    mi = mt // 4
-    out = np.zeros((bsz, h, w, cout), np.int64)
-    for b in range(bsz):
-        for ty0 in range(0, h, tile):
-            for tx0 in range(0, w, tile):
-                for n0 in range(0, n_p, N_CHUNK):
-                    acc = np.zeros((8, mi, 2, 32, 4), np.int64)
-                    for k0 in range(0, kp, KC):
-                        xs = _stage_x(x0, x1, c0, b, ty0 - 1, tx0 - 1, k0, xw)
-                        ws = _stage_w(wt, n0, k0)
-                        for warp in range(8):
-                            wm, wn = warp % 4, warp // 4
-                            a_row = (LANES & 7) + (((LANES >> 3) & 1) << 3)
-                            a_k = (LANES >> 4) << 4
-                            b_n = wn * 16 + (LANES & 7) + ((LANES >> 4) << 3)
-                            b_k = ((LANES >> 3) & 1) << 4
-                            b_off = b_n * 9 * KS + b_k
-                            for tap in range(9):
-                                a_tap = ((tap // 3) * xw + tap % 3) * KS
-                                bf = _ldmatrix_x4(ws, b_off + tap * KS)
-                                for i in range(mi):
-                                    q = (wm + 4 * i) * 16 + a_row
-                                    r = q // tile
-                                    a_off = (r * xw + q - r * tile) * KS + a_k
-                                    af = _ldmatrix_x4(xs, a_off + a_tap)
-                                    _mma_m16n8k32(acc[warp, i, 0], af,
-                                                  bf[0], bf[1])
-                                    _mma_m16n8k32(acc[warp, i, 1], af,
-                                                  bf[2], bf[3])
-                    # the epilogue's map of the C fragments
-                    g, q4 = LANES >> 2, LANES & 3
-                    for warp in range(8):
-                        wm, wn = warp % 4, warp // 4
-                        for i in range(mi):
-                            for hh in range(2):
-                                q = (wm + 4 * i) * 16 + g + 8 * hh
-                                gy, gx = ty0 + q // tile, tx0 + q % tile
-                                for j in range(2):
-                                    n = n0 + (wn * 2 + j) * 8 + 2 * q4
-                                    for e in range(2):
-                                        keep = (gy < h) & (gx < w) & \
-                                            (n + e < cout)
-                                        out[b, gy[keep], gx[keep],
-                                            (n + e)[keep]] = \
-                                            acc[warp, i, j, keep, 2 * hh + e]
-    return out
+    blk = Block(x0=x0, x1=x1, wt=packed.wt.numpy(), a=packed.a.numpy(),
+                b=packed.b.numpy(), scale=out_scale, B=bsz, H=h, W=w,
+                c0=packed.c0, c0p=packed.c0p, c1=packed.c1,
+                n_k=packed.kp // KC, cout=packed.cout,
+                n_pass=packed.np_ // tile.shape.nb, nb=tile.shape.nb,
+                mt=tile.shape.mt, th=tile.th, tw=tile.tw, g=tile.images,
+                pitch=int8_conv.a_pitch(tile))
+    mode = "fold" if tile.shape.fold else "raster"
+    return run_grid(blk, mode, (bsz, h, w, packed.cout),
+                    np.int8 if out_scale is not None else np.float32)
 
 
-@pytest.mark.parametrize("shape,c_skip,cout,tile", [
-    ((1, 16, 16, 64), 0, 32, 16),     # one tile, two k chunks
-    ((1, 10, 13, 2), 0, 40, 8),       # the input conv, ragged, 2 n chunks
-    ((2, 8, 8, 16), 24, 16, 8)])      # two sources, padded in each
-def test_kernel_index_scheme_matches_plain_version(shape, c_skip, cout, tile):
+@pytest.mark.parametrize("shape,c_skip,cout,kernel_shape,tile", [
+    ((1, 16, 16, 64), 0, 32, Shape(32, 4), None),     # two k chunks
+    ((1, 10, 13, 2), 0, 40, Shape(32, 4, True), None),  # the fold, 2 passes
+    ((1, 10, 13, 2), 0, 40, Shape(64, 2), None),      # Cin 2 unfolded
+    ((2, 8, 8, 16), 24, 16, Shape(32, 4), None),      # two sources, padded
+    ((3, 6, 5, 48), 0, 72, Shape(64, 2), None),       # images per block
+    ((1, 12, 11, 32), 32, 128, Shape(128, 2), (5, 6, 1)),  # ragged tiles
+    ((1, 7, 9, 40), 0, 24, Shape(256, 1), None),      # one pass, wide
+    ((2, 9, 7, 3), 0, 8, Shape(32, 4, True), (4, 5, 1))])  # Cin 3, fold
+def test_kernel_index_scheme_matches_plain_version(shape, c_skip, cout,
+                                                   kernel_shape, tile):
     rng = np.random.default_rng(sum(shape) + cout)
     x = _int8(rng, shape)
     skip = _int8(rng, shape[:3] + (c_skip,)) if c_skip else None
     w = torch.from_numpy(_int8(rng, (3, 3, shape[3] + c_skip, cout)))
-    a, b = (torch.from_numpy(v) for v in _epilogue_args(rng, 9, cout))
-    packed = int8_conv.pack_conv(w, a, b, c_skip or None)
+    a, b = (torch.from_numpy(v) for v in
+            _epilogue_args(rng, shape[3] + c_skip, cout))
+    packed = int8_conv.pack_conv(w, a, b, c_skip or None, kernel_shape)
+    t = (int8_conv.conv_tile(shape[1], shape[2], shape[0], kernel_shape)
+         if tile is None else int8_conv.Q1Tile(kernel_shape, *tile))
     x0, x1 = (x, None) if skip is None else (skip, x)
-    got = emulate_q1(x0, x1, packed, tile)
-    want = int8_conv.int8_conv3x3_acc_ref(
-        torch.from_numpy(x), w,
-        None if skip is None else torch.from_numpy(skip))
-    np.testing.assert_array_equal(got, want.numpy())
+    args = (torch.from_numpy(x), w, a, b)
+    sk = None if skip is None else torch.from_numpy(skip)
+    for scale in (np.float32(16.0 / 127), None):
+        got, written = emulate_q1(x0, x1, packed, t, scale)
+        want = int8_conv.int8_conv3x3_ref(
+            *args, None if scale is None else torch.tensor(scale), sk)
+        assert (written == 1).all()             # every output once
+        np.testing.assert_array_equal(got, want.numpy())

@@ -592,7 +592,7 @@ def test_int8_conv_kernel_matches_plain_version(card, case):
     ((1, 5, 7, 2), 0, 8),          # tiny plane, Cin 2, Cout under a chunk
     ((3, 37, 29, 48), 0, 40),      # ragged, 16-aligned, two output chunks
     ((2, 20, 21, 24), 40, 33),     # two sources, odd Cout
-    ((1, 18, 18, 64), 64, 64)])    # the 8-px tile
+    ((1, 18, 18, 64), 64, 64)])    # the bottleneck's 18² plane
 def test_int8_conv_kernel_ragged_shapes(card, shape, c_skip, cout):
     from plumekit_torch.models.kernels import int8_conv
 
@@ -614,36 +614,127 @@ def test_int8_conv_kernel_ragged_shapes(card, shape, c_skip, cout):
                                                            skip))
 
 
+def _int8_shapes():
+    from plumekit_torch.models.kernels.int8_conv import SHAPES
+
+    return SHAPES
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 8])
+@pytest.mark.parametrize(
+    "tile", _int8_shapes(),
+    ids=lambda s: f"{s.nb}x{s.mt}{'-fold' if s.fold else ''}")
 def test_int8_conv_kernel_at_either_tile(card, tile):
-    """Q1 at each output tile the caller may ask for, whatever the tile
-    rule would pick: a ragged two-source plane, both output modes."""
+    """Q1 at each shape of the kernel (output channels and rows per block,
+    the fold), whatever the rule would pick, at the rule's tile and at a
+    ragged one: a ragged two-source plane (the fold: a 3-channel one), both
+    output modes."""
     from plumekit_torch.models.kernels import int8_conv
 
     rng = np.random.default_rng(7)
-    x = torch.from_numpy(rng.integers(0, 128, (2, 20, 21, 24),
+    c0, c1 = (3, 0) if tile.fold else (40, 24)
+    x = torch.from_numpy(rng.integers(0, 128, (2, 20, 21, c1 or c0),
                                       dtype=np.int8)).to(card)
-    skip = torch.from_numpy(rng.integers(0, 128, (2, 20, 21, 40),
-                                         dtype=np.int8)).to(card)
-    w = torch.from_numpy(rng.integers(-127, 128, (3, 3, 64, 33),
+    skip = (torch.from_numpy(rng.integers(0, 128, (2, 20, 21, c0),
+                                          dtype=np.int8)).to(card)
+            if c1 else None)
+    w = torch.from_numpy(rng.integers(-127, 128, (3, 3, c0 + c1, 33),
                                       dtype=np.int8)).to(card)
     a = torch.from_numpy(rng.uniform(1e-4, 1e-3, 33).astype(np.float32)
                          ).to(card)
     b = torch.from_numpy(rng.normal(0, 1, 33).astype(np.float32)).to(card)
-    packed = int8_conv.pack_conv(w, a, b, 40)
-    for scale in (torch.tensor(0.03, device=card), None):
-        got = int8_conv.int8_conv3x3_packed(x, packed, scale, skip, tile=tile)
-        assert torch.equal(got, int8_conv.int8_conv3x3_ref(x, w, a, b, scale,
-                                                           skip))
+    packed = int8_conv.pack_conv(w, a, b, c0 if c1 else None, tile)
+    for t in (int8_conv.conv_tile(20, 21, 2, tile),
+              int8_conv.Q1Tile(tile, 3, 5, 1)):
+        for scale in (torch.tensor(0.03, device=card), None):
+            got = int8_conv.int8_conv3x3_packed(x, packed, scale, skip,
+                                                tile=t)
+            assert torch.equal(got, int8_conv.int8_conv3x3_ref(
+                x, w, a, b, scale, skip))
+
+
+# ------------------------------------------------ Q2, int8 transposed conv
+
+def _upsample_cases():
+    from plumekit_torch.experiments.int8_conv_times import upsample_cases
+
+    return upsample_cases(UNetConfig(), 288)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _upsample_cases(),
+                         ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+def test_int8_upsample_kernel_matches_plain_version(card, case):
+    """Q2 at the four upsamples of UNetConfig() at 128 tiles of 288²: equal
+    bit for bit to its plain version (torch._int_mm and the eager dequant,
+    shuffle and requant), one launch each."""
+    from plumekit_torch.experiments.int8_conv_times import upsample_inputs
+    from plumekit_torch.models.kernels import int8_upsample
+
+    rng = np.random.default_rng(sum(case))
+    x, kq, sw, bias, scale = upsample_inputs(rng, case, 128, card)
+    before = int8_upsample.LAUNCHES
+    got = int8_upsample.int8_upsample2x2(x, kq, sw, bias, scale)
+    torch.cuda.synchronize()
+    assert int8_upsample.LAUNCHES == before + 1
+    ref = int8_upsample.int8_upsample2x2_ref(x, kq, sw, bias, scale)
+    assert got.dtype == torch.int8 and got.shape == ref.shape
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 5, 7, 2), 8),          # tiny plane, Cin 2, quadrants of 8
+    ((3, 37, 29, 48), 40),      # ragged plane, Cin 16-aligned, odd runs
+    ((2, 9, 11, 24), 33),       # Cin and Cout off the 16s
+    ((1, 13, 17, 100), 64)])    # Cin past a chunk, not 16-aligned
+def test_int8_upsample_kernel_ragged_shapes(card, shape, cout):
+    from plumekit_torch.models.kernels import int8_upsample
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)
+                         ).to(card)
+    kq = torch.from_numpy(rng.integers(-127, 128, (2, 2, shape[3], cout),
+                                       dtype=np.int8)).to(card)
+    sw = torch.from_numpy(rng.uniform(1e-4, 1e-3, cout).astype(np.float32)
+                          ).to(card)
+    bias = torch.from_numpy(rng.normal(0, 1, cout).astype(np.float32)
+                            ).to(card)
+    scale = torch.tensor(0.02, device=card)
+    want = int8_upsample.int8_upsample2x2_ref(x, kq, sw, bias, scale)
+    for s in int8_upsample.upsample_candidates(cout):
+        got = int8_upsample.int8_upsample2x2_packed(
+            x, int8_upsample.pack_upsample(kq, sw, bias, s), scale)
+        assert torch.equal(got, want), s
+
+
+@pytest.mark.cuda
+def test_int8_upsample_wrapper_refuses_what_the_kernel_does_not_take(card):
+    from plumekit_torch.models.kernels import int8_upsample
+
+    x = torch.zeros((1, 4, 4, 32), dtype=torch.int8, device=card)
+    kq = torch.zeros((2, 2, 32, 16), dtype=torch.int8, device=card)
+    v = torch.zeros(16, device=card)
+    s = torch.tensor(1.0, device=card)
+    with pytest.raises(ValueError, match="int8"):
+        int8_upsample.int8_upsample2x2(x.float(), kq, v, v, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_upsample.int8_upsample2x2(x.transpose(1, 2), kq, v, v, s)
+    with pytest.raises(ValueError, match="does not fit"):
+        int8_upsample.int8_upsample2x2(x[..., :16].contiguous(), kq, v, v, s)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(4 * 4 * 32 + 1, dtype=torch.int8, device=card)
+        int8_upsample.int8_upsample2x2(flat[1:].view(1, 4, 4, 32), kq, v, v,
+                                       s)
 
 
 @pytest.mark.cuda
 def test_int8_forward_on_the_card_matches_the_cpu(card):
     """The int8 forward of a seeded base-16 depth-3 U-Net, its qvars
-    calibrated on the card: every int8 plane equal to the CPU's plain
-    forward on the same qvars, the logits within 1e-5 of the largest."""
-    from plumekit_torch.models.kernels import int8_conv
+    calibrated on the card, Q1 per conv and Q2 per upsample: every int8
+    plane equal to the CPU's plain forward on the same qvars, the logits
+    within 1e-5 of the largest."""
+    from plumekit_torch.models.kernels import int8_conv, int8_upsample
     from plumekit_torch.models.quantized_forward import (
         make_quantized_apply, quantize_unet, qvars_to)
 
@@ -656,8 +747,10 @@ def test_int8_forward_on_the_card_matches_the_cpu(card):
     apply = make_quantized_apply(cfg)
     planes_card, planes_cpu = [], []
     before = int8_conv.LAUNCHES
+    before_q2 = int8_upsample.LAUNCHES
     got = apply(qvars, torch.from_numpy(x).to(card), planes=planes_card)
     assert int8_conv.LAUNCHES == before + 2 * (2 * cfg.depth + 1)
+    assert int8_upsample.LAUNCHES == before_q2 + cfg.depth
     want = apply(cpu_qvars, torch.from_numpy(x), planes=planes_cpu)
     assert len(planes_card) == len(planes_cpu) > 0
     for p, q in zip(planes_card, planes_cpu):
@@ -681,6 +774,7 @@ def test_int8_conv_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="aligned"):
         flat = torch.zeros(8 * 8 * 32 + 1, dtype=torch.int8, device=card)
         int8_conv.int8_conv3x3(flat[1:].view(1, 8, 8, 32), w, a, a)
-    with pytest.raises(ValueError, match="no tile of side 12"):
-        int8_conv.int8_conv3x3_packed(x, int8_conv.pack_conv(w, a, a),
-                                      tile=12)
+    with pytest.raises(ValueError, match="does not fit a block"):
+        packed = int8_conv.pack_conv(w, a, a)
+        int8_conv.int8_conv3x3_packed(
+            x, packed, tile=int8_conv.Q1Tile(packed.shape, 16, 64, 1))

@@ -25,8 +25,10 @@ needed = {"plumekit_torch.models.kernels.unet_mega",
           "plumekit_torch.train.device_data", "plumekit_torch.train.loop",
           "plumekit_torch.train.checkpoint", "plumekit_torch.data.make_dataset",
           "plumekit_torch.models.kernels.int8_conv",
+          "plumekit_torch.models.kernels.int8_upsample",
           "plumekit_torch.models.quantized_forward",
-          "plumekit_torch.experiments.int8_conv_times"}
+          "plumekit_torch.experiments.int8_conv_times",
+          "plumekit_torch.experiments.int8_variants"}
 banned = {"jax", "jaxlib", "flax", "orbax", "pandas", "plumekit"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 missing = sorted(needed - set(names))
