@@ -77,7 +77,23 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   granule must equal its ``--device cpu`` labels, the metrics CSV must
   continue) → ``predict_model`` plain, ``--fused`` and ``--int8``, and
   evals of the trained weights through K6 and K7 before and after one more
-  step against the plain eval.
+  step against the plain eval;
+* the streams (after the int8 serving path; its training side after the
+  training phase): ``predict_model`` over the four 2048² granules through
+  the decode pool and the stager for the plain, ``--fused`` and ``--int8``
+  forwards, each bit for bit against the serial split (decode, upload,
+  forward, readback, write one after the other), with the host's cores and
+  the decode workers; ``--quantize``, ``--quantize-output`` and both
+  against the plain stream within the JAX package's bounds, with the
+  bytes uploaded and read back per granule (half and a quarter of fp32);
+  ``--tta --tile 96`` over the plain, ``--fused``, ``--int8`` and
+  ``use_mega`` forwards against the mean of 8 explicit view forwards
+  within the serving gate, every kernel launched once per forward as
+  without the flag, with peak memory; the 16 × 512² training step through
+  the prefetched stream and the serial one; ``quantize_transfer`` on the
+  host stream and card-resident against the float runs within the JAX
+  package's bounds; ``build_features --detector rg`` on the decode pool
+  against the serial decode.
 
 Every kernel's time stands beside its bound: the bytes it must move (each
 input read once, each output written once) over the card's memory rate,
@@ -148,6 +164,9 @@ from plumekit_torch.models.losses import dice_bce_loss  # noqa: E402
 from plumekit_torch.train.state import create_state, make_schedule  # noqa
 from plumekit_torch.train.step import (  # noqa: E402
     make_train_step, step_generator)
+from plumekit_torch.infer import streaming, tta  # noqa: E402
+from plumekit_torch.io import prefetch  # noqa: E402
+from plumekit_torch.train.loop import train as train_loop  # noqa: E402
 
 SEED = 0
 DEV = torch.device("cuda")
@@ -460,10 +479,12 @@ def serve(root, *flags):
     return secs, preds
 
 
-def serving_split(root, model, out_dir, apply_fn, icfg, label):
-    """Seconds per layer of the serving loop of one forward, run as the CLI
-    runs it (decode, upload, sliding inference, readback, write), each step
-    synchronised so that it is timed on its own."""
+def serving_split(root, model, out_dir, apply_fn, icfg, label,
+                  variables=None):
+    """Seconds per layer of the serving loop of one forward, run serially
+    (decode, upload, sliding inference, readback, write, each step
+    synchronised so that it is timed on its own); ``variables`` (default
+    ``model``) go to ``apply_fn``."""
     maiac = os.path.join(root, "raw", "plume_identification", "maiac")
     paths = [os.path.join(maiac, f) for f in sorted(os.listdir(maiac))]
     infer = make_multi_granule_infer(apply_fn, icfg)
@@ -483,7 +504,8 @@ def serving_split(root, model, out_dir, apply_fn, icfg, label):
                 p, model.cfg.depth)) for p in paths[i:i + BATCH_GRANULES]]
             x = timed("upload", lambda: torch.from_numpy(
                 np.stack([c for _, c, _ in group])).to(DEV))
-            probs, _ = timed("infer", lambda: infer(model, x))
+            probs, _ = timed("infer", lambda: infer(
+                model if variables is None else variables, x))
             probs = timed("readback", lambda: probs.cpu().numpy())
             for j, (name, _c, (h, w)) in enumerate(group):
                 timed("write", lambda: cli._write_prediction(
@@ -947,7 +969,8 @@ def mega_path(model, root, tmp, forward_ms):
            "forward_mpix_s": {k: mpix / (forwards * v / 1e3)
                               for k, v in forward_ms.items()},
            "max_abs_dprobs": max_dp, "mask_flip_share": share,
-           "confident_flips": confident_flips, "mega_split_s": split}
+           "confident_flips": confident_flips, "mega_split_s": split,
+           "checkpoint": mega_ckpt}
     print(f"predict_model --tile {MEGA.tile_size} --overlap {MEGA.overlap} "
           f"{GRANULES}x{GRANULE_PX}^2: K7 launches {launches['k7']} "
           f"({forwards} forwards of {BATCH_GRANULES * MEGA.batch_tiles} tiles),"
@@ -1170,6 +1193,318 @@ def int8_path(root, cfg):
           f"{res['int8_mpix_s'][0]:.2f}/{res['int8_mpix_s'][1]:.2f} MPix/s, "
           "calibration " + "/".join(f"{s:.2f}" for s in calib_s) + " s",
           flush=True)
+    return res
+
+
+
+# --------------------------------------------- streams: pool, stager, flags
+
+# the JAX package's bounds of the quantized streams against the fp32 one
+# (tests/test_viz_streaming.py:131-195): the uint16 upload's step through
+# the forward, the uint8 readback's half step, and both
+QUANT_ATOL = 1e-2
+OUT_ATOL = 1 / 510 + 1e-7
+
+
+def read_split(out_dir):
+    """{granule: probs} of the prediction files in ``out_dir``."""
+    preds = {}
+    for i in range(GRANULES):
+        with np.load(os.path.join(out_dir, f"g{i}_pred.npz")) as d:
+            preds[f"g{i}"] = d["probs"]
+    return preds
+
+
+def serve_int8_scales(root, *flags):
+    """``serve(root, "--int8", *flags)`` and the int8 variables the CLI
+    calibrated for it (its own call, captured)."""
+    real, calibrated = cli._int8_quantize_from_paths, []
+
+    def captured(*args, **kw):
+        calibrated.append(real(*args, **kw))
+        return calibrated[-1]
+
+    cli._int8_quantize_from_paths = captured
+    try:
+        secs, preds = serve(root, "--int8", *flags)
+    finally:
+        cli._int8_quantize_from_paths = real
+    return secs, preds, calibrated[0][0]
+
+
+class ByteCounter:
+    """Counts the bytes the stream uploads (``streaming.host_payload``) and
+    reads back (``streaming.readback``) while installed."""
+
+    def __init__(self):
+        self.uploaded = self.read_back = self.granules = 0
+        self.payload, self.back = streaming.host_payload, streaming.readback
+
+    def __enter__(self):
+        def payload(channels, quantize):
+            out = self.payload(channels, quantize)
+            self.uploaded += sum(a.nbytes for a in out)
+            self.granules += 1
+            return out
+
+        def back(probs):
+            out = self.back(probs)
+            self.read_back += out.nbytes
+            return out
+
+        streaming.host_payload, streaming.readback = payload, back
+        return self
+
+    def __exit__(self, *exc):
+        streaming.host_payload, streaming.readback = self.payload, self.back
+
+    def per_granule(self):
+        return {"uploaded": self.uploaded / self.granules,
+                "read_back": self.read_back / self.granules}
+
+
+def stream_serving(model, root, tmp):
+    """``predict_model`` over the 4 × 2048² root through the pooled and
+    prefetched stream for the plain, ``--fused`` and ``--int8`` forwards,
+    each against its serial split (decode, upload, forward, readback and
+    write one after the other) bit for bit; then ``--quantize``,
+    ``--quantize-output`` and both under the JAX package's bounds against
+    the plain stream, with the bytes uploaded and read back per granule."""
+    cfg = model.cfg
+    mpix = GRANULES * GRANULE_PX**2 / 1e6
+    res = {"cores": os.cpu_count(),
+           "decode_workers": prefetch.default_decode_workers(),
+           "forwards": {}, "quantized": {}}
+    pooled = {}
+    for label, flags in (("plain", []), ("fused", ["--fused"]),
+                         ("int8", ["--int8"])):
+        variables = None
+        with ByteCounter() as count:
+            if label == "int8":
+                secs, preds, variables = serve_int8_scales(root)
+            else:
+                secs, preds = serve(root, *flags)
+        pooled[label] = (preds, count.per_granule())
+        if label == "int8":
+            # the serial split serves the scales the CLI calibrated
+            apply_fn = make_quantized_apply(cfg)
+        else:
+            apply_fn = (make_fused_apply(cfg) if label == "fused"
+                        else (lambda m, x: m(x)))
+        out = os.path.join(tmp, f"stream_split_{label}")
+        os.makedirs(out)
+        split = serving_split(root, model, out, apply_fn, ICFG,
+                              f"{label} serial", variables=variables)
+        serial = read_split(out)
+        unequal = [k for k in preds if not np.array_equal(preds[k],
+                                                          serial[k])]
+        if unequal:
+            raise AssertionError(f"{label}: the pooled stream's probs differ "
+                                 f"from the serial split's on {unequal}")
+        res["forwards"][label] = {
+            "call_s": secs, "call_mpix_s": mpix / secs,
+            "serial_split_s": split,
+            "serial_mpix_s": mpix / sum(split.values())}
+        print(f"streams {label}: predict_model {GRANULES}x{GRANULE_PX}^2 "
+              f"{secs:.3f} s ({mpix / secs:.3f} MPix/s) on "
+              f"{res['cores']} cores, {res['decode_workers']} decode "
+              f"workers; serial split {sum(split.values()):.3f} s "
+              f"({mpix / sum(split.values()):.3f} MPix/s); probs equal bit "
+              "for bit", flush=True)
+
+    ref, fp32_bytes = pooled["plain"]
+    for label, flags, atol in (
+            ("quantize", ["--quantize"], QUANT_ATOL),
+            ("quantize_output", ["--quantize-output"], OUT_ATOL),
+            ("both", ["--quantize", "--quantize-output"],
+             QUANT_ATOL + 1 / 510)):
+        with ByteCounter() as count:
+            secs, preds = serve(root, *flags)
+        nbytes = count.per_granule()
+        max_dp = max(float(np.abs(preds[k] - ref[k]).max()) for k in ref)
+        if max_dp > atol:
+            raise AssertionError(f"{label}: max|dp| {max_dp} > {atol}")
+        if "--quantize" in flags:
+            if all(np.array_equal(preds[k], ref[k]) for k in ref):
+                raise AssertionError(f"{label}: equal to the fp32 stream: "
+                                     "the upload was not quantized")
+            # the uint16 code, plus 16 bytes of lo and scale
+            if nbytes["uploaded"] != fp32_bytes["uploaded"] / 2 + 16:
+                raise AssertionError(f"{label}: uploaded {nbytes} against "
+                                     f"fp32 {fp32_bytes}")
+        if "--quantize-output" in flags:
+            off = max(float(np.abs(p * 255 - np.round(p * 255)).max())
+                      for p in preds.values())
+            if off > 1e-3 or nbytes["read_back"] != \
+                    fp32_bytes["read_back"] / 4:
+                raise AssertionError(f"{label}: off the /255 lattice by "
+                                     f"{off} or read back {nbytes}")
+        res["quantized"][label] = {"call_s": secs,
+                                   "call_mpix_s": mpix / secs,
+                                   "max_abs_dprobs": max_dp,
+                                   "bytes_per_granule": nbytes}
+        print(f"streams {label}: {secs:.3f} s ({mpix / secs:.3f} MPix/s), "
+              f"max|dp| {max_dp:.4g} (bound {atol:.4g}); per granule "
+              f"uploaded {nbytes['uploaded']:.0f} B, read back "
+              f"{nbytes['read_back']:.0f} B (fp32: "
+              f"{fp32_bytes['uploaded']:.0f}, {fp32_bytes['read_back']:.0f})",
+              flush=True)
+    res["fp32_bytes_per_granule"] = fp32_bytes
+    return res
+
+
+def explicit_tta(apply_fn):
+    """The reference of ``make_tta_apply``: the 8 D4 views as 8 forwards,
+    each inverted, their sigmoids averaged, returned as logits."""
+    def apply(variables, x):
+        probs = []
+        for k, f in tta._D4:
+            v = torch.flip(x, dims=(2,)) if f else x
+            y = apply_fn(variables, torch.rot90(v, k, dims=(1, 2))
+                         .contiguous())
+            y = torch.rot90(y, -k, dims=(1, 2))
+            probs.append(torch.sigmoid(
+                (torch.flip(y, dims=(2,)) if f else y).float()))
+        p = torch.stack(probs).mean(0).clamp(1e-7, 1.0 - 1e-7)
+        return torch.log(p) - torch.log1p(-p)
+
+    return apply
+
+
+def stream_tta(model, root, mega_ckpt):
+    """``predict_model --tta --tile 96 --overlap 32`` over the 4 × 2048²
+    root for the plain, ``--fused``, ``--int8`` and ``use_mega`` forwards:
+    each kernel launched as often as without ``--tta`` (K6 9, Q1 18 and Q2 4
+    per forward, K7 once), the probs against the mean of 8 explicit view
+    forwards of the same forward within the serving gate, peak memory per
+    call."""
+    cfg = model.cfg
+    _, forwards = serving_geometry(MEGA)
+    maiac = os.path.join(root, "raw", "plume_identification", "maiac")
+    paths = [os.path.join(maiac, f) for f in sorted(os.listdir(maiac))]
+    geometry = ["--tile", str(MEGA.tile_size), "--overlap",
+                str(MEGA.overlap)]
+    mega_model = build_model(dataclasses.replace(cfg, use_mega=True)) \
+        .to(DEV).eval()
+    mega_model.load_state_dict(model.state_dict())
+    res = {}
+    for label, flags, want in (
+            ("plain", [], {}),
+            ("fused", ["--fused"], {"k6": 2 * cfg.depth + 1}),
+            ("int8", ["--int8"], {"q1": 2 * (2 * cfg.depth + 1),
+                                  "q2": cfg.depth}),
+            ("use_mega", ["--checkpoint", mega_ckpt], {"k7": 1})):
+        fused_conv.LAUNCHES = unet_mega.LAUNCHES = 0
+        int8_conv.LAUNCHES = int8_upsample.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        if label == "int8":
+            secs, preds, qvars = serve_int8_scales(root, "--tta", *geometry)
+        else:
+            secs, preds = serve(root, "--tta", *geometry, *flags)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = {"k6": fused_conv.LAUNCHES, "k7": unet_mega.LAUNCHES,
+                    "q1": int8_conv.LAUNCHES, "q2": int8_upsample.LAUNCHES}
+        expected = {k: want.get(k, 0) * forwards for k in launches}
+        if launches != expected:
+            raise AssertionError(f"--tta {label}: launches {launches}, "
+                                 f"expected {expected}")
+        variables, net = model, model
+        if label == "int8":
+            variables, apply_fn = qvars, make_quantized_apply(cfg)
+        elif label == "fused":
+            apply_fn = make_fused_apply(cfg)
+        else:
+            if label == "use_mega":
+                variables = net = mega_model
+            apply_fn = lambda m, x: m(x)    # noqa: E731
+        infer = make_multi_granule_infer(explicit_tta(apply_fn), MEGA)
+        want_preds = {}
+        with torch.inference_mode():
+            for path in paths:
+                name, ch, (h, w) = decode_granule_channels(path,
+                                                           net.cfg.depth)
+                p, _ = infer(variables, torch.from_numpy(ch)[None].to(DEV))
+                want_preds[name] = p[0, :h, :w].cpu().numpy()
+        max_dp, share, confident = compare_served(preds, want_preds)
+        res[label] = {"call_s": secs, "launches": launches,
+                      "forwards": forwards, "peak_memory_gb": peak_gb,
+                      "max_abs_dprobs": max_dp, "mask_flip_share": share,
+                      "confident_flips": confident}
+        print(f"streams --tta {label} (tile {MEGA.tile_size}, "
+              f"up to {8 * BATCH_GRANULES * MEGA.batch_tiles} tiles per "
+              "forward): "
+              f"{secs:.3f} s, launches {launches} over {forwards} forwards, "
+              f"peak {peak_gb:.2f} GB; against 8 explicit view forwards "
+              f"max|dp| {max_dp:.4g}, flips {share:.3e} ({confident} "
+              "confident)", flush=True)
+        if max_dp > PROB_ATOL or confident:
+            raise AssertionError(f"--tta {label} and its explicit views "
+                                 "disagree")
+    return res
+
+
+def stream_training(tmp, step_times):
+    """The training side of the streams: the 16 × 512² host-stream step
+    with the prefetched stream and with the serial ``host_batches`` (from
+    ``train_step_times``, timed in turns); the quantized transfers on the
+    host stream and card-resident against the float runs within the JAX
+    package's bounds (tests/test_quant_transfer.py: loss 5e-3, eval IoU
+    0.02), fp32 as there; ``build_features --detector rg`` on the decode
+    pool against the serial decode."""
+    row = next(r for r in step_times if r["geometry"] == "config2")
+    res = {"config2": {k: row[k] for k in (
+        "prefetched_loop_ms_per_step", "serial_loop_ms_per_step", "body_ms",
+        "draw_ms", "upload_ms")}, "quantize_transfer": {}}
+    print("streams train 16x512^2, ms per step in turns: prefetched "
+          + "/".join(f"{ms:.3f}" for ms in row["prefetched_loop_ms_per_step"])
+          + ", serial host_batches "
+          + "/".join(f"{ms:.3f}" for ms in row["serial_loop_ms_per_step"])
+          + f"; body {row['body_ms']['median']:.3f} ms", flush=True)
+
+    unet_cfg = UNetConfig(compute_dtype="float32")
+    data_cfg = DataConfig(granule_size=256, n_train_granules=2,
+                          n_eval_granules=1)
+    for resident in (False, True):
+        hist = {}
+        for quant in (False, True):
+            tcfg = TrainConfig(
+                batch_size=8, tile_size=128, total_steps=6, warmup_steps=2,
+                log_every=3, checkpoint_every=1000, augment=False,
+                device_data=resident, quantize_transfer=quant,
+                checkpoint_dir=os.path.join(
+                    tmp, f"quant_{int(resident)}{int(quant)}"))
+            hist[quant] = train_loop(unet_cfg, tcfg, data_cfg, device=DEV)
+        d_loss = max(abs(a - b) for a, b in zip(hist[True]["loss"],
+                                                 hist[False]["loss"]))
+        d_iou = abs(hist[True]["eval_iou"][-1] - hist[False]["eval_iou"][-1])
+        key = "card_resident" if resident else "host_stream"
+        res["quantize_transfer"][key] = {
+            "loss": hist[True]["loss"], "float_loss": hist[False]["loss"],
+            "eval_iou": hist[True]["eval_iou"][-1],
+            "float_eval_iou": hist[False]["eval_iou"][-1]}
+        print(f"streams train --quantize-transfer, {key}: max|dloss| "
+              f"{d_loss:.3g}, |d eval IoU| {d_iou:.3g}", flush=True)
+        if d_loss > 5e-3 or d_iou > 0.02:
+            raise AssertionError(f"quantize_transfer {key} leaves the JAX "
+                                 "package's bounds of the float run")
+
+    root, _cpu_root, names = feature_root(tmp, "stream_features", BENCH_SCENE)
+    serial_root = os.path.join(tmp, "stream_features_serial")
+    shutil.copytree(root, serial_root)
+    pooled_s = build_features(root, "--detector", "rg")
+    real = prefetch.decode_pool
+    prefetch.decode_pool = lambda items, fn, workers, depth: map(fn, items)
+    try:
+        serial_s = build_features(serial_root, "--detector", "rg")
+    finally:
+        prefetch.decode_pool = real
+    for n in names:
+        assert_features_equal(read_features(root, n),
+                              read_features(serial_root, n), n)
+    res["build_features"] = {"pooled_s": pooled_s, "serial_s": serial_s}
+    print(f"streams build_features rg {FEATURE_GRANULES}x"
+          f"{BENCH_SCENE['size']}^2: decode pool {pooled_s:.2f} s, serial "
+          f"{serial_s:.2f} s, outputs equal", flush=True)
     return res
 
 
@@ -2316,6 +2651,12 @@ def main() -> int:
         int8_served = int8_path(root, model.cfg)
         int8_phase_s = time.perf_counter() - t_int8
         print(f"int8 phase {int8_phase_s:.1f} s", flush=True)
+        # the streams: decode pool, stager, quantized transfers, --tta
+        t_streams = time.perf_counter()
+        streams = {"serving": stream_serving(model, root, tmp),
+                   "tta": stream_tta(model, root,
+                                     mega_served["checkpoint"])}
+        streams_s = time.perf_counter() - t_streams
     del model
     torch.cuda.empty_cache()
 
@@ -2340,6 +2681,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
         training = train_phase(tmp)
     chain = training["chain"]
+    # the streams' training side, after the step times it reads
+    t_streams = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        streams["training"] = stream_training(tmp, training["step_times"])
+    streams["seconds"] = streams_s + time.perf_counter() - t_streams
+    print(f"streams phase {streams['seconds']:.1f} s", flush=True)
+    tta_launches = {k: streams["tta"][label]["launches"][k] for k, label in
+                    (("k6", "fused"), ("k7", "use_mega"), ("q1", "int8"),
+                     ("q2", "int8"))}
 
     timed = [r for r in kernel_rows if r["set"] == str(ICFG.tile_size)]
     timed_mega = [r for r in kernel_rows if r["set"] == str(MEGA.tile_size)]
@@ -2396,7 +2746,10 @@ def main() -> int:
         "library_ms_tile_96": sum(r["plain_ms"] for r in timed_mega),
         # the trained checkpoint served with --fused, and use_pallas evals
         "train_launches": chain["k6_serving_launches"] + sum(
-            r["launches"] for r in chain["eval_routes"]["use_pallas"])},
+            r["launches"] for r in chain["eval_routes"]["use_pallas"]),
+        # predict_model --tta --fused at tile 96: one launch per block at
+        # 8x the tiles
+        "tta_launches": tta_launches["k6"]},
         ccl_entry("multi_threshold_ccl_fused",
                   "plumekit/ops/pallas/ccl_sweep.py:544", bench_ccl,
                   features["launches"]["k1"]
@@ -2455,6 +2808,7 @@ def main() -> int:
         "fp32_max_abs_err": mega["fp32"]["max_abs_diff"],
         "train_launches": sum(r["launches"]
                               for r in chain["eval_routes"]["use_mega"]),
+        "tta_launches": tta_launches["k7"],
         "at": f"one forward of UNetConfig(), {batch} tiles of "
               f"{MEGA.tile_size}x{MEGA.tile_size}"}, {
         "name": "scalar_gather_probe", "route": "cuda",
@@ -2493,6 +2847,7 @@ def main() -> int:
         "single_ms": sum(r["single_ms"] for r in q1_rows),
         # the trained checkpoint served with --int8
         "train_launches": chain["q1_serving_launches"],
+        "tta_launches": tta_launches["q1"],
         "at": f"the 18 convs of one int8 forward of UNetConfig(), "
               f"{INT8_BATCH} tiles of {ICFG.tile_size}x{ICFG.tile_size}"}, {
         "name": "int8_upsample2x2", "route": "cuda",
@@ -2516,6 +2871,7 @@ def main() -> int:
         "single_ms": sum(r["single_ms"] for r in q2_rows),
         # the trained checkpoint served with --int8
         "train_launches": chain["q2_serving_launches"],
+        "tta_launches": tta_launches["q2"],
         "at": f"the 4 upsamples of one int8 forward of UNetConfig(), "
               f"{INT8_BATCH} tiles of {ICFG.tile_size}x{ICFG.tile_size}"}]
     copy_rate = measured_copy_rate()
@@ -2544,7 +2900,7 @@ def main() -> int:
                    "detectors": detectors,
                    "build_features_basic": basic_features,
                    "build_features_gaussian": gaussian_features,
-                   "training": training,
+                   "training": training, "streams": streams,
                    "copy_rate_gb_per_s": copy_rate / 1e9,
                    "seconds": time.perf_counter() - t_start,
                    "kernels": kernels},

@@ -29,7 +29,11 @@ Usage: ``plumekit-torch <command> --root R ...`` or
 * ``predict_model`` writes ``<root>/processed/predictions/<name>_pred.npz``
   (``probs``, ``mask``, ``threshold``) as ``plumekit predict_model`` does;
   ``--int8`` serves the int8 forward, calibrated on the first granule with
-  signal, through the int8 conv kernel on the card.
+  signal, through the int8 conv kernels on the card; ``--tta`` averages the
+  8 D4 views of every tile batch, ``--quantize`` uploads uint16 channels
+  and ``--quantize-output`` reads back uint8 probabilities. Granules decode
+  on a thread pool and upload on a stager thread ahead of the forwards, as
+  in the JAX package; ``build_features`` decodes on the same pool.
 
 The device is the card unless ``--device`` says otherwise.
 """
@@ -56,12 +60,9 @@ THRESHOLD_BASENAME = "threshold.json"
 #: ROADMAP.md item (queue A) that ports each
 UNPORTED_FLAGS = {
     "exported": "exported serving artifacts",
-    "tta": "test-time augmentation",
     "mesh_devices": "multi-card serving",
     "tuned": "serving geometry tuner",
     "prune_level": "UNet++",
-    "quantize": "quantized transfers",
-    "quantize_output": "quantized transfers",
     "plot": "prediction quicklooks",
 }
 
@@ -79,7 +80,6 @@ UNPORTED_TRAIN_FLAGS = {
     "distill_calibrate": "training and evaluation extras",
     "arch": "UNet++",
     "deep_supervision": "UNet++",
-    "quantize_transfer": "quantized transfers",
 }
 
 #: granules the int8 calibration looks at for one with signal
@@ -152,6 +152,11 @@ def _build_serving(args, unet_cfg, threshold: float):
     else:
         def apply_fn(model, x):
             return model(x)
+    if args.tta:
+        # the 8 D4 views in one forward at 8x the batch, around any forward
+        from plumekit_torch.infer.tta import make_tta_apply
+
+        apply_fn = make_tta_apply(apply_fn)
     icfg = InferConfig(tile_size=args.tile, overlap=args.overlap,
                        batch_tiles=args.batch_tiles, threshold=threshold)
     return make_multi_granule_infer(apply_fn, icfg,
@@ -303,10 +308,13 @@ def cmd_predict_model(args) -> int:
                          min(INT8_CALIBRATION_CANDIDATES, len(granule_paths)),
                          len(granule_paths))
             return 1
+    # granule i+1 decodes (on a pool) and uploads (on a stager thread)
+    # while granule i computes and is written here, in order
     with torch.inference_mode():
         for name, probs in stream_inference(
                 granule_paths, infer, variables, unet_cfg.depth, device,
-                batch_granules=args.batch_granules, predecoded=predecoded):
+                quantize=args.quantize, batch_granules=args.batch_granules,
+                predecoded=predecoded, quantize_output=args.quantize_output):
             _write_prediction(out_dir, name, probs, threshold=threshold)
     return 0
 
@@ -372,7 +380,8 @@ def cmd_train_model(args) -> int:
             tile_size=args.tile, checkpoint_dir=os.path.join(
                 args.root, PathsConfig().model_dir, "checkpoints"),
             steps_per_dispatch=args.steps_per_dispatch,
-            device_data=args.device_data),
+            device_data=args.device_data,
+            quantize_transfer=args.quantize_transfer),
         data_cfg=DataConfig(granule_size=args.granule_size),
         weak_labels=args.weak_labels, device=device)
     logger.info("final eval IoU %.3f", history["eval_iou"][-1])
@@ -391,6 +400,7 @@ def cmd_build_features(args) -> int:
     from plumekit_torch.identify.api import identify as api_identify
     from plumekit_torch.io.dates import granule_date
     from plumekit_torch.io.fires import load_fire_csv, n_fires
+    from plumekit_torch.io import prefetch
     from plumekit_torch.io.granule import GRANULE_EXTENSIONS, load_granule
     from plumekit_torch.train.checkpoint import WorkLog
 
@@ -402,7 +412,7 @@ def cmd_build_features(args) -> int:
         return 1
     if args.plot:
         logger.error("--plot is not ported to plumekit_torch yet (ROADMAP.md,"
-                     " queue A: '20. Prediction quicklooks')")
+                     " queue A: 'prediction quicklooks')")
         return 1
     try:
         device = resolve_device(args.device)
@@ -437,8 +447,14 @@ def cmd_build_features(args) -> int:
     def decode(fname):
         # MAIAC names carry the acquisition date; synthetic granules fall
         # back to the fire table's first date
-        return (load_granule(os.path.join(maiac_dir, fname)),
+        return (fname, load_granule(os.path.join(maiac_dir, fname)),
                 granule_date(fname, default=default_date))
+
+    # granule i+1 decodes on a pool while granule i identifies; depth
+    # bounds the granules held in host memory
+    stream = prefetch.decode_pool(todo, decode,
+                                  workers=prefetch.default_decode_workers(),
+                                  depth=max(2, args.batch_scenes + 1))
 
     n_done = 0
 
@@ -477,8 +493,7 @@ def cmd_build_features(args) -> int:
                 write_rg(fname, *result)
             buf.clear()
 
-        for fname in todo:
-            granule, date = decode(fname)
+        for fname, granule, date in stream:
             if buf and granule.shape != buf[0][1].shape:
                 flush()
             buf.append((fname, granule, date))
@@ -488,8 +503,7 @@ def cmd_build_features(args) -> int:
         logger.info("processed %d granules", n_done)
         return 0
 
-    for fname in todo:
-        granule, date = decode(fname)
+    for fname, granule, date in stream:
         if args.detector == "rg":
             write_rg(fname, *rg_mod.identify(
                 granule.first_layer(), granule.lat, granule.lon, date, fires,
@@ -571,11 +585,13 @@ def _add_serving_args(p: argparse.ArgumentParser) -> None:
                         "the first granule with signal; every 3x3 conv "
                         "through the hand-written int8 CUDA kernel")
     p.add_argument("--tta", action="store_true",
-                   help="D4 test-time augmentation" + unported)
+                   help="D4 test-time augmentation: the 8 views of every "
+                        "tile batch in one forward, probabilities averaged")
     p.add_argument("--quantize", action="store_true",
-                   help="uint16 host-to-device payloads" + unported)
+                   help="uint16 host-to-device payloads, dequantized on the "
+                        "device")
     p.add_argument("--quantize-output", action="store_true",
-                   help="uint8 probability readback" + unported)
+                   help="uint8 probability readback (within 1/510)")
     p.add_argument("--exported", default=None,
                    help="serve an exported artifact" + unported)
     p.add_argument("--prune-level", type=int, default=None,
@@ -628,7 +644,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--curated", action="store_true",
                    help="train on curated samples" + unported)
     t.add_argument("--quantize-transfer", action="store_true",
-                   help="uint16/uint8 tile transfers" + unported)
+                   help="uint16 channels and uint8 masks across the "
+                        "host-to-device hop, dequantized in the step")
     t.add_argument("--arch", choices=["unet", "unetpp"], default="unet",
                    help="architecture family (unetpp" + unported + ")")
     t.add_argument("--deep-supervision", action="store_true",

@@ -63,8 +63,8 @@ class TrainConfig:
     #: never cross a log, eval or checkpoint step, and every step's data and
     #: augmentation are those of the single-step loop
     steps_per_dispatch: int = 1
-    #: uint16/uint8 tile transfers: not ported yet (ROADMAP.md, queue A:
-    #: 'quantized transfers'); the trainer refuses it
+    #: uint16 channels and uint8 masks across the host-to-device hop (or
+    #: in the card-resident set), decoded on the device in the step
     quantize_transfer: bool = False
     #: keep the whole training set in the card's memory and draw and
     #: augment tiles there (``train/device_data.py``); the draws are

@@ -15,7 +15,12 @@ or CUDA events around the draw on the card), the upload (CUDA events
 around pinning and the copies) and the step body (CUDA events around the
 augmentation, forward, backward and AdamW update); then as many steps as
 the loop runs them, with nothing synchronised between steps (the host
-clock over the run, ended by a synchronise). Printed per geometry: ms per
+clock over the run, ended by a synchronise). On the host iterator the
+loop runs twice each way, in turns, after 5 untimed steps of the
+prefetched stream: through the training loop's stream (the batches drawn,
+stacked and uploaded on a stager thread two ahead,
+``train/loop.host_chunks``) and through the serial ``host_batches``
+(drawn on the calling thread). Printed per geometry: ms per
 step (median, with the spread), MPix/s, TFLOP/s at three forwards' FLOPs
 per pixel (``bench.py:392``'s convention) and their share of the H100's
 989 TFLOP/s bf16 data-sheet peak, the host's share of a step, and the peak
@@ -47,9 +52,10 @@ from plumekit_torch.train.data import make_synthetic_dataset, tile_batches
 from plumekit_torch.train.device_data import (build_device_dataset,
                                               draw_tile_batch,
                                               make_device_multi_step)
-from plumekit_torch.train.loop import host_batches
+from plumekit_torch.train.loop import host_batches, host_chunks
 from plumekit_torch.train.state import create_state
-from plumekit_torch.train.step import make_train_step, step_generator
+from plumekit_torch.train.step import (make_multi_train_step, make_train_step,
+                                       step_generator)
 
 GEOMETRIES = {
     "bench": (TrainConfig(batch_size=16, tile_size=128, device_data=True,
@@ -192,7 +198,20 @@ def time_geometry(name: str, steps: int, device="cuda",
                 state, metrics = multi(state, ds,
                                        range(s, min(s + k, first + n)))
     else:
+        multi = make_multi_train_step(tcfg.dice_weight, tcfg.augment,
+                                      tcfg.label_smooth, seed=tcfg.seed)
+
         def loop(first, n):
+            # the training loop's stream: one-step chunks from the stager
+            nonlocal state, metrics
+            chunks = host_chunks(samples, tile, batch,
+                                 np.random.default_rng((tcfg.seed, first)),
+                                 device, [1] * n)
+            for s in range(first, first + n):
+                state, metrics = multi(state, next(chunks), [s])
+            chunks.close()
+
+        def serial_loop(first, n):
             nonlocal state, metrics
             batches = host_batches(samples, tile, batch,
                                    np.random.default_rng((tcfg.seed, first)),
@@ -202,10 +221,28 @@ def time_geometry(name: str, steps: int, device="cuda",
                 state, metrics = step(state, xs, ys,
                                       step_generator(tcfg.seed, s, device))
 
-    t0 = time.perf_counter()
-    loop(start, steps)
+    def run_ms(fn, first):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(first, steps)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    prefetched_ms, serial_ms = [], []
+    if tcfg.device_data:
+        loop_ms = run_ms(loop, start)
+    else:
+        # the stager's first chunks and pinned blocks outside the timing,
+        # as the serial loop's are (the timed steps above pinned its own)
+        loop(start, WARMUP)
+        start += WARMUP
+        # in turns: prefetched, serial, serial, prefetched
+        runs = [run_ms(fn, start + i * steps) for i, fn in
+                enumerate((loop, serial_loop, serial_loop, loop))]
+        prefetched_ms, serial_ms = [runs[0], runs[3]], runs[1:3]
+        loop_ms = float(np.mean(prefetched_ms))
+        start += 3 * steps
     loss_after = float(metrics["loss"])
-    loop_ms = (time.perf_counter() - t0) * 1e3 / steps
     profile = _profile(loop, start + steps) if profiled else None
 
     px = batch * tile * tile
@@ -225,6 +262,8 @@ def time_geometry(name: str, steps: int, device="cuda",
         "upload_ms": _spread([r["upload_ms"] for r in rows]),
         "host_share": _spread(host),
         "loop_ms_per_step": loop_ms,
+        "prefetched_loop_ms_per_step": prefetched_ms,
+        "serial_loop_ms_per_step": serial_ms,
         "loop_mpix_s": px / loop_ms / 1e3,
         "body_mpix_s": px / body / 1e3,
         "body_tflops": flops / body / 1e9,
@@ -249,8 +288,13 @@ def summary(res: dict) -> str:
             f"{res['draw_ms']['median']:.3f}, upload "
             f"{res['upload_ms']['median']:.3f}, host share "
             f"{100 * res['host_share']['median']:.1f}%; the loop "
-            f"{res['loop_ms_per_step']:.3f} ms per step, "
-            f"{res['loop_mpix_s']:.2f} MPix/s, {res['loop_tflops']:.1f} "
+            f"{res['loop_ms_per_step']:.3f} ms per step"
+            + (" (prefetched " + "/".join(
+                f"{ms:.3f}" for ms in res["prefetched_loop_ms_per_step"])
+               + ", serial host_batches " + "/".join(
+                f"{ms:.3f}" for ms in res["serial_loop_ms_per_step"]) + ")"
+               if res["serial_loop_ms_per_step"] else "")
+            + f", {res['loop_mpix_s']:.2f} MPix/s, {res['loop_tflops']:.1f} "
             f"TFLOP/s ({res['loop_mfu_pct']:.2f}% of "
             f"{res['peak_tflops_bf16']:.0f}); body "
             f"{res['body_tflops']:.1f} TFLOP/s "

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from plumekit_torch.config.train import InferConfig
+from plumekit_torch.ops.quant import quantize_probs_uint8
 
 
 def _taper(tile: int, overlap: int) -> np.ndarray:
@@ -57,11 +58,6 @@ def tile_grid(size: int, tile: int, stride: int) -> np.ndarray:
     if starts[-1] != size - tile:
         starts.append(size - tile)
     return np.asarray(starts, np.int32)
-
-
-def quantize_probs_uint8(probs):
-    """p8 = rint(p·255): the uint8 probability code of ``plumekit.ops.quant``."""
-    return torch.round(probs * 255.0).to(torch.uint8)
 
 
 def _edge_pad(images, h2: int, w2: int):

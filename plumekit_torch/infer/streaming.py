@@ -1,12 +1,16 @@
 """Multi-granule inference over a stream of granule files
-(``plumekit/infer/streaming.py``, its full-precision case).
+(``plumekit/infer/streaming.py``): a host decode pool, a stager thread that
+uploads granules ``buffer_size`` ahead, and the forwards on the device.
 
-Granules are decoded in order on the calling thread; consecutive granules
-of one shape are grouped ``batch_granules`` at a time and go through the
-device together. Overlapping decode with device work (pinned memory, a
-side stream) is not ported yet (ROADMAP.md, queue A: 'streaming overlap').
-A caller that had to decode some granules already (the int8 calibration)
-hands them in through ``predecoded``, so that no granule is decoded twice.
+Granule i+1 decodes and uploads while granule i computes and its caller
+writes it. Consecutive granules of one shape are grouped
+``batch_granules`` at a time and go through the device together; the tail
+group is smaller. With ``quantize`` the upload is the uint16 code of the
+channels, dequantized on the device before the forward; with
+``quantize_output`` the probabilities are encoded as uint8 on the device
+and the readback carries that code. A caller that had to decode some
+granules already (the int8 calibration) hands them in through
+``predecoded``, so that no granule is decoded twice.
 """
 
 from __future__ import annotations
@@ -18,6 +22,11 @@ import torch
 
 from plumekit_torch.infer.sliding import pad_to_multiple
 from plumekit_torch.io.granule import Granule, load_granule
+from plumekit_torch.io.prefetch import (decode_pool, default_decode_workers,
+                                        device_prefetch, make_device_put)
+from plumekit_torch.ops.quant import (dequantize, dequantize_probs_uint8,
+                                      quantize_probs_uint8, quantize_uint16,
+                                      uint16_bits)
 from plumekit_torch.train.data import assemble_channels
 
 
@@ -27,7 +36,8 @@ def decode_granule_channels(
     fire_locator: Optional[Callable[[Granule], Tuple[list, list]]] = None,
 ) -> Tuple[str, np.ndarray, Tuple[int, int]]:
     """Decode one granule to a model-ready (H', W', 2) channel stack, padded
-    to the U-Net divisibility. Returns (name, channels, original (H, W))."""
+    to the U-Net divisibility. Returns (name, channels, original (H, W)).
+    Host work only: safe on pool threads."""
     granule = load_granule(path)
     rows, cols = fire_locator(granule) if fire_locator else ([], [])
     channels = assemble_channels(granule.first_layer(), rows, cols)
@@ -39,16 +49,39 @@ def granule_channel_stream(
     paths: Iterable[str],
     depth: int,
     fire_locator: Optional[Callable[[Granule], Tuple[list, list]]] = None,
+    decode_workers: int = 1,
     predecoded: Optional[dict] = None,
 ) -> Iterator[Tuple[str, np.ndarray, Tuple[int, int]]]:
-    """Decoded granules, in order. ``predecoded`` maps a path to its
-    already-decoded ``(name, channels, hw)``; an entry is popped on use
-    instead of decoding the path again."""
+    """Decoded granules, in order; with ``decode_workers > 1`` they decode
+    on a thread pool (:func:`decode_pool`, ``decode_workers + 1`` in
+    flight). ``predecoded`` maps a path to its already-decoded ``(name,
+    channels, hw)``; an entry is popped on use instead of decoding the path
+    again."""
+    def decode(p):
+        if predecoded and p in predecoded:
+            return predecoded.pop(p)
+        return decode_granule_channels(p, depth, fire_locator)
+
+    if decode_workers > 1:
+        yield from decode_pool(paths, decode, workers=decode_workers,
+                               depth=decode_workers + 1)
+        return
     for path in paths:
-        if predecoded and path in predecoded:
-            yield predecoded.pop(path)
-        else:
-            yield decode_granule_channels(path, depth, fire_locator)
+        yield decode(path)
+
+
+def host_payload(channels: np.ndarray, quantize: bool) -> tuple:
+    """What the stager uploads for one granule: ``(channels,)`` float32, or
+    ``(q, lo, scale)`` with q the uint16 code as int16 bits."""
+    if quantize:
+        q, lo, scale = quantize_uint16(channels)
+        return uint16_bits(q), lo, scale
+    return (channels,)
+
+
+def readback(probs: torch.Tensor) -> np.ndarray:
+    """A group's probabilities (fp32, or their uint8 code) on the host."""
+    return probs.cpu().numpy()
 
 
 def stream_inference(
@@ -57,26 +90,57 @@ def stream_inference(
     variables,
     depth: int,
     device: torch.device,
-    batch_granules: int = 1,
+    buffer_size: int = 2,
     fire_locator=None,
+    decode_workers: Optional[int] = None,
+    quantize: bool = False,
+    batch_granules: int = 1,
     predecoded: Optional[dict] = None,
+    quantize_output: bool = False,
 ) -> Iterator[Tuple[str, np.ndarray]]:
     """Run ``infer_fn(variables, images (G, H, W, C)) -> (probs, masks)``
-    over the granules of ``paths``; yields (granule name, probs cropped to
-    the granule's own shape) in order. Groups hold up to ``batch_granules``
-    consecutive granules of one shape; the tail group is smaller.
-    ``predecoded`` as in :func:`granule_channel_stream`."""
+    over the granules of ``paths``; yields (granule name, float32 probs
+    cropped to the granule's own shape) in order.
+
+    ``decode_workers=None`` sizes the decode pool to the host
+    (:func:`default_decode_workers`). ``quantize`` uploads uint16 payloads
+    and dequantizes them on the device; ``quantize_output`` reads back
+    uint8 probabilities (within 1/510 of the fp32 ones). ``predecoded`` as
+    in :func:`granule_channel_stream`."""
+    if decode_workers is None:
+        decode_workers = default_decode_workers()
+    device = torch.device(device)
+    put = make_device_put(device)
+
+    def stage(item):
+        name, channels, hw = item
+        return put((name, host_payload(channels, quantize), hw))
+
+    stream = device_prefetch(
+        granule_channel_stream(paths, depth, fire_locator,
+                               decode_workers=decode_workers,
+                               predecoded=predecoded),
+        buffer_size=buffer_size, device_put=stage)
+
     def flush(group):
-        stacked = torch.from_numpy(np.stack([c for _, c, _ in group]))
-        probs, _masks = infer_fn(variables, stacked.to(device))
-        probs = probs.cpu().numpy()
-        for i, (name, _c, (h, w)) in enumerate(group):
-            yield name, probs[i, :h, :w]
+        stacked = [torch.stack(parts) for parts in
+                   zip(*(payload for _, payload, _ in group))]
+        if quantize:
+            q, lo, scale = stacked
+            x = dequantize(q, lo[:, None, None, :], scale[:, None, None, :])
+        else:
+            x = stacked[0]
+        probs, _masks = infer_fn(variables, x)
+        if quantize_output:
+            probs = quantize_probs_uint8(probs)
+        host = readback(probs)
+        for i, (name, _p, (h, w)) in enumerate(group):
+            p = host[i, :h, :w]
+            yield name, dequantize_probs_uint8(p) if quantize_output else p
 
     group = []
-    for item in granule_channel_stream(paths, depth, fire_locator,
-                                       predecoded):
-        if group and group[0][1].shape != item[1].shape:
+    for item in stream:
+        if group and group[0][1][0].shape != item[1][0].shape:
             yield from flush(group)
             group = []
         group.append(item)

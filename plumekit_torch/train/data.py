@@ -5,9 +5,10 @@ and the plume-biased tile stream.
 The functions draw the same numpy sequences as the JAX package's, so the
 same ``np.random.Generator`` gives the same tiles bit for bit. The weak
 labeller is the port's ``rg.identify`` on the training device (on the card
-it launches the CCL and label-count kernels). The uint16/uint8 variants
-(``quantize_samples``, ``tile_batches_quant``) are not ported yet
-(ROADMAP.md, queue A: 'quantized transfers').
+it launches the CCL and label-count kernels). ``quantize_samples`` and
+``tile_batches_quant`` are the quantized training transfers: granules
+encoded once (uint16 channels with per-granule ``lo``/``scale``, uint8
+masks), tiles drawn by the same sequence as ``tile_batches``.
 """
 
 from __future__ import annotations
@@ -132,23 +133,31 @@ def make_weak_label_dataset(cfg: DataConfig, train: bool = True,
 
 def _prep_samples(samples: List[GranuleSample], tile: int):
     """Pad sub-tile granules up to one tile (channels replicate, masks
-    zero-fill) and index each sample's plume pixels (mask above half) once."""
+    zero-fill; quantized samples keep their ``lo``/``scale``) and index each
+    sample's plume pixels (mask above half, in the mask's own code: 127.5
+    for uint8) once."""
     prepped = []
     for s in samples:
         h, w = s.channels.shape[:2]
         if h < tile or w < tile:
             ph, pw = max(0, tile - h), max(0, tile - w)
-            s = GranuleSample(
+            padded = GranuleSample(
                 channels=np.pad(s.channels, ((0, ph), (0, pw), (0, 0)),
                                 mode="edge"),
                 mask=np.pad(s.mask, ((0, ph), (0, pw))))
-        prepped.append((s, np.nonzero(s.mask > 0.5)))
+            if hasattr(s, "lo"):
+                padded.lo, padded.scale = s.lo, s.scale
+            s = padded
+        half = 127.5 if s.mask.dtype == np.uint8 else 0.5
+        prepped.append((s, np.nonzero(s.mask > half)))
     return prepped
 
 
 def _draw_tile(prepped, tile: int, rng: np.random.Generator):
     """One plume-biased tile draw: (sample, cy, cx). Half the tiles are
-    centred near mask pixels (±8 px), the rest uniform."""
+    centred near mask pixels (±8 px), the rest uniform. The float and the
+    quantized iterators both draw through it, so one seed gives the same
+    tiles in either mode."""
     s, (pys, pxs) = prepped[rng.integers(len(prepped))]
     h, w = s.channels.shape[:2]
     if rng.random() < 0.5 and len(pys):
@@ -181,4 +190,53 @@ def tile_batches(samples: List[GranuleSample], tile: int, batch_size: int,
             xs[b] = s.channels[cy:cy + tile, cx:cx + tile]
             ys[b, ..., 0] = s.mask[cy:cy + tile, cx:cx + tile]
         yield xs, ys
+        count += 1
+
+
+def quantize_samples(samples: List[GranuleSample]) -> List[GranuleSample]:
+    """Granules encoded once for the quantized transfers: uint16 channels
+    (:func:`plumekit_torch.ops.quant.quantize_uint16`, per granule) with
+    ``lo``/``scale`` sidecar attributes, and masks as
+    ``rint(clip(m, 0, 1) · 255)`` uint8 (exact for {0, 1} labels)."""
+    from plumekit_torch.ops.quant import quantize_uint16
+
+    out = []
+    for s in samples:
+        q, lo, scale = quantize_uint16(s.channels)
+        m8 = np.rint(np.clip(s.mask, 0.0, 1.0) * 255.0).astype(np.uint8)
+        qs = GranuleSample(channels=q, mask=m8)
+        qs.lo, qs.scale = lo, scale
+        out.append(qs)
+    return out
+
+
+def tile_batches_quant(samples: List[GranuleSample], tile: int,
+                       batch_size: int, rng: np.random.Generator,
+                       steps: Optional[int] = None,
+                       ) -> Iterator[Tuple[np.ndarray, np.ndarray,
+                                           np.ndarray, np.ndarray]]:
+    """The quantized twin of :func:`tile_batches` over
+    :func:`quantize_samples` output: yields ``(q (B, t, t, C) uint16,
+    lo (B, C), scale (B, C) float32, y8 (B, t, t, 1) uint8)``, the same
+    tiles as the float iterator for the same ``rng``."""
+    if not samples:
+        raise ValueError("tile_batches_quant got an empty sample list")
+    if not hasattr(samples[0], "lo"):
+        raise ValueError(
+            "samples lack (lo, scale) sidecars; pass quantize_samples(...) "
+            "output, not raw GranuleSamples")
+    prepped = _prep_samples(samples, tile)
+    c = prepped[0][0].channels.shape[-1]
+    count = 0
+    while steps is None or count < steps:
+        q = np.empty((batch_size, tile, tile, c), np.uint16)
+        lo = np.empty((batch_size, c), np.float32)
+        scale = np.empty((batch_size, c), np.float32)
+        y8 = np.empty((batch_size, tile, tile, 1), np.uint8)
+        for b in range(batch_size):
+            s, cy, cx = _draw_tile(prepped, tile, rng)
+            q[b] = s.channels[cy:cy + tile, cx:cx + tile]
+            y8[b, ..., 0] = s.mask[cy:cy + tile, cx:cx + tile]
+            lo[b], scale[b] = s.lo, s.scale
+        yield q, lo, scale, y8
         count += 1

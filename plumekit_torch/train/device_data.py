@@ -12,17 +12,20 @@ but it is a different sequence from the JAX package's ``jax.random`` draws
 and from the host iterator's numpy draws. The draw is split into
 :func:`draw_values` (the random values) and :func:`tiles_from_draws` (the
 clip-and-slice rule), so the rule can be checked with given values.
-Quantized storage is not ported yet (ROADMAP.md, queue A: 'quantized
-transfers').
+With ``quantized`` the set is stored as uint16 channels (int16 bits) with
+per-granule ``lo``/``scale`` and uint8 masks, and each drawn tile is
+dequantized on the device after the gather, so only the live tiles are
+ever float32.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from plumekit_torch.ops.quant import dequantize, quantize_uint16, uint16_bits
 from plumekit_torch.train.step import make_train_step, step_generator
 
 
@@ -31,9 +34,9 @@ class DeviceDataset(NamedTuple):
     tile, as ``_prep_samples`` pads them, then zero-padded to a common
     (H, W); ``heights`` / ``widths`` keep each granule's valid extent."""
 
-    #: (N, H, W, C) float32
+    #: (N, H, W, C) float32, or int16 holding uint16 codes (see ``lo``)
     channels: torch.Tensor
-    #: (N, H, W) float32 in [0, 1]
+    #: (N, H, W) float32 in [0, 1], or uint8 (1 is 255) when quantized
     masks: torch.Tensor
     #: (N, P) plume-pixel coordinates (padded with 0) and (N,) valid counts
     plume_rows: torch.Tensor
@@ -42,6 +45,9 @@ class DeviceDataset(NamedTuple):
     #: (N,) valid (edge-padded) extents per granule
     heights: torch.Tensor
     widths: torch.Tensor
+    #: (N, C) affine decode parameters of quantized channels, else None
+    lo: Optional[torch.Tensor] = None
+    scale: Optional[torch.Tensor] = None
 
 
 class Draws(NamedTuple):
@@ -59,8 +65,11 @@ class Draws(NamedTuple):
     u_x: torch.Tensor
 
 
-def build_device_dataset(samples: List, tile: int, device) -> DeviceDataset:
-    """Assemble GranuleSamples into one stack on ``device``."""
+def build_device_dataset(samples: List, tile: int, device,
+                         quantized: bool = False) -> DeviceDataset:
+    """Assemble GranuleSamples into one stack on ``device``; ``quantized``
+    stores it in the uint16/uint8 codes of ``ops/quant`` (a third of the
+    bytes; channel error at most range/131070, masks exact)."""
     if not samples:
         raise ValueError("build_device_dataset got an empty sample list")
     padded = []
@@ -96,13 +105,23 @@ def build_device_dataset(samples: List, tile: int, device) -> DeviceDataset:
         pcol[i, :len(c)] = c
         pcnt[i] = len(r)
 
+    lo = scale = None
+    if quantized:
+        q = np.empty((n, H, W, C), np.uint16)
+        lo = np.empty((n, C), np.float32)
+        scale = np.empty((n, C), np.float32)
+        for i in range(n):
+            q[i], lo[i], scale[i] = quantize_uint16(chan[i])
+        chan = uint16_bits(q)
+        msk = np.rint(np.clip(msk, 0.0, 1.0) * 255.0).astype(np.uint8)
+
     def put(a):
-        return torch.from_numpy(a).to(device)
+        return None if a is None else torch.from_numpy(a).to(device)
 
     return DeviceDataset(channels=put(chan), masks=put(msk),
                          plume_rows=put(prow), plume_cols=put(pcol),
                          plume_count=put(pcnt), heights=put(hs),
-                         widths=put(ws))
+                         widths=put(ws), lo=put(lo), scale=put(scale))
 
 
 def draw_values(ds: DeviceDataset, generator: torch.Generator,
@@ -150,13 +169,19 @@ def draw_origins(ds: DeviceDataset, draws: Draws, tile: int):
 
 def tiles_from_draws(ds: DeviceDataset, draws: Draws, tile: int):
     """``draws`` → (xs (B, t, t, C), ys (B, t, t, 1)) float32, gathered on
-    the device with no value read back to the host."""
+    the device with no value read back to the host (and dequantized there
+    when the set is quantized)."""
     i, cy, cx = draw_origins(ds, draws, tile)
     offs = torch.arange(tile, device=cy.device)
     rows = (cy[:, None] + offs)[:, :, None]        # (B, t, 1)
     cols = (cx[:, None] + offs)[:, None, :]        # (B, 1, t)
     g = i[:, None, None]
-    return ds.channels[g, rows, cols], ds.masks[g, rows, cols][..., None]
+    xs, ys = ds.channels[g, rows, cols], ds.masks[g, rows, cols][..., None]
+    if ds.lo is not None:
+        xs = dequantize(xs, ds.lo[i][:, None, None, :],
+                        ds.scale[i][:, None, None, :])
+        ys = ys.to(torch.float32) * (1.0 / 255.0)
+    return xs, ys
 
 
 def draw_tile_batch(ds: DeviceDataset, generator: torch.Generator,

@@ -3,11 +3,17 @@ labelled) granules → tile stream → train step → metrics CSV and step
 checkpoints, with resume, periodic dev evaluation and early stopping.
 
 Batches come from the host iterator (``tile_batches`` seeded with
-``np.random.default_rng((seed, start_step))``, as in the JAX package), each
-handed to the device in order through pinned memory, or, with
-``device_data``, are drawn on the device. Steps run in chunks that end at
-every log, checkpoint and eval step (``steps_per_dispatch`` caps a chunk);
-a step's augmentation draws from :func:`step_generator` of (seed, step).
+``np.random.default_rng((seed, start_step))``, as in the JAX package) or,
+with ``device_data``, are drawn on the device. Steps run in chunks that end
+at every log, checkpoint and eval step (``steps_per_dispatch`` caps a
+chunk); a step's augmentation draws from :func:`step_generator` of (seed,
+step). On the host stream a stager thread draws, stacks and uploads whole
+chunks two ahead of the steps (:func:`host_chunks`), as the JAX loop does;
+:func:`host_batches` is the serial form, kept as the reference. With
+``quantize_transfer`` the granules are encoded once
+(``quantize_samples``), tiles cross as uint16 channels and uint8 masks
+(``tile_batches_quant``, or a quantized card-resident set) and each step
+decodes its batch on the device.
 """
 
 from __future__ import annotations
@@ -23,13 +29,16 @@ from plumekit_torch.config.train import DataConfig, TrainConfig, UNetConfig
 from plumekit_torch.device import resolve_device
 from plumekit_torch.models.flops import PEAK_TFLOPS, model_flops_per_pixel
 from plumekit_torch.train import checkpoint as ckpt
+from plumekit_torch.io.prefetch import device_prefetch, make_device_put
+from plumekit_torch.ops.quant import uint16_bits
 from plumekit_torch.train.data import (make_synthetic_dataset,
-                                       make_weak_label_dataset, tile_batches)
+                                       make_weak_label_dataset,
+                                       quantize_samples, tile_batches,
+                                       tile_batches_quant)
 from plumekit_torch.train.device_data import (build_device_dataset,
                                               make_device_multi_step)
 from plumekit_torch.train.state import create_state
-from plumekit_torch.train.step import (make_eval_step, make_train_step,
-                                       step_generator)
+from plumekit_torch.train.step import make_eval_step, make_multi_train_step
 from plumekit_torch.utils import MetricsWriter, get_logger
 
 logger = get_logger(__name__)
@@ -39,10 +48,6 @@ def _refuse_unported(unet_cfg: UNetConfig, train_cfg: TrainConfig) -> None:
     if unet_cfg.prune_level is not None:
         raise ValueError(
             "prune_level is serving-only; train with the full depth")
-    if train_cfg.quantize_transfer:
-        raise NotImplementedError(
-            "quantize_transfer is not ported to plumekit_torch yet "
-            "(ROADMAP.md, queue A: 'quantized transfers')")
     if train_cfg.distill_from:
         raise NotImplementedError(
             "distillation is not ported to plumekit_torch yet (ROADMAP.md, "
@@ -62,9 +67,9 @@ def chunk_schedule(start: int, total: int, k_max: int, intervals):
 
 
 def host_batches(samples, tile: int, batch_size: int, rng, device):
-    """The host tile stream handed to ``device`` in order: each batch is
-    copied from pinned memory without blocking the host, so the host draws
-    the next batch while the device runs the step."""
+    """The host tile stream handed to ``device`` in order, drawn on the
+    calling thread: each batch is copied from pinned memory without
+    blocking the host. The serial reference of :func:`host_chunks`."""
     pin = torch.device(device).type == "cuda"
     for xs, ys in tile_batches(samples, tile, batch_size, rng):
         xs, ys = torch.from_numpy(xs), torch.from_numpy(ys)
@@ -72,6 +77,34 @@ def host_batches(samples, tile: int, batch_size: int, rng, device):
             xs, ys = xs.pin_memory(), ys.pin_memory()
         yield (xs.to(device, non_blocking=True),
                ys.to(device, non_blocking=True))
+
+
+def _stacked(batches):
+    """(K, B, ...) arrays of K batches (a view when K is 1); uint16 codes
+    as their int16 bits, the form they are uploaded in."""
+    out = []
+    for part in zip(*batches):
+        a = part[0][None] if len(part) == 1 else np.stack(part)
+        out.append(uint16_bits(a) if a.dtype == np.uint16 else a)
+    return tuple(out)
+
+
+def host_chunks(samples, tile: int, batch_size: int, rng, device, sizes,
+                quantize: bool = False, buffer_size: int = 2):
+    """The host tile stream as the loop takes it: for each chunk size K of
+    ``sizes``, K batches of ``tile_batches`` (``tile_batches_quant`` with
+    ``quantize``, over ``quantize_samples`` output) stacked into (K, B, ...)
+    tensors on ``device``. A stager thread draws, stacks and uploads them
+    ``buffer_size`` chunks ahead (``io/prefetch.device_prefetch``)."""
+    draw = (tile_batches_quant if quantize else tile_batches)(
+        samples, tile, batch_size, rng)
+
+    def chunks():
+        for k in sizes:
+            yield _stacked([next(draw) for _ in range(k)])
+
+    return device_prefetch(chunks(), buffer_size=buffer_size,
+                           device_put=make_device_put(device))
 
 
 def train(unet_cfg: UNetConfig = UNetConfig(),
@@ -103,22 +136,35 @@ def train(unet_cfg: UNetConfig = UNetConfig(),
         eval_set = make_synthetic_dataset(data_cfg, train=False)
 
     tile, batch = train_cfg.tile_size, train_cfg.batch_size
-    step_fn = make_train_step(train_cfg.dice_weight, train_cfg.augment,
-                              train_cfg.label_smooth)
+    quantize = train_cfg.quantize_transfer
     eval_fn = make_eval_step(train_cfg.dice_weight)
-    device_fn = batches = None
+    intervals = [train_cfg.log_every, train_cfg.eval_every,
+                 train_cfg.checkpoint_every]
+    k_max = max(1, train_cfg.steps_per_dispatch)
+    device_fn = chunks = None
     if train_cfg.device_data:
-        device_set = build_device_dataset(train_set, tile, device)
+        device_set = build_device_dataset(train_set, tile, device,
+                                          quantized=quantize)
         device_fn = make_device_multi_step(
             train_cfg.dice_weight, train_cfg.augment, train_cfg.label_smooth,
             seed=train_cfg.seed, tile=tile, batch_size=batch)
-        nbytes = sum(t.numel() * t.element_size() for t in device_set)
+        nbytes = sum(t.numel() * t.element_size() for t in device_set
+                     if t is not None)
         logger.info("device-resident dataset: %d granules, %.1f MB",
                     device_set.channels.shape[0], nbytes / 1e6)
     else:
-        batches = host_batches(
+        if quantize:
+            # encoded once, off the step's path; the float copy is dropped
+            train_set = quantize_samples(train_set)
+        multi_fn = make_multi_train_step(
+            train_cfg.dice_weight, train_cfg.augment, train_cfg.label_smooth,
+            seed=train_cfg.seed, dequant=quantize)
+        # the stager walks its own instance of the loop's chunk schedule
+        chunks = host_chunks(
             train_set, tile, batch,
-            np.random.default_rng((train_cfg.seed, start_step)), device)
+            np.random.default_rng((train_cfg.seed, start_step)), device,
+            chunk_schedule(start_step, train_cfg.total_steps, k_max,
+                           intervals), quantize=quantize)
     eval_batches = [
         (torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device))
         for xs, ys in tile_batches(eval_set, tile, batch,
@@ -133,23 +179,19 @@ def train(unet_cfg: UNetConfig = UNetConfig(),
                                        "eval_iou_curve": []}
     writer = MetricsWriter(train_cfg.checkpoint_dir.rstrip("/")
                            + "_metrics.csv")
-    intervals = [train_cfg.log_every, train_cfg.eval_every,
-                 train_cfg.checkpoint_every]
     px_per_step = batch * tile * tile
     flops_per_step = 3.0 * model_flops_per_pixel(unet_cfg) * px_per_step
     best_dev, best_step, misses, best_state = -1.0, -1, 0, None
     last_log_step = done = start_step
     t0 = time.perf_counter()
-    for k in chunk_schedule(start_step, train_cfg.total_steps,
-                            max(1, train_cfg.steps_per_dispatch), intervals):
+    for k in chunk_schedule(start_step, train_cfg.total_steps, k_max,
+                            intervals):
         if device_fn is not None:
             state, metrics = device_fn(state, device_set,
                                        range(done, done + k))
         else:
-            for s in range(done, done + k):
-                xs, ys = next(batches)
-                state, metrics = step_fn(
-                    state, xs, ys, step_generator(train_cfg.seed, s, device))
+            state, metrics = multi_fn(state, next(chunks),
+                                      range(done, done + k))
         done += k
         if train_cfg.log_every and done % train_cfg.log_every == 0:
             loss, iou = float(metrics["loss"]), float(metrics["iou"])
@@ -190,6 +232,8 @@ def train(unet_cfg: UNetConfig = UNetConfig(),
                 logger.info("early stop: no dev improvement in %d evals",
                             misses)
                 break
+    if chunks is not None:
+        chunks.close()      # stops the stager and drops its staged chunks
 
     restored_best = bool(train_cfg.eval_every) and best_state is not None
     if restored_best:
@@ -219,4 +263,4 @@ def train(unet_cfg: UNetConfig = UNetConfig(),
     return history
 
 
-__all__ = ["chunk_schedule", "host_batches", "train"]
+__all__ = ["chunk_schedule", "host_batches", "host_chunks", "train"]

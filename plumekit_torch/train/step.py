@@ -5,7 +5,9 @@ The step augments, runs the train-mode forward, takes
 and ``iou(sigmoid(logits) > 0.5, ys > 0.5)``, left on the device until
 the loop logs them. The JAX package scans K steps inside one program
 (``make_multi_train_step``); here a chunk of K steps is K calls of the
-step, with the same data and augmentation per step. The training step
+step, with the same data and augmentation per step. With ``dequant`` a
+step takes the quantized transfer's ``(q, lo, scale, y8)`` and decodes it
+on the device first (``_dequant_batch``). The training step
 reaches no hand-written kernel, as in the JAX package (its forward takes
 the fused routes only at inference): the forward and backward are plain
 PyTorch. The eval step runs the eval-mode forward, which takes them.
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from plumekit_torch.models.losses import dice_bce_loss, iou
+from plumekit_torch.ops.quant import dequantize
 from plumekit_torch.train.augment import augment_batch
 from plumekit_torch.train.state import TrainState
 
@@ -33,13 +36,24 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return generator
 
 
+def _dequant_batch(batch):
+    """``(q, lo (..., C), scale (..., C), y8)`` of the quantized transfer ->
+    ``(xs, ys)`` float32 on their device; masks decode as ``y8 / 255``
+    (exact for {0, 1} labels). The ellipsis covers a leading steps axis."""
+    q, lo, scale, y8 = batch
+    xs = dequantize(q, lo[..., None, None, :], scale[..., None, None, :])
+    return xs, y8.to(torch.float32) * (1.0 / 255.0)
+
+
 def make_train_step(dice_weight: float = 0.5, augment: bool = True,
-                    label_smooth: float = 0.0):
+                    label_smooth: float = 0.0, dequant: bool = False):
     """Returns ``step(state, xs, ys, generator) -> (state, metrics)``;
     ``state`` is updated in place. xs: (B, T, T, C), ys: (B, T, T, 1) on
     the model's device; ``generator`` draws the augmentation codes
-    (:func:`step_generator`; unused without augmentation)."""
-    def step(state: TrainState, xs, ys,
+    (:func:`step_generator`; unused without augmentation). With
+    ``dequant`` the step is ``step(state, (q, lo, scale, y8), generator)``
+    and decodes the batch before augmenting it."""
+    def core(state: TrainState, xs, ys,
              generator: Optional[torch.Generator]):
         if augment:
             xs, ys = augment_batch(generator, xs, ys)
@@ -57,7 +71,38 @@ def make_train_step(dice_weight: float = 0.5, augment: bool = True,
                        "iou": iou(torch.sigmoid(logits) > 0.5, ys > 0.5)}
         return state, metrics
 
+    if not dequant:
+        return core
+
+    def step(state: TrainState, batch, generator):
+        return core(state, *_dequant_batch(batch), generator)
+
     return step
+
+
+def make_multi_train_step(dice_weight: float = 0.5, augment: bool = True,
+                          label_smooth: float = 0.0, seed: int = 0,
+                          dequant: bool = False):
+    """Returns ``multi(state, chunk, steps) -> (state, last_metrics)``: one
+    step per global step index in ``steps`` over the chunk's batches, each
+    with the augmentation codes of :func:`step_generator` of (seed, step).
+    ``chunk`` holds (K, B, ...) tensors: ``(xs, ys)``, or with ``dequant``
+    ``(q, lo, scale, y8)``, each batch decoded as its step begins."""
+    step = make_train_step(dice_weight, augment, label_smooth, dequant)
+
+    def multi(state: TrainState, chunk, steps):
+        metrics = None
+        device = chunk[0].device
+        for i, s in enumerate(steps):
+            batch = tuple(t[i] for t in chunk)
+            generator = step_generator(seed, int(s), device)
+            if dequant:
+                state, metrics = step(state, batch, generator)
+            else:
+                state, metrics = step(state, *batch, generator)
+        return state, metrics
+
+    return multi
 
 
 def make_eval_step(dice_weight: float = 0.5):
@@ -79,4 +124,5 @@ def make_eval_step(dice_weight: float = 0.5):
     return eval_step
 
 
-__all__ = ["make_eval_step", "make_train_step", "step_generator"]
+__all__ = ["make_eval_step", "make_multi_train_step", "make_train_step",
+           "step_generator"]

@@ -202,10 +202,8 @@ def test_predict_model_threshold_resolution(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--int8", "--quantize"], ["--exported", "art"], ["--tta"],
-    ["--mesh-devices", "2"],
-    ["--tuned"], ["--prune-level", "2"], ["--quantize"],
-    ["--quantize-output"], ["--plot"]])
+    ["--exported", "art"], ["--mesh-devices", "2"],
+    ["--tuned"], ["--prune-level", "2"], ["--plot"]])
 def test_unported_flag_exits_1_naming_its_roadmap_item(tmp_path, caplog,
                                                        flags):
     with caplog.at_level(logging.ERROR):

@@ -778,3 +778,88 @@ def test_int8_conv_wrapper_refuses_what_the_kernel_does_not_take(card):
         packed = int8_conv.pack_conv(w, a, a)
         int8_conv.int8_conv3x3_packed(
             x, packed, tile=int8_conv.Q1Tile(packed.shape, 16, 64, 1))
+
+
+# ------------------------------------------ streams: prefetch, uint16, TTA
+
+@pytest.mark.cuda
+def test_device_prefetch_on_the_side_stream_equals_the_source(card):
+    """Items staged on the side stream (pinned copies, the consumer's stream
+    waiting on their event) equal their sources when the consumer reads
+    them, while the consumer's stream keeps allocating and freeing."""
+    from plumekit_torch.io.prefetch import device_prefetch, make_device_put
+    from plumekit_torch.ops.quant import quantize_uint16, uint16_bits
+
+    rng = np.random.default_rng(0)
+    items = []
+    for i in range(6):
+        x = rng.random((1024 + 64 * i, 1024, 2), dtype=np.float32)
+        q, lo, scale = quantize_uint16(x)
+        items.append((f"g{i}", (x, uint16_bits(q), lo, scale), (i, i)))
+    got = []
+    for name, (x, q, lo, scale), hw in device_prefetch(
+            iter(items), buffer_size=2, device_put=make_device_put(card)):
+        scratch = torch.empty(x.numel(), device=card).normal_()
+        assert x.device.type == q.device.type == "cuda"
+        got.append((name, x.cpu().numpy(), q.cpu().numpy(), lo.cpu().numpy(),
+                    scale.cpu().numpy(), hw))
+        del scratch
+    assert [g[0] for g in got] == [f"g{i}" for i in range(6)]
+    for (name, x, q, lo, scale, hw), (_, src, _hw) in zip(got, items):
+        for a, b in zip((x, q, lo, scale), src):
+            assert a.dtype == b.dtype and np.array_equal(a, b), name
+        assert hw == _hw
+
+
+@pytest.mark.cuda
+def test_uint16_upload_and_dequant_on_the_card(card):
+    """The uint16 code crosses as int16 bits and widens on the card to the
+    CPU's dequantized values, bit for bit (one multiply and one add, each
+    its own kernel on both)."""
+    from plumekit_torch.io.prefetch import device_prefetch, make_device_put
+    from plumekit_torch.ops.quant import (dequantize, quantize_uint16,
+                                          uint16_bits)
+
+    x = np.random.default_rng(1).random((300, 257, 2), np.float32) * 2.3
+    q, lo, scale = quantize_uint16(x)
+    assert q.max() == 65535
+    (qd, lod, scaled), = device_prefetch(
+        iter([(uint16_bits(q), lo, scale)]),
+        device_put=make_device_put(card))
+    assert qd.dtype == torch.int16 and qd.numel() * 2 == q.nbytes
+    got = dequantize(qd, lod, scaled).cpu().numpy()
+    want = dequantize(torch.from_numpy(q), torch.from_numpy(lo),
+                      torch.from_numpy(scale)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.all(np.abs(got - x) <= scale / 2 + 1e-6)
+
+
+@pytest.mark.cuda
+def test_tta_over_k6_launches_it_once_per_forward(card):
+    """``--tta`` over the fused forward: one forward of 8× the tiles, K6
+    once per block; against the mean of the 8 views' own K6 forwards and
+    against TTA over the plain (cuDNN) forward within the serving gate."""
+    from plumekit_torch.infer.tta import _D4, make_tta_apply
+
+    model = build_model(UNetConfig(), torch.Generator().manual_seed(0)) \
+        .to(card).eval()
+    fused = make_fused_apply(model.cfg)
+    x = torch.from_numpy(np.random.default_rng(2).random(
+        (4, 96, 96, 2), dtype=np.float32)).to(card)
+    with torch.inference_mode():
+        before = fused_conv.LAUNCHES
+        got = torch.sigmoid(make_tta_apply(fused)(model, x))
+        assert fused_conv.LAUNCHES - before == 2 * model.cfg.depth + 1
+        views = []
+        for k, f in _D4:
+            v = torch.flip(x, dims=(2,)) if f else x
+            y = fused(model, torch.rot90(v, k, dims=(1, 2)).contiguous())
+            y = torch.rot90(y, -k, dims=(1, 2))
+            views.append(torch.sigmoid(
+                (torch.flip(y, dims=(2,)) if f else y).float()))
+        want = torch.stack(views).mean(0)
+        plain = torch.sigmoid(make_tta_apply(lambda m, t: m(t))(model, x))
+    assert got.shape == (4, 96, 96, 1) and torch.isfinite(got).all()
+    # the views' own forwards group the tiles otherwise: two bf16 steps
+    assert float((got - want).abs().max()) <= BF16_ATOL
+    assert float((got - plain).abs().max()) <= 5e-2

@@ -28,7 +28,9 @@ needed = {"plumekit_torch.models.kernels.unet_mega",
           "plumekit_torch.models.kernels.int8_upsample",
           "plumekit_torch.models.quantized_forward",
           "plumekit_torch.experiments.int8_conv_times",
-          "plumekit_torch.experiments.int8_variants"}
+          "plumekit_torch.experiments.int8_variants",
+          "plumekit_torch.ops.quant", "plumekit_torch.io.prefetch",
+          "plumekit_torch.infer.streaming", "plumekit_torch.infer.tta"}
 banned = {"jax", "jaxlib", "flax", "orbax", "pandas", "plumekit"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 missing = sorted(needed - set(names))

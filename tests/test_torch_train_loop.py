@@ -309,7 +309,6 @@ def test_quick_start_chain_on_the_cpu(tmp_path, caplog):
     (["--distill-calibrate"], "training and evaluation extras"),
     (["--arch", "unetpp"], "UNet++"),
     (["--deep-supervision"], "UNet++"),
-    (["--quantize-transfer"], "quantized transfers"),
 ])
 def test_unported_train_flags_exit_1_naming_their_item(flags, item, caplog,
                                                        tmp_path):
