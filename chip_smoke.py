@@ -1,7 +1,7 @@
 """Smoke run of plumekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
-``nvcc`` per source, all at once) and drives the port's six paths:
+``nvcc`` per source, all at once) and drives the port's seven paths:
 
 * megakernel serving: K7 (the whole U-Net forward in one launch) against
   its plain PyTorch version at the flagship U-Net over 128 tiles of 96²,
@@ -93,7 +93,21 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   the prefetched stream and the serial one; ``quantize_transfer`` on the
   host stream and card-resident against the float runs within the JAX
   package's bounds; ``build_features --detector rg`` on the decode pool
-  against the serial decode.
+  against the serial decode;
+* UNet++ (``UNetConfig(arch="unetpp", deep_supervision=True)``: base 32,
+  depth 4, last): Q1 at the 30 convs of its int8 forward (the dense
+  concats' first sources joined by one ``torch.cat``, timed too) and Q2 at
+  its 10 upsamples against their plain versions, bit for bit, at 128 tiles
+  of 288², queued beside their bounds; its int8 forward on the card against
+  the CPU's, every int8 plane equal, Q1 30 and Q2 10 launches, timed beside
+  the plain bf16 UNet++ forward; ``make_dataset`` then ``train_model --arch
+  unetpp --deep-supervision --weak-labels`` for 40 steps of 16 × 512² (K1
+  and K3 label; the last 20 steps' rate, TFLOP/s, peak memory, the
+  recorded config); the trained checkpoint served over four 2048² granules
+  plain, ``--int8`` (masks flip under 1% against plain), ``--prune-level
+  4`` (bit for bit the unpruned call), ``--prune-level 2`` and ``--int8
+  --prune-level 2`` (Q1 12 and Q2 3 launches per forward), and
+  ``--fused``, which must exit 1.
 
 Every kernel's time stands beside its bound: the bytes it must move (each
 input read once, each output written once) over the card's memory rate,
@@ -141,7 +155,7 @@ from plumekit_torch.experiments import (  # noqa: E402
 from plumekit_torch.models.kernels import (  # noqa: E402
     conv_tiles, fused_conv, unet_mega)
 from plumekit_torch.train.checkpoint import (  # noqa: E402
-    save_model_config, save_weights)
+    load_model_config, save_model_config, save_weights)
 from plumekit_torch.config.identify import (  # noqa: E402
     BasicIdentifyConfig, GaussianIdentifyConfig, RGIdentifyConfig)
 from plumekit_torch.geo.sinusoidal import (  # noqa: E402
@@ -160,6 +174,7 @@ from plumekit_torch.models.quantized_forward import (  # noqa: E402
     make_quantized_apply, quantize_unet, qvars_to)
 from plumekit_torch.train.data import (  # noqa: E402
     make_synthetic_dataset, tile_batches, weak_label_mask, weak_label_scene)
+from plumekit_torch.models.flops import model_flops_per_pixel  # noqa
 from plumekit_torch.models.losses import dice_bce_loss  # noqa: E402
 from plumekit_torch.train.state import create_state, make_schedule  # noqa
 from plumekit_torch.train.step import (  # noqa: E402
@@ -386,10 +401,10 @@ def check_kernel(rng, batch):
     return rows
 
 
-def seeded_unet(generator):
-    """UNetConfig() with seeded random weights at He scale and nontrivial
-    BatchNorm parameters and running statistics."""
-    model = build_model(UNetConfig(), generator)
+def seeded_unet(generator, cfg=UNetConfig()):
+    """``cfg`` (UNetConfig() by default) with seeded random weights at He
+    scale and nontrivial BatchNorm parameters and running statistics."""
+    model = build_model(cfg, generator)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
@@ -1084,6 +1099,40 @@ def check_int8_upsample(rng):
     return rows
 
 
+def int8_card_against_cpu(model, rng, name, want_launches):
+    """The int8 forward of ``model`` on the card against the port's int8
+    forward on the CPU with the same qvars (calibrated on the card on
+    ``INT8_CHECK_TILES`` serving tiles): Q1 and Q2 launched
+    ``want_launches`` times, every int8 plane equal, the logits within
+    ``INT8_LOGIT_RTOL`` of the largest."""
+    apply = make_quantized_apply(model.cfg)
+    x = mega_tiles(rng, INT8_CHECK_TILES, ICFG.tile_size)
+    qvars = quantize_unet(model, model.cfg, x)
+    planes_card, planes_cpu = [], []
+    int8_conv.LAUNCHES = int8_upsample.LAUNCHES = 0
+    got = apply(qvars, x, planes=planes_card)
+    torch.cuda.synchronize()
+    launches = (int8_conv.LAUNCHES, int8_upsample.LAUNCHES)
+    if launches != want_launches:
+        raise AssertionError(f"{name} launched Q1 and Q2 {launches} times, "
+                             f"not {want_launches}")
+    t0 = time.perf_counter()
+    want = apply(qvars_to(qvars, "cpu"), x.cpu(), planes=planes_cpu)
+    cpu_s = time.perf_counter() - t0
+    if len(planes_card) != len(planes_cpu):
+        raise AssertionError(f"{name}: the devices kept different planes")
+    unequal = [i for i, (p, q) in enumerate(zip(planes_card, planes_cpu))
+               if not torch.equal(p.cpu(), q)]
+    if unequal:
+        raise AssertionError(f"{name}: planes {unequal} differ between the "
+                             "card and the CPU")
+    return {"tiles": INT8_CHECK_TILES, "planes": len(planes_card),
+            "launches": launches[0], "q2_launches": launches[1],
+            "cpu_forward_s": cpu_s,
+            **compare_logits(f"{name}, card against CPU", got, want,
+                             INT8_LOGIT_RTOL, min_corr=0.999999)}
+
+
 def check_int8_forward(model, rng):
     """The int8 forward of the flagship net on the card against the port's
     int8 forward on the CPU with the same qvars (calibrated on the card on
@@ -1093,30 +1142,8 @@ def check_int8_forward(model, rng):
     ``torch._int_mm`` must take no time (every product is Q1's or Q2's)."""
     cfg = model.cfg
     apply = make_quantized_apply(cfg)
-    x = mega_tiles(rng, INT8_CHECK_TILES, ICFG.tile_size)
-    qvars = quantize_unet(model, cfg, x)
-    planes_card, planes_cpu = [], []
-    int8_conv.LAUNCHES = int8_upsample.LAUNCHES = 0
-    got = apply(qvars, x, planes=planes_card)
-    torch.cuda.synchronize()
-    launches = int8_conv.LAUNCHES
-    q2_launches = int8_upsample.LAUNCHES
-    if launches != 2 * (2 * cfg.depth + 1) or q2_launches != cfg.depth:
-        raise AssertionError(f"int8 forward launched Q1 {launches} and Q2 "
-                             f"{q2_launches} times")
-    t0 = time.perf_counter()
-    want = apply(qvars_to(qvars, "cpu"), x.cpu(), planes=planes_cpu)
-    cpu_s = time.perf_counter() - t0
-    if len(planes_card) != len(planes_cpu):
-        raise AssertionError("int8 forward: the devices kept different planes")
-    unequal = [i for i, (p, q) in enumerate(zip(planes_card, planes_cpu))
-               if not torch.equal(p.cpu(), q)]
-    if unequal:
-        raise AssertionError(f"int8 forward: planes {unequal} differ between "
-                             "the card and the CPU")
-    cmp = compare_logits("int8 forward, card against CPU", got, want,
-                         INT8_LOGIT_RTOL, min_corr=0.999999)
-
+    check = int8_card_against_cpu(model, rng, "int8 forward",
+                                  (2 * (2 * cfg.depth + 1), cfg.depth))
     xb = torch.rand((INT8_BATCH, ICFG.tile_size, ICFG.tile_size, 2),
                     generator=torch.Generator().manual_seed(SEED)).to(DEV)
     qvars_b = quantize_unet(model, cfg, xb[:9])
@@ -1132,16 +1159,13 @@ def check_int8_forward(model, rng):
         raise AssertionError(f"int8 forward profile: {profile['device_ms']}"
                              " (torch._int_mm must take no time, Q2 some)")
     mpix = INT8_BATCH * ICFG.tile_size**2 / 1e6
-    res = {"tiles": INT8_CHECK_TILES, "planes": len(planes_card),
-           "launches": launches, "q2_launches": q2_launches,
-           "cpu_forward_s": cpu_s, **cmp,
-           "batch": INT8_BATCH, "forward_ms": ms,
+    res = {**check, "batch": INT8_BATCH, "forward_ms": ms,
            "forward_mpix_s": {k: mpix / (v / 1e3) for k, v in ms.items()},
            "profile": profile}
     print(f"int8 forward {INT8_CHECK_TILES}x{ICFG.tile_size}^2 card against "
-          f"CPU: {len(planes_card)} int8 planes equal, max|dlogit| "
-          f"{cmp['max_abs_diff']:.3g} of {cmp['max_abs_logit']:.4g} "
-          f"(CPU {cpu_s:.1f} s); forwards of {INT8_BATCH}x{ICFG.tile_size}^2: "
+          f"CPU: {check['planes']} int8 planes equal, max|dlogit| "
+          f"{check['max_abs_diff']:.3g} of {check['max_abs_logit']:.4g} "
+          f"(CPU {check['cpu_forward_s']:.1f} s); forwards of {INT8_BATCH}x{ICFG.tile_size}^2: "
           + ", ".join(f"{k} {ms[k]:.2f} ms ({res['forward_mpix_s'][k]:.1f} "
                       "MPix/s)" for k in ms)
           + "; int8 " + int8_conv_times.profile_summary(profile), flush=True)
@@ -2598,6 +2622,241 @@ def train_phase(tmp):
     return res
 
 
+# ------------------------------------------------------------------ UNet++
+
+# the UNet++ at full width (base 32, depth 4, bf16) with its side heads
+PP_CFG = UNetConfig(arch="unetpp", deep_supervision=True)
+PP_PRUNE = 2                          # the pruned level served besides depth
+# train_model logs every 20 steps: the second window is the timed one
+PP_TRAIN_STEPS = 40
+
+
+def pp_counts(level):
+    """(Q1, Q2) launches of one UNet++ int8 forward at ``level``: two
+    convs per node, one upsample per decoder node."""
+    nodes = (level + 1) * (level + 2) // 2
+    return 2 * nodes, level * (level + 1) // 2
+
+
+def unetpp_int8_kernels(rng):
+    """Q1 at the 30 convs and Q2 at the 10 upsamples of the UNet++ int8
+    forward at the main path's batch of 288² tiles (``INT8_BATCH``), each
+    bit for bit against its plain version and timed queued beside its
+    bound (``experiments/int8_conv_times.py``), and the ``torch.cat`` of
+    its dense concats."""
+    tile = ICFG.tile_size
+    q1 = []
+    for case in int8_conv_times.conv_cases(PP_CFG, tile):
+        q1.append(int8_conv_times.time_case(rng, case, INT8_BATCH, DEV))
+        print("UNet++ " + int8_conv_times.summary(q1[-1]), flush=True)
+    torch.cuda.empty_cache()
+    q2 = []
+    for case in int8_conv_times.upsample_cases(PP_CFG, tile):
+        q2.append(int8_conv_times.time_upsample(rng, case, INT8_BATCH, DEV))
+        print("UNet++ " + int8_conv_times.upsample_summary(q2[-1]),
+              flush=True)
+    cats = []
+    for case in int8_conv_times.concat_cases(PP_CFG, tile):
+        cats.append(int8_conv_times.time_concat(rng, case, INT8_BATCH, DEV))
+        print("UNet++ " + int8_conv_times.concat_summary(cats[-1]),
+              flush=True)
+    torch.cuda.empty_cache()
+    want = pp_counts(PP_CFG.depth)
+    if (len(q1), len(q2)) != want:
+        raise AssertionError(f"UNet++ cases: {len(q1)} convs and {len(q2)} "
+                             f"upsamples, not {want}")
+    return q1, q2, cats
+
+
+def check_unetpp_int8_forward(model, rng):
+    """The UNet++ int8 forward on the card against the CPU's
+    (:func:`int8_card_against_cpu`, Q1 30 and Q2 10 launches); then its
+    time at ``INT8_BATCH`` beside the plain bf16 UNet++ forward (cuDNN)."""
+    cfg = model.cfg
+    apply = make_quantized_apply(cfg)
+    check = int8_card_against_cpu(model, rng, "UNet++ int8 forward",
+                                  pp_counts(cfg.depth))
+    xb = torch.rand((INT8_BATCH, ICFG.tile_size, ICFG.tile_size, 2),
+                    generator=torch.Generator().manual_seed(SEED)).to(DEV)
+    qvars_b = quantize_unet(model, cfg, xb[:9])
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ms = {"int8": time_ms(lambda: apply(qvars_b, xb), reps=5),
+              "plain_bf16": time_ms(lambda: model(xb), reps=5)}
+    mpix = INT8_BATCH * ICFG.tile_size**2 / 1e6
+    res = {**check, "batch": INT8_BATCH, "forward_ms": ms,
+           "forward_mpix_s": {k: mpix / (v / 1e3) for k, v in ms.items()},
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del xb, qvars_b
+    torch.cuda.empty_cache()
+    print(f"UNet++ int8 forward {INT8_CHECK_TILES}x{ICFG.tile_size}^2 card "
+          f"against CPU: {check['planes']} int8 planes equal, Q1 "
+          f"{check['launches']} and Q2 {check['q2_launches']} launches, "
+          f"max|dlogit| {check['max_abs_diff']:.3g} of "
+          f"{check['max_abs_logit']:.4g} (CPU {check['cpu_forward_s']:.1f} "
+          f"s); forwards of {INT8_BATCH}x{ICFG.tile_size}^2: "
+          + ", ".join(f"{k} {ms[k]:.2f} ms ({res['forward_mpix_s'][k]:.1f} "
+                      "MPix/s)" for k in ms)
+          + f", peak {res['peak_memory_gb']:.2f} GB", flush=True)
+    return res
+
+
+def unetpp_train(tmp):
+    """make_dataset, then ``train_model --arch unetpp --deep-supervision
+    --weak-labels`` at the chain's geometry (16 × 512² tiles of 1200²
+    granules) for ``PP_TRAIN_STEPS`` steps: K1 and K3 label, the rate of
+    the last 20 steps from the loop's own log, TFLOP/s from the ported
+    FLOP count, peak memory, and the recorded config. Returns the result
+    and the checkpoint directory."""
+    root = os.path.join(tmp, "pp_train")
+    res = {"seconds": {}}
+    res["seconds"]["make_dataset"] = run_cli(
+        "make_dataset", "--root", root, "--n-granules", str(CHAIN_GRANULES),
+        "--size", str(CHAIN_PX))
+    ccl_sweep.LAUNCHES = label_counts.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    res["seconds"]["train_model"] = run_cli(
+        "train_model", "--root", root, "--arch", "unetpp",
+        "--deep-supervision", "--weak-labels", "--granule-size",
+        str(CHAIN_PX), "--tile", str(CHAIN_TILE), "--batch-size",
+        str(CHAIN_BATCH), "--steps", str(PP_TRAIN_STEPS))
+    res["launches"] = {"k1": ccl_sweep.LAUNCHES, "k3": label_counts.LAUNCHES}
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if not (res["launches"]["k1"] > 0 and res["launches"]["k3"] > 0):
+        raise AssertionError("UNet++ train_model --weak-labels did not "
+                             f"launch K1 and K3: {res['launches']}")
+    ckpt = os.path.join(root, "models", "checkpoints")
+    recorded = load_model_config(ckpt)
+    if recorded != PP_CFG:
+        raise AssertionError(f"model_config.json records {recorded}")
+    with open(ckpt + "_metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    if [r["step"] for r in rows] != ["20", str(PP_TRAIN_STEPS)] or not all(
+            math.isfinite(float(r["loss"])) for r in rows):
+        raise AssertionError(f"UNet++ training metrics: {rows}")
+    mpix_s = float(rows[-1]["mpix_s"])
+    flops_px = model_flops_per_pixel(PP_CFG)
+    res.update({
+        "metrics": rows, "recorded_config": dataclasses.asdict(recorded),
+        "timed_steps": PP_TRAIN_STEPS - 20, "mpix_s": mpix_s,
+        "ms_per_step": CHAIN_BATCH * CHAIN_TILE**2 / (mpix_s * 1e6) * 1e3,
+        "flops_per_px": flops_px,
+        "tflops": 3 * flops_px * mpix_s * 1e6 / 1e12})
+    res["pct_of_989"] = 100 * res["tflops"] / 989.0
+    print(f"UNet++ train_model --arch unetpp --deep-supervision "
+          f"--weak-labels {CHAIN_BATCH}x{CHAIN_TILE}^2: steps "
+          f"21-{PP_TRAIN_STEPS} {res['ms_per_step']:.2f} ms/step, "
+          f"{mpix_s:.2f} MPix/s, {res['tflops']:.1f} TFLOP/s "
+          f"({res['pct_of_989']:.2f}% of 989), peak "
+          f"{res['peak_memory_gb']:.2f} GB, K1 {res['launches']['k1']} and "
+          f"K3 {res['launches']['k3']} launches, loss {rows[-1]['loss']}; "
+          "seconds " + ", ".join(f"{k} {v:.2f}"
+                                 for k, v in res["seconds"].items()),
+          flush=True)
+    return res, ckpt
+
+
+def unetpp_serving(root):
+    """The trained UNet++ checkpoint served over the 4 × 2048² granules:
+    plain; ``--int8`` (Q1 30 and Q2 10 launches per forward, mask flips
+    under ``INT8_MAX_FLIP_SHARE`` against plain); ``--prune-level 4`` (bit
+    for bit the unpruned call); ``--prune-level 2`` and ``--int8
+    --prune-level 2`` (Q1 12 and Q2 3 per forward); ``--fused``, which
+    exits 1."""
+    _n_tiles, forwards = serving_geometry(ICFG)
+    mpix = GRANULES * GRANULE_PX**2 / 1e6
+    res = {"forwards": forwards, "seconds": {}}
+    res["seconds"]["plain"], plain = serve(root)
+
+    def int8_call(label, level, *flags):
+        int8_conv.LAUNCHES = int8_upsample.LAUNCHES = 0
+        res["seconds"][label], preds = serve(root, "--int8", *flags)
+        got = (int8_conv.LAUNCHES, int8_upsample.LAUNCHES)
+        want = tuple(n * forwards for n in pp_counts(level))
+        res[f"{label}_launches"] = {"q1": got[0], "q2": got[1]}
+        if got != want:
+            raise AssertionError(f"predict_model --int8 {flags} launched Q1 "
+                                 f"and Q2 {got} times, not {want}")
+        return preds
+
+    max_dp, share, _ = compare_served(int8_call("int8", PP_CFG.depth), plain)
+    res["int8_against_plain"] = {"max_abs_dprobs": max_dp,
+                                 "mask_flip_share": share}
+    if share >= INT8_MAX_FLIP_SHARE:
+        raise AssertionError(f"UNet++ --int8 flips {share:.3e} of the plain "
+                             "call's masks")
+    int8_pruned = int8_call(f"int8_prune_{PP_PRUNE}", PP_PRUNE,
+                            "--prune-level", str(PP_PRUNE))
+    res["seconds"]["prune_depth"], full = serve(
+        root, "--prune-level", str(PP_CFG.depth))
+    if any(not np.array_equal(full[k], plain[k]) for k in plain):
+        raise AssertionError("--prune-level at the depth differs from the "
+                             "unpruned call")
+    res["seconds"][f"prune_{PP_PRUNE}"], pruned = serve(
+        root, "--prune-level", str(PP_PRUNE))
+    max_dp, share, _ = compare_served(int8_pruned, pruned)
+    res[f"int8_prune_{PP_PRUNE}_against_plain"] = {
+        "max_abs_dprobs": max_dp, "mask_flip_share": share}
+    res[f"prune_{PP_PRUNE}_against_full"] = dict(zip(
+        ("max_abs_dprobs", "mask_flip_share"),
+        compare_served(pruned, plain)[:2]))
+    if cli.main(["predict_model", "--root", root, "--fused"]) != 1:
+        raise AssertionError("--fused on a UNet++ checkpoint did not exit 1")
+    res["mpix_s"] = {k: mpix / v for k, v in res["seconds"].items()}
+    print(f"UNet++ predict_model {GRANULES}x{GRANULE_PX}^2 ({forwards} "
+          "forwards): " + ", ".join(f"{k} {v:.2f} s ({res['mpix_s'][k]:.2f}"
+                                    " MPix/s)"
+                                    for k, v in res["seconds"].items())
+          + f"; Q1/Q2 launches --int8 {res['int8_launches']}, --int8 "
+          f"--prune-level {PP_PRUNE} {res[f'int8_prune_{PP_PRUNE}_launches']}"
+          "; --int8 mask flips "
+          f"{res['int8_against_plain']['mask_flip_share']:.3e} against "
+          f"plain; --prune-level {PP_CFG.depth} equal to unpruned; "
+          "--fused exits 1", flush=True)
+    return res
+
+
+def unetpp_phase(rng, tmp):
+    """UNet++ at ``PP_CFG``: its int8 kernels, its int8 forward card
+    against CPU, training, and its trained checkpoint served (with the
+    plain call's serial split), each part's seconds recorded."""
+    parts, t0 = {}, time.perf_counter()
+
+    def done(part):
+        nonlocal t0
+        parts[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    q1, q2, cats = unetpp_int8_kernels(rng)
+    done("kernels")
+    model = seeded_unet(torch.Generator().manual_seed(SEED + 1), PP_CFG)
+    forward = check_unetpp_int8_forward(model, rng)
+    del model
+    torch.cuda.empty_cache()
+    done("forward")
+    training, ckpt = unetpp_train(tmp)
+    done("training")
+    trained = build_model(PP_CFG)
+    trained.load_state_dict(torch.load(os.path.join(ckpt, "weights.pt")))
+    serve_dir = os.path.join(tmp, "pp_serve")
+    os.makedirs(serve_dir)
+    root = serving_root(trained, rng, serve_dir)
+    serving = unetpp_serving(root)
+    split_dir = os.path.join(serve_dir, "split")
+    os.makedirs(split_dir)
+    serving["plain_split_s"] = serving_split(
+        root, trained.to(DEV).eval(), split_dir, lambda m, x: m(x), ICFG,
+        "UNet++ plain")
+    done("serving")
+    res = {"config": dataclasses.asdict(PP_CFG), "q1_rows": q1,
+           "q2_rows": q2, "concat_rows": cats, "forward": forward,
+           "training": training, "serving": serving,
+           "seconds_by_part": parts, "seconds": sum(parts.values())}
+    print(f"UNet++ phase {res['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()) + ")", flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -2687,6 +2946,14 @@ def main() -> int:
         streams["training"] = stream_training(tmp, training["step_times"])
     streams["seconds"] = streams_s + time.perf_counter() - t_streams
     print(f"streams phase {streams['seconds']:.1f} s", flush=True)
+    # UNet++: Q1 and Q2 at its shapes, its int8 forward card against CPU,
+    # train_model --arch unetpp --deep-supervision, its checkpoint served
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        unetpp = unetpp_phase(rng, tmp)
+    pp_q1, pp_q2 = unetpp["q1_rows"], unetpp["q2_rows"]
+    pp_fwd, pp_served = unetpp["forward"], unetpp["serving"]
+    pp_train = unetpp["training"]["launches"]
     tta_launches = {k: streams["tta"][label]["launches"][k] for k, label in
                     (("k6", "fused"), ("k7", "use_mega"), ("q1", "int8"),
                      ("q2", "int8"))}
@@ -2754,8 +3021,10 @@ def main() -> int:
                   "plumekit/ops/pallas/ccl_sweep.py:544", bench_ccl,
                   features["launches"]["k1"]
                   + gaussian_features["launches"]["k1"], ccl_rows,
-                  # train_model --weak-labels, labelling its granules
-                  train_launches=chain["launches"]["k1"]),
+                  # train_model --weak-labels, labelling its granules,
+                  # for the U-Net and for the UNet++
+                  train_launches=chain["launches"]["k1"],
+                  unetpp_train_launches=pp_train["k1"]),
         ccl_entry("multi_threshold_ccl",
                   "plumekit/ops/pallas/ccl_sweep.py:468", basic_mask,
                   basic_features["launches"]["k2"]
@@ -2766,6 +3035,7 @@ def main() -> int:
         "launches": features["launches"]["k3"]
         + gaussian_features["launches"]["k3"],
         "train_launches": chain["launches"]["k3"],
+        "unetpp_train_launches": pp_train["k3"],
         "max_abs_err": max(r["max_abs_err"] for r in count_rows),
         "ms": bench_counts["ms"], "plain_ms": bench_counts["plain_ms"],
         "bound_ms": bench_counts["bound_ms"],
@@ -2832,7 +3102,7 @@ def main() -> int:
         "replaces": "plumekit/models/quantized_forward.py:133 (XLA s8 conv, "
                     "no Pallas)",
         "launches": int8_served["q1_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in q1_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in q1_rows + pp_q1),
         # queued: 20 launches per event pair
         "ms": sum(r["queued_ms"] for r in q1_rows),
         "plain_ms": sum(r["plain_ms"] for r in q1_rows),
@@ -2849,14 +3119,29 @@ def main() -> int:
         "train_launches": chain["q1_serving_launches"],
         "tta_launches": tta_launches["q1"],
         "at": f"the 18 convs of one int8 forward of UNetConfig(), "
-              f"{INT8_BATCH} tiles of {ICFG.tile_size}x{ICFG.tile_size}"}, {
+              f"{INT8_BATCH} tiles of {ICFG.tile_size}x{ICFG.tile_size}",
+        # the UNet++ int8 forward: launches per forward and served with
+        # --int8, its 30 convs queued at the same batch, and the torch.cat
+        # that joins each node's same-scale planes into Q1's first source
+        "unetpp_launches": pp_fwd["launches"],
+        "unetpp_serving_launches": pp_served["int8_launches"]["q1"],
+        "unetpp_ms": sum(r["queued_ms"] for r in pp_q1),
+        "unetpp_bound_ms": sum(r["bound_ms"] for r in pp_q1),
+        "unetpp_plain_ms": sum(r["plain_ms"] for r in pp_q1),
+        "unetpp_bf16_cudnn_ms": sum(r["bf16_cudnn_ms"] for r in pp_q1),
+        "unetpp_cat_ms": sum(r["queued_ms"] for r in unetpp["concat_rows"]),
+        "unetpp_cat_bound_ms": sum(r["bound_ms"]
+                                   for r in unetpp["concat_rows"]),
+        "unetpp_at": f"the 30 convs of one int8 forward of {PP_CFG}, "
+                     f"{INT8_BATCH} tiles of {ICFG.tile_size}x"
+                     f"{ICFG.tile_size}"}, {
         "name": "int8_upsample2x2", "route": "cuda",
         "source": "plumekit_torch/csrc/int8_conv.cu",
         "replaces": "plumekit/models/quantized_forward.py:145 (XLA s8 "
                     "einsum with its dequant, shuffle and requant, no "
                     "Pallas)",
         "launches": int8_served["q2_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in q2_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in q2_rows + pp_q2),
         # queued: 20 launches per event pair
         "ms": sum(r["queued_ms"] for r in q2_rows),
         # the plain version is the forward's path before Q2:
@@ -2873,7 +3158,16 @@ def main() -> int:
         "train_launches": chain["q2_serving_launches"],
         "tta_launches": tta_launches["q2"],
         "at": f"the 4 upsamples of one int8 forward of UNetConfig(), "
-              f"{INT8_BATCH} tiles of {ICFG.tile_size}x{ICFG.tile_size}"}]
+              f"{INT8_BATCH} tiles of {ICFG.tile_size}x{ICFG.tile_size}",
+        "unetpp_launches": pp_fwd["q2_launches"],
+        "unetpp_serving_launches": pp_served["int8_launches"]["q2"],
+        "unetpp_ms": sum(r["queued_ms"] for r in pp_q2),
+        "unetpp_bound_ms": sum(r["bound_ms"] for r in pp_q2),
+        "unetpp_plain_ms": sum(r["plain_ms"] for r in pp_q2),
+        "unetpp_int_mm_ms": sum(r["int_mm_ms"] for r in pp_q2),
+        "unetpp_at": f"the 10 upsamples of one int8 forward of {PP_CFG}, "
+                     f"{INT8_BATCH} tiles of {ICFG.tile_size}x"
+                     f"{ICFG.tile_size}"}]
     copy_rate = measured_copy_rate()
     for k in kernels:
         k["bound_at_copy_rate_ms"] = k["bound_ms"] * (
@@ -2901,6 +3195,7 @@ def main() -> int:
                    "build_features_basic": basic_features,
                    "build_features_gaussian": gaussian_features,
                    "training": training, "streams": streams,
+                   "unetpp": unetpp,
                    "copy_rate_gb_per_s": copy_rate / 1e9,
                    "seconds": time.perf_counter() - t_start,
                    "kernels": kernels},

@@ -20,20 +20,23 @@ Usage: ``plumekit-torch <command> --root R ...`` or
 * ``make_dataset`` writes synthetic granules under
   ``raw/plume_identification/maiac`` and their fires to
   ``raw/fires/fires.csv``, as ``plumekit make_dataset`` does;
-* ``train_model`` trains the U-Net on synthetic granules made from
-  ``DataConfig`` (``--weak-labels``: labelled by the rg detector), as
+* ``train_model`` trains the U-Net (``--arch unetpp [--deep-supervision]``:
+  the UNet++) on synthetic granules made from ``DataConfig``
+  (``--weak-labels``: labelled by the rg detector), as
   ``plumekit train_model`` does (the root's own granules are not read;
   ``--root`` places the checkpoints), and writes ``model_config.json``,
   ``weights.pt`` and step checkpoints under ``<root>/models/checkpoints``
   and the metrics CSV beside them;
 * ``predict_model`` writes ``<root>/processed/predictions/<name>_pred.npz``
   (``probs``, ``mask``, ``threshold``) as ``plumekit predict_model`` does;
-  ``--int8`` serves the int8 forward, calibrated on the first granule with
-  signal, through the int8 conv kernels on the card; ``--tta`` averages the
-  8 D4 views of every tile batch, ``--quantize`` uploads uint16 channels
-  and ``--quantize-output`` reads back uint8 probabilities. Granules decode
-  on a thread pool and upload on a stager thread ahead of the forwards, as
-  in the JAX package; ``build_features`` decodes on the same pool.
+  ``--prune-level L`` serves a deep-supervised UNet++ checkpoint pruned at
+  fusion level L; ``--int8`` serves the int8 forward, calibrated on the
+  first granule with signal, through the int8 conv kernels on the card;
+  ``--tta`` averages the 8 D4 views of every tile batch, ``--quantize``
+  uploads uint16 channels and ``--quantize-output`` reads back uint8
+  probabilities. Granules decode on a thread pool and upload on a stager
+  thread ahead of the forwards, as in the JAX package; ``build_features``
+  decodes on the same pool.
 
 The device is the card unless ``--device`` says otherwise.
 """
@@ -41,6 +44,7 @@ The device is the card unless ``--device`` says otherwise.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -62,7 +66,6 @@ UNPORTED_FLAGS = {
     "exported": "exported serving artifacts",
     "mesh_devices": "multi-card serving",
     "tuned": "serving geometry tuner",
-    "prune_level": "UNet++",
     "plot": "prediction quicklooks",
 }
 
@@ -78,8 +81,6 @@ UNPORTED_TRAIN_FLAGS = {
     "distill_prune_level": "training and evaluation extras",
     "distill_tta": "training and evaluation extras",
     "distill_calibrate": "training and evaluation extras",
-    "arch": "UNet++",
-    "deep_supervision": "UNet++",
 }
 
 #: granules the int8 calibration looks at for one with signal
@@ -93,10 +94,13 @@ class _CliError(Exception):
 
 
 def _restore_model(args, device):
-    """Build the U-Net of ``model_config.json`` (default config if absent)
+    """Build the model of ``model_config.json`` (default config if absent)
     and load ``weights.pt``; with no weights, warn and keep seeded
-    untrained weights."""
-    from plumekit_torch.models import build_model
+    untrained weights. With ``--prune-level`` the served config is the
+    recorded one pruned at that level (UNet++ serving-time pruning); the
+    model holds the full grid all the same, so the checkpoint loads as it
+    is and only the forward stops at the level."""
+    from plumekit_torch.models import build_model, effective_level
     from plumekit_torch.train.checkpoint import (has_orbax_steps,
                                                  load_model_config,
                                                  load_weights)
@@ -104,9 +108,15 @@ def _restore_model(args, device):
     ckpt_dir = args.checkpoint or os.path.join(
         args.root, PathsConfig().model_dir, "checkpoints")
     unet_cfg = load_model_config(ckpt_dir) or UNetConfig()
+    if args.prune_level is not None:
+        unet_cfg = dataclasses.replace(unet_cfg, prune_level=args.prune_level)
+        try:
+            effective_level(unet_cfg)
+        except ValueError as e:
+            raise _CliError(f"--prune-level: {e}")
     try:
         model = build_model(unet_cfg, torch.Generator().manual_seed(0))
-    except NotImplementedError as e:
+    except ValueError as e:
         raise _CliError(str(e))
     if load_weights(ckpt_dir, model):
         logger.info("restored weights from %s", ckpt_dir)
@@ -356,8 +366,8 @@ def cmd_make_dataset(args) -> int:
 
 
 def cmd_train_model(args) -> int:
-    """Train the U-Net (``plumekit_torch.train.loop.train``) on the device
-    of ``--device``."""
+    """Train the U-Net or UNet++ (``plumekit_torch.train.loop.train``) on
+    the device of ``--device``."""
     from plumekit_torch.config.train import DataConfig, TrainConfig
     from plumekit_torch.train.loop import train
 
@@ -374,7 +384,8 @@ def cmd_train_model(args) -> int:
         logger.error("%s", e)
         return 1
     history = train(
-        unet_cfg=UNetConfig(),
+        unet_cfg=UNetConfig(arch=args.arch,
+                            deep_supervision=args.deep_supervision),
         train_cfg=TrainConfig(
             total_steps=args.steps, batch_size=args.batch_size,
             tile_size=args.tile, checkpoint_dir=os.path.join(
@@ -595,7 +606,8 @@ def _add_serving_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--exported", default=None,
                    help="serve an exported artifact" + unported)
     p.add_argument("--prune-level", type=int, default=None,
-                   help="UNet++ pruned serving" + unported)
+                   help="serve a deep-supervised UNet++ checkpoint pruned "
+                        "at fusion level L (1..depth)")
     p.add_argument("--mesh-devices", type=int, default=0, metavar="D",
                    help="multi-card serving" + unported)
     p.add_argument("--tuned", nargs="?", const="auto", default=None,
@@ -620,7 +632,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="synthetic IVAOT/GMTCO h5 pairs" + unported)
     d.set_defaults(fn=cmd_make_dataset)
 
-    t = sub.add_parser("train_model", help="train the U-Net")
+    t = sub.add_parser("train_model", help="train the U-Net or UNet++")
     t.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),
                    help="workspace root (checkpoints under "
                         "<root>/models/checkpoints)")
@@ -647,9 +659,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="uint16 channels and uint8 masks across the "
                         "host-to-device hop, dequantized in the step")
     t.add_argument("--arch", choices=["unet", "unetpp"], default="unet",
-                   help="architecture family (unetpp" + unported + ")")
+                   help="architecture family")
     t.add_argument("--deep-supervision", action="store_true",
-                   help="UNet++ side heads" + unported)
+                   help="UNet++ side heads on every top-row column, "
+                        "averaged (enables --prune-level serving)")
     t.add_argument("--distill-from", default=None, metavar="CKPT_DIR",
                    help="offline distillation" + unported)
     t.add_argument("--distill-alpha", type=float, default=1.0,

@@ -21,7 +21,7 @@ class UNetConfig:
     depth: int = 4                # number of down/up stages
     norm: str = "batch"           # "batch" | "group" | "none"
     group_norm_groups: int = 8
-    #: "unet" or "unetpp" (UNet++, not ported yet)
+    #: "unet" or "unetpp" (UNet++, ``models/unetpp.py``)
     arch: str = "unet"
     #: UNet++ only
     deep_supervision: bool = False

@@ -19,7 +19,12 @@ upsample queued at every shape the kernel may take (``shape_candidates``,
 ``upsample_candidates``), each held bit for bit, beside the shape the rule
 picks. ``python -m plumekit_torch.experiments.int8_conv_times [--batch 128]
 [--tile 288] [--forward] [--tiles] [--out PATH]`` on a card; prints one line
-per case and writes ``chiprun_out/int8_conv_times.json`` (or PATH)."""
+per case and writes ``chiprun_out/int8_conv_times.json`` (or PATH).
+
+For a UNet++ config, :func:`conv_cases` and :func:`upsample_cases` list its
+int8 forward's convs and upsamples, and :func:`concat_cases` and
+:func:`time_concat` the ``torch.cat`` that joins each node's same-scale
+planes into Q1's first source (``chip_smoke.py``'s UNet++ phase)."""
 
 from __future__ import annotations
 
@@ -45,7 +50,10 @@ PEAK_BYTES_PER_S = 3.35e12
 def conv_cases(cfg: UNetConfig, tile: int):
     """(c_skip, c_in, c_out, side, int8 out) of the 2·(2·depth + 1) convs of
     the int8 forward; c_skip > 0 for a decoder block's first conv, which
-    reads ``concat([skip, up])``; the last conv writes fp32 for the head."""
+    reads ``concat([skip, up])``; the last conv writes fp32 for the head.
+    A UNet++ config takes :func:`unetpp_conv_cases`."""
+    if cfg.arch == "unetpp":
+        return unetpp_conv_cases(cfg, tile)
     f = [cfg.base_features * 2**i for i in range(cfg.depth + 1)]
     cases = []
     for i in range(cfg.depth + 1):                # encoder and bottleneck
@@ -58,6 +66,37 @@ def conv_cases(cfg: UNetConfig, tile: int):
     return cases
 
 
+def unetpp_conv_cases(cfg: UNetConfig, tile: int):
+    """The convs of the UNet++ int8 forward at ``effective_level(cfg)`` in
+    launch order, as :func:`conv_cases`: node X[i][j]'s first conv reads
+    the j same-scale planes (``c_skip = j·f_i``) and the upsample; the top
+    row's second convs write fp32 where a head reads them (X[0][L], and
+    under deep supervision every X[0][j])."""
+    from plumekit_torch.models.unetpp import decoder_nodes, effective_level
+
+    level = effective_level(cfg)
+    f = [cfg.base_features * 2**i for i in range(level + 1)]
+    cases = []
+    for i in range(level + 1):
+        cin = cfg.in_channels if i == 0 else f[i - 1]
+        cases += [(0, cin, f[i], tile >> i, True),
+                  (0, f[i], f[i], tile >> i, True)]
+    for i, j in decoder_nodes(level):
+        fp32_out = i == 0 and (j == level or cfg.deep_supervision)
+        cases += [(j * f[i], f[i], f[i], tile >> i, True),
+                  (0, f[i], f[i], tile >> i, not fp32_out)]
+    return cases
+
+
+def random_plane(rng, shape, low, device):
+    """A uniform int8 plane in [low, 128) drawn on ``device`` by a generator
+    seeded from ``rng``: a 128-tile plane takes milliseconds there and
+    seconds through numpy on the host."""
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(2**62)))
+    return torch.randint(low, 128, shape, generator=gen, device=device,
+                         dtype=torch.int8)
+
+
 def case_inputs(rng, case, batch, device):
     """Seeded int8 planes and weights of one case, with a multiplier and a
     shift that spread the outputs over the int8 range: (x, w, a, b, scale,
@@ -65,8 +104,7 @@ def case_inputs(rng, case, batch, device):
     c_skip, cin, cout, side, int8_out = case
 
     def plane(c, low):
-        return torch.from_numpy(rng.integers(
-            low, 128, (batch, side, side, c), dtype=np.int8)).to(device)
+        return random_plane(rng, (batch, side, side, c), low, device)
 
     # the network input is signed; every later plane follows a ReLU
     x = plane(cin, -127 if c_skip == 0 and cin < 8 else 0)
@@ -97,8 +135,14 @@ def ops_and_bytes(case, batch):
 
 def upsample_cases(cfg: UNetConfig, tile: int):
     """(c_in, c_out, side of the input) of the forward's ``depth``
-    transposed convs, the bottleneck's first."""
+    transposed convs, the bottleneck's first; of a UNet++ its
+    ``L(L + 1)/2`` upsamples ``up_i_j`` in launch order."""
     f = [cfg.base_features * 2**i for i in range(cfg.depth + 1)]
+    if cfg.arch == "unetpp":
+        from plumekit_torch.models.unetpp import decoder_nodes, effective_level
+
+        return [(f[i + 1], f[i], tile >> (i + 1))
+                for i, j in decoder_nodes(effective_level(cfg))]
     return [(f[cfg.depth - u], f[cfg.depth - 1 - u], tile >> (cfg.depth - u))
             for u in range(cfg.depth)]
 
@@ -107,8 +151,7 @@ def upsample_inputs(rng, case, batch, device):
     """Seeded (x, kq, sw, bias, scale) of one transposed conv, with ``sw``
     and ``bias`` that spread the outputs over the int8 range."""
     cin, cout, side = case
-    x = torch.from_numpy(rng.integers(0, 128, (batch, side, side, cin),
-                                      dtype=np.int8)).to(device)
+    x = random_plane(rng, (batch, side, side, cin), 0, device)
     kq = torch.from_numpy(rng.integers(-127, 128, (2, 2, cin, cout),
                                        dtype=np.int8)).to(device)
     sw = torch.from_numpy((rng.uniform(0.5, 1.5, cout) * 4.0
@@ -319,6 +362,44 @@ def time_case(rng, case, batch, device, int8_library=False):
         row["library_ms"] = time_ms(lambda: F.conv2d(xi, wi, padding=1))
     del x, w, skip, got, ref, xf, wf, packed
     return row
+
+
+def concat_cases(cfg: UNetConfig, tile: int):
+    """(node, planes, channels per plane, side) of the ``torch.cat`` calls
+    of the UNet++ int8 forward: node X[i][j], j ≥ 2, joins its j
+    same-scale int8 planes along channels into the first source of its
+    first Q1 (X[i][0] alone serves j = 1, with no copy)."""
+    from plumekit_torch.models.unetpp import decoder_nodes, effective_level
+
+    level = effective_level(cfg)
+    f = [cfg.base_features * 2**i for i in range(level + 1)]
+    return [(f"x{i}_{j}", j, f[i], tile >> i)
+            for i, j in decoder_nodes(level) if j >= 2]
+
+
+def time_concat(rng, case, batch, device):
+    """One concat queued: the copy of ``planes`` int8 planes into one, its
+    bytes (every input read once, the output written once) and their bound
+    at 3,350 GB/s."""
+    node, planes, c, side = case
+    srcs = [random_plane(rng, (batch, side, side, c), 0, device)
+            for _ in range(planes)]
+    n_bytes = 2 * planes * batch * side * side * c
+    row = {"node": node, "planes": planes, "channels": planes * c, "h": side,
+           "batch": batch, "bytes": n_bytes,
+           "queued_ms": time_ms(lambda: torch.cat(srcs, dim=-1),
+                                calls=QUEUED)}
+    row["bound_ms"], row["bound_by"] = bound(0, n_bytes)
+    row["gb_per_s"] = n_bytes / row["queued_ms"] / 1e6
+    del srcs
+    return row
+
+
+def concat_summary(row):
+    per = row["channels"] // row["planes"]
+    return (f"cat {row['node']} {row['planes']}x{per} ch "
+            f"{row['batch']}x{row['h']}^2: queued {row['queued_ms']:.3f}"
+            f" ms ({row['gb_per_s']:.0f} GB/s), bound {row['bound_ms']:.4f}")
 
 
 def shape_label(shape) -> str:

@@ -1,4 +1,4 @@
-"""Model layer: the U-Net (``plumekit/models``)."""
+"""Model layer: the U-Net and UNet++ (``plumekit/models``)."""
 
 from __future__ import annotations
 
@@ -8,9 +8,10 @@ import torch
 
 from plumekit_torch.config.train import UNetConfig
 from plumekit_torch.models.unet import DoubleConv, UNet, receptive_field
+from plumekit_torch.models.unetpp import UNetPP, effective_level
 
-__all__ = ["DoubleConv", "UNet", "build_model", "init_weights",
-           "receptive_field"]
+__all__ = ["DoubleConv", "UNet", "UNetPP", "build_model", "effective_level",
+           "init_weights", "receptive_field"]
 
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
@@ -33,18 +34,24 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
                     m.reset_running_stats()
 
 
-def build_model(cfg: UNetConfig,
-                generator: Optional[torch.Generator] = None) -> UNet:
-    """The one place ``UNetConfig.arch`` is resolved to a module. With a
-    ``generator`` the weights are initialised from it (:func:`init_weights`)."""
-    if cfg.arch == "unetpp" or cfg.deep_supervision or cfg.prune_level:
-        raise NotImplementedError(
-            "UNet++ (arch='unetpp', deep supervision, prune levels) is not "
-            "ported to plumekit_torch yet (ROADMAP.md, queue A: 'UNet++')")
-    if cfg.arch != "unet":
+def build_model(cfg: UNetConfig, generator: Optional[torch.Generator] = None
+                ) -> torch.nn.Module:
+    """The one place ``UNetConfig.arch`` is resolved to a module, with the
+    JAX package's checks. With a ``generator`` the weights are initialised
+    from it (:func:`init_weights`)."""
+    if cfg.deep_supervision and cfg.arch != "unetpp":
+        raise ValueError(
+            "deep_supervision is a UNet++ mode (side heads on the nested "
+            f"top-row columns); arch is {cfg.arch!r} — a silently ignored "
+            "flag would also be persisted into model_config.json")
+    effective_level(cfg)  # validate prune_level against arch/ds/depth
+    if cfg.arch == "unetpp":
+        model = UNetPP(cfg)
+    elif cfg.arch == "unet":
+        model = UNet(cfg)
+    else:
         raise ValueError(f"unknown UNetConfig.arch {cfg.arch!r} "
                          "(expected 'unet' or 'unetpp')")
-    model = UNet(cfg)
     if generator is not None:
         init_weights(model, generator)
     return model

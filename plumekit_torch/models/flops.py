@@ -1,4 +1,5 @@
-"""Analytic FLOP counts of the U-Net (``plumekit/models/flops.py``), for
+"""Analytic FLOP counts of the U-Net and UNet++
+(``plumekit/models/flops.py``), for
 TFLOP/s and model FLOP utilisation beside every MPix/s figure.
 
 Convention: matmul-class FLOPs only (convs and transposed convs at
@@ -12,6 +13,7 @@ from __future__ import annotations
 import math
 
 from plumekit_torch.config.train import UNetConfig
+from plumekit_torch.models.unetpp import decoder_nodes, effective_level
 
 #: NVIDIA H100 SXM dense peak rates from its data sheet, TFLOP/s: bf16
 #: tensor cores 989, int8 1979 (TOPS).
@@ -30,15 +32,26 @@ def _up(cin: int, cout: int) -> float:
 
 def model_flops_per_pixel(cfg: UNetConfig) -> float:
     """Matmul-class FLOPs per input-resolution pixel of one forward of the
-    U-Net. Area at level i scales as 4^-i."""
-    if cfg.arch == "unetpp":
-        raise NotImplementedError(
-            "UNet++ is not ported to plumekit_torch yet (ROADMAP.md, queue "
-            "A: 'UNet++')")
-    if cfg.arch != "unet":
-        raise ValueError(f"unknown arch {cfg.arch!r}")
+    U-Net, or of the UNet++ with its deep supervision and serving pruning.
+    Area at level i scales as 4^-i."""
     base, depth = cfg.base_features, cfg.depth
     feats = [base * (1 << i) for i in range(depth + 1)]
+    if cfg.arch == "unetpp":
+        level = effective_level(cfg)
+        total = 0.0
+        prev = cfg.in_channels
+        for i in range(level + 1):        # encoder column 0
+            total += (_conv(prev, feats[i]) + _conv(feats[i], feats[i])) \
+                / 4.0**i
+            prev = feats[i]
+        for i, j in decoder_nodes(level):  # nested dense decoder
+            cat = (j + 1) * feats[i]  # j same-scale nodes + the upsample
+            total += (_up(feats[i + 1], feats[i]) + _conv(cat, feats[i])
+                      + _conv(feats[i], feats[i])) / 4.0**i
+        n_heads = level if cfg.deep_supervision else 1
+        return total + n_heads * _conv(base, cfg.out_channels, 1)
+    if cfg.arch != "unet":
+        raise ValueError(f"unknown arch {cfg.arch!r}")
     total = 0.0
     prev = cfg.in_channels
     for i in range(depth):            # encoder double convs

@@ -1,5 +1,5 @@
-"""Int8 post-training-quantized U-Net forward, weights and activations
-(``plumekit/models/quantized_forward.py:101-400``, its U-Net half).
+"""Int8 post-training-quantized U-Net and UNet++ forwards, weights and
+activations (``plumekit/models/quantized_forward.py``).
 
 The scale algebra is the JAX package's, so every tensor is rounded once:
 
@@ -24,9 +24,18 @@ transposed conv's kernel ``(2, 2, Cin, Cout)`` pre-flipped, which is torch's
 ``ConvTranspose2d`` weight with its axes moved), so
 :func:`plumekit_torch.convert.qvars_from_flax` carries the JAX quantized
 state over value for value. Scales are 0-d float32 tensors on the model's
-device. UNet++ (``arch="unetpp"``) is not ported (ROADMAP.md, queue A,
-A.13), nor is the JAX package's ``custom_vmap`` batch fold, which works
-around JAX's batching of int8 ops and has nothing to do here.
+device. The JAX package's ``custom_vmap`` batch fold, which works around
+JAX's batching of int8 ops, has nothing to do here.
+
+The UNet++ (``arch="unetpp"``, at ``effective_level``) keeps the same
+algebra over its nested grid: node ``X[i][j]``'s first conv reads
+``concat(X[i][0..j-1], up)``, every participant at its own scale. Q1 takes
+the concat as two sources, the ``j`` same-scale planes (one ``torch.cat``
+along channels, none for ``j = 1``) and the upsample. Its heads read fp32
+nodes: ``X[0][L]`` is head-only (``s_out`` None), and under deep
+supervision each ``X[0][j]``, ``j < L``, is written fp32 by its second Q1
+and requantized for the later concats by ``quant_act``, the JAX graph's
+order.
 
 Usage::
 
@@ -46,23 +55,21 @@ import torch.nn.functional as F
 from plumekit_torch.config.train import UNetConfig
 from plumekit_torch.models.kernels import int8_conv, int8_upsample
 from plumekit_torch.models.kernels.fused_conv import fold_batchnorm
+from plumekit_torch.models.unetpp import (decoder_nodes, effective_level,
+                                          head_names)
 
 _quant_act = int8_conv.quant_act
 _upsample_q = int8_upsample.upsample_dequant_ref
 
 
 def _check_cfg(cfg: UNetConfig) -> None:
-    if cfg.arch == "unetpp" or cfg.deep_supervision or cfg.prune_level:
-        raise ValueError(
-            "the int8 forward of UNet++ (arch 'unetpp', deep supervision, "
-            "prune levels) is not ported to plumekit_torch yet (ROADMAP.md, "
-            "queue A: 'A.13 UNet++')")
-    if cfg.arch != "unet":
+    if cfg.arch not in ("unet", "unetpp"):
         raise ValueError(f"int8 quantized forward supports arch 'unet' or "
                          f"'unetpp', got {cfg.arch!r}")
     if cfg.norm != "batch":
         raise ValueError("int8 quantized forward requires norm='batch' "
                          "(BN folds into the dequant multiplier)")
+    effective_level(cfg)  # validate prune_level against arch/ds/depth
 
 
 def _amax(x):
@@ -120,6 +127,29 @@ def _conv_bn_relu(x, w, a, b):
     return torch.relu(y.permute(0, 2, 3, 1) * a + b)
 
 
+def _conv_transpose_fp32(x, up):
+    """fp32 2×2 stride-2 transposed conv of NHWC ``x`` by the port's
+    ``ConvTranspose2d`` ``up``, as the calibration replay computes it: one
+    product and the pixel shuffle."""
+    k = up.weight.detach().float()                      # (cin, cout, 2, 2)
+    b_, h, w_, cin = x.shape
+    cout = k.shape[1]
+    y = (x.reshape(-1, cin) @ k.permute(0, 2, 3, 1).reshape(
+        cin, 4 * cout)).reshape(b_, h, w_, 2, 2, cout)
+    return (y.permute(0, 1, 3, 2, 4, 5).reshape(b_, 2 * h, 2 * w_, cout)
+            + up.bias.detach().float())
+
+
+def _per_channel(scale, n):
+    return scale * torch.ones((n,), dtype=torch.float32, device=scale.device)
+
+
+def _head_vars(head):
+    """The fp32 1×1 head of a port ``Conv2d``: HWIO kernel and bias."""
+    return {"kernel": head.weight.detach().float().permute(2, 3, 1, 0),
+            "bias": head.bias.detach().float()}
+
+
 @contextmanager
 def _full_fp32():
     """fp32 convolutions and products in full fp32, not TF32 (cuDNN's
@@ -145,8 +175,10 @@ def calibrate_unet(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
     package's names: ``in``; ``b{i}_mid``; ``b{i}_out`` for every block but
     the last decoder block; ``up{u}``. Calibrate on a batch of tiles, not a
     whole granule: the replay keeps full-resolution fp32 planes of every
-    level."""
+    level. A UNet++ takes :func:`_calibrate_unetpp`."""
     _check_cfg(cfg)
+    if cfg.arch == "unetpp":
+        return _calibrate_unetpp(model, cfg, calib)
     depth = cfg.depth
     amax: Dict[str, Any] = {}
     with _full_fp32():
@@ -172,14 +204,7 @@ def calibrate_unet(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
         idx += 1
 
         for u, skip in enumerate(reversed(skips)):
-            up = model.ups[u]
-            k = up.weight.detach().float()                  # (cin, cout, 2, 2)
-            b_, h, w_, cin = x.shape
-            cout = k.shape[1]
-            y = (x.reshape(-1, cin) @ k.permute(0, 2, 3, 1).reshape(
-                cin, 4 * cout)).reshape(b_, h, w_, 2, 2, cout)
-            x = (y.permute(0, 1, 3, 2, 4, 5).reshape(b_, 2 * h, 2 * w_, cout)
-                 + up.bias.detach().float())
+            x = _conv_transpose_fp32(x, model.ups[u])
             amax[f"up{u}"] = _amax(x)
             x = torch.cat([skip, x], dim=-1)
             (w1, a1, b1), (w2, a2, b2) = _folded_block(model.blocks[idx])
@@ -197,22 +222,21 @@ def quantize_unet(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
     """The int8 serving variables of the port's trained ``UNet`` ``model``
     (conv weights, BatchNorm parameters and running statistics) and a
     calibration batch, on the model's device, in the JAX package's
-    structure: ``{"s_in", "blocks": [...], "ups": [...], "head"}``. Runs
-    once, off the serving hot path."""
+    structure: ``{"s_in", "blocks": [...], "ups": [...], "head"}``; of a
+    ``UNetPP`` :func:`_quantize_unetpp`'s. Runs once, off the serving hot
+    path."""
     _check_cfg(cfg)
+    if cfg.arch == "unetpp":
+        return _quantize_unetpp(model, cfg, calib)
     amax = calibrate_unet(model, cfg, calib)
     s = {k: v / int8_conv.scale_tensor(127.0, v) for k, v in amax.items()}
     depth = cfg.depth
 
-    def per_channel(scale, n):
-        return scale * torch.ones((n,), dtype=torch.float32,
-                                  device=scale.device)
-
     def block_vars(idx, s_in, s_out):
         (w1, a1, b1), (w2, a2, b2) = _folded_block(model.blocks[idx])
         wq1, sw1 = _quant_weight(w1, s_in)
-        wq2, sw2 = _quant_weight(w2, per_channel(s[f"b{idx}_mid"],
-                                                 w2.shape[2]))
+        wq2, sw2 = _quant_weight(w2, _per_channel(s[f"b{idx}_mid"],
+                                                  w2.shape[2]))
         return {"wq1": wq1, "a1": sw1 * a1, "b1": b1,
                 "s_mid": s[f"b{idx}_mid"],
                 "wq2": wq2, "a2": sw2 * a2, "b2": b2, "s_out": s_out}
@@ -221,7 +245,7 @@ def quantize_unet(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
     in_name = "in"
     for idx in range(depth + 1):  # encoder levels + bottleneck
         cin = model.blocks[idx].conv[0].weight.shape[1]
-        blocks.append(block_vars(idx, per_channel(s[in_name], cin),
+        blocks.append(block_vars(idx, _per_channel(s[in_name], cin),
                                  s[f"b{idx}_out"]))
         in_name = f"b{idx}_out"
 
@@ -233,7 +257,7 @@ def quantize_unet(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
         # is the JAX package's pre-flipped kernel
         k = up.weight.detach().float().permute(2, 3, 0, 1)
         src = f"b{depth + u}_out"  # u=0 reads the bottleneck output
-        kq, sw = _quant_weight(k, per_channel(s[src], k.shape[2]))
+        kq, sw = _quant_weight(k, _per_channel(s[src], k.shape[2]))
         ups.append({"kq": kq, "sw": sw, "bias": up.bias.detach().float(),
                     "s_up": s[f"up{u}"]})
 
@@ -241,21 +265,16 @@ def quantize_unet(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
         # (encoder level depth-1-u), up u]); each half keeps its own scale
         idx = depth + 1 + u
         c_skip = model.blocks[depth - 1 - u].conv[1].weight.shape[0]
-        s_cat = torch.cat([per_channel(s[f"b{depth - 1 - u}_out"], c_skip),
-                           per_channel(s[f"up{u}"], k.shape[-1])])
+        s_cat = torch.cat([
+            _per_channel(s[f"b{depth - 1 - u}_out"], c_skip),
+            _per_channel(s[f"up{u}"], k.shape[-1])])
         last = idx == 2 * depth
         # the last decoder output feeds the fp32 head un-quantized
         blocks.append(block_vars(idx, s_cat,
                                  None if last else s[f"b{idx}_out"]))
 
-    head = model.head
-    return {
-        "s_in": s["in"],
-        "blocks": blocks,
-        "ups": ups,
-        "head": {"kernel": head.weight.detach().float().permute(2, 3, 1, 0),
-                 "bias": head.bias.detach().float()},
-    }
+    return {"s_in": s["in"], "blocks": blocks, "ups": ups,
+            "head": _head_vars(model.head)}
 
 
 def make_quantized_apply(cfg: UNetConfig):
@@ -265,8 +284,11 @@ def make_quantized_apply(cfg: UNetConfig):
     every transposed conv with its requant Q2; the only fp32 work is in
     their epilogues and the 1×1 head. With a list
     ``planes``, every int8 plane of the forward is appended to it in order
-    (a debug form for comparing two devices)."""
+    (a debug form for comparing two devices). A UNet++ config takes
+    :func:`_make_unetpp_apply`."""
     _check_cfg(cfg)
+    if cfg.arch == "unetpp":
+        return _make_unetpp_apply(cfg)
     depth = cfg.depth
 
     @torch.no_grad()
@@ -299,10 +321,150 @@ def make_quantized_apply(cfg: UNetConfig):
 
 def qvars_to(qvars, device) -> Dict[str, Any]:
     """A copy of the int8 serving variables on ``device``."""
-    def move(d):
-        return {k: None if v is None else v.to(device) for k, v in d.items()}
+    def move(t):
+        if isinstance(t, dict):
+            return {k: move(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [move(v) for v in t]
+        return None if t is None else t.to(device)
 
-    return {"s_in": qvars["s_in"].to(device),
-            "blocks": [move(blk) for blk in qvars["blocks"]],
-            "ups": [move(up) for up in qvars["ups"]],
-            "head": move(qvars["head"])}
+    return move(qvars)
+
+
+# ---------------------------------------------------------------------------
+# UNet++ (plumekit/models/quantized_forward.py:391-557). Tensor names: "in",
+# "x{i}_{j}_mid", "x{i}_{j}_out", "up{i}_{j}"; X[0][L] is head-only, so it
+# has no "_out".
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def _calibrate_unetpp(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
+    """:func:`calibrate_unet` of the port's ``UNetPP`` ``model``: the fp32
+    replay of its BN-folded grid up to ``effective_level(cfg)``."""
+    level = effective_level(cfg)
+    amax: Dict[str, Any] = {}
+    with _full_fp32():
+        x = torch.as_tensor(calib, dtype=torch.float32,
+                            device=next(model.parameters()).device)
+        amax["in"] = _amax(x)
+
+        def node(i, j, h):
+            (w1, a1, b1), (w2, a2, b2) = _folded_block(
+                model.nodes[f"x_{i}_{j}"])
+            h = _conv_bn_relu(h, w1, a1, b1)
+            amax[f"x{i}_{j}_mid"] = _amax(h)
+            h = _conv_bn_relu(h, w2, a2, b2)
+            if (i, j) != (0, level):
+                amax[f"x{i}_{j}_out"] = _amax(h)
+            return h
+
+        grid = {}
+        h = x
+        for i in range(level + 1):
+            if i:
+                h = _max_pool2_q(h)
+            h = grid[(i, 0)] = node(i, 0, h)
+        for i, j in decoder_nodes(level):
+            up = _conv_transpose_fp32(grid[(i + 1, j - 1)],
+                                      model.ups[f"up_{i}_{j}"])
+            amax[f"up{i}_{j}"] = _amax(up)
+            grid[(i, j)] = node(i, j, torch.cat(
+                [grid[(i, k)] for k in range(j)] + [up], dim=-1))
+    return amax
+
+
+@torch.no_grad()
+def _quantize_unetpp(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
+    """The int8 serving variables of the port's ``UNetPP`` ``model`` at
+    ``effective_level(cfg)``, in the JAX package's structure: ``{"s_in",
+    "blocks": {"x{i}_{j}": ...}, "ups": {"up{i}_{j}": ...}, "heads":
+    {"head" or "head_{j}": ...}}``."""
+    amax = _calibrate_unetpp(model, cfg, calib)
+    s = {k: v / int8_conv.scale_tensor(127.0, v) for k, v in amax.items()}
+    level = effective_level(cfg)
+    feats = [cfg.base_features * 2**i for i in range(level + 1)]
+
+    def quant_block(i, j, in_scales):
+        (w1, a1, b1), (w2, a2, b2) = _folded_block(model.nodes[f"x_{i}_{j}"])
+        wq1, sw1 = _quant_weight(w1, in_scales)
+        wq2, sw2 = _quant_weight(w2, _per_channel(s[f"x{i}_{j}_mid"],
+                                                  w2.shape[2]))
+        return {"wq1": wq1, "a1": sw1 * a1, "b1": b1,
+                "s_mid": s[f"x{i}_{j}_mid"],
+                "wq2": wq2, "a2": sw2 * a2, "b2": b2,
+                "s_out": None if (i, j) == (0, level) else s[f"x{i}_{j}_out"]}
+
+    blocks: Dict[str, Any] = {}
+    ups: Dict[str, Any] = {}
+    for i in range(level + 1):
+        s_in = s["in"] if i == 0 else s[f"x{i - 1}_0_out"]
+        cin = cfg.in_channels if i == 0 else feats[i - 1]
+        blocks[f"x{i}_0"] = quant_block(i, 0, _per_channel(s_in, cin))
+    for i, j in decoder_nodes(level):
+        up = model.ups[f"up_{i}_{j}"]
+        # torch's (cin, cout, 2, 2) weight moved to (2, 2, cin, cout) is the
+        # JAX package's pre-flipped kernel
+        k = up.weight.detach().float().permute(2, 3, 0, 1)
+        s_src = s[f"x{i + 1}_{j - 1}_out"]
+        kq, sw = _quant_weight(k, _per_channel(s_src, k.shape[2]))
+        ups[f"up{i}_{j}"] = {"kq": kq, "sw": sw,
+                             "bias": up.bias.detach().float(),
+                             "s_up": s[f"up{i}_{j}"]}
+        s_cat = torch.cat(
+            [_per_channel(s[f"x{i}_{k_}_out"], feats[i]) for k_ in range(j)]
+            + [_per_channel(s[f"up{i}_{j}"], feats[i])])
+        blocks[f"x{i}_{j}"] = quant_block(i, j, s_cat)
+    heads = {name: _head_vars(model.heads[name])
+             for name in head_names(cfg, level).values()}
+    return {"s_in": s["in"], "blocks": blocks, "ups": ups, "heads": heads}
+
+
+def _make_unetpp_apply(cfg: UNetConfig):
+    """:func:`make_quantized_apply` of a UNet++ config: 2 Q1 launches per
+    node and one Q2 per upsample, ``(L + 1)(L + 2)`` and ``L(L + 1)/2`` at
+    level L."""
+    level = effective_level(cfg)
+
+    @torch.no_grad()
+    def apply(qvars, x, train: bool = False,
+              planes: Optional[list] = None):
+        if train:
+            raise ValueError("int8 quantized forward is inference-only")
+
+        def keep(t):
+            if planes is not None:
+                planes.append(t)
+            return t
+
+        gridq = {}
+        top_fp = {}            # the fp32 top-row nodes the heads read
+        h = keep(_quant_act(x.float(), qvars["s_in"]))
+        for i in range(level + 1):
+            if i:
+                h = keep(_max_pool2_q(gridq[(i - 1, 0)]))
+            gridq[(i, 0)] = _qblock(h, qvars["blocks"][f"x{i}_0"],
+                                    planes=planes)
+        for i, j in decoder_nodes(level):
+            up = qvars["ups"][f"up{i}_{j}"]
+            uq = keep(int8_upsample.int8_upsample2x2(
+                gridq[(i + 1, j - 1)], up["kq"], up["sw"], up["bias"],
+                up["s_up"]))
+            blk = qvars["blocks"][f"x{i}_{j}"]
+            # the concat [X[i][0..j-1], up] as Q1's two sources
+            skip = (gridq[(i, 0)] if j == 1 else torch.cat(
+                [gridq[(i, k)] for k in range(j)], dim=-1))
+            if blk["s_out"] is None:                    # X[0][L]
+                top_fp[j] = _qblock(uq, blk, skip, planes)
+            elif i == 0 and cfg.deep_supervision:
+                # a side head reads the fp32 node, later concats its requant
+                top_fp[j] = _qblock(uq, {**blk, "s_out": None}, skip, planes)
+                gridq[(i, j)] = keep(_quant_act(top_fp[j], blk["s_out"]))
+            else:
+                gridq[(i, j)] = _qblock(uq, blk, skip, planes)
+        outs = [top_fp[j] @ qvars["heads"][name]["kernel"][0, 0]
+                + qvars["heads"][name]["bias"]
+                for j, name in head_names(cfg, level).items()]
+        return sum(outs) / len(outs) if cfg.deep_supervision else outs[0]
+
+    return apply

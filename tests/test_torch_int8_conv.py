@@ -312,18 +312,41 @@ def test_packed_weights_are_cached_and_refreshed():
 
 
 def _unet_convs():
+    """The convs of UNetConfig() at 288², then those of the deep-supervised
+    UNet++ of other shapes (its dense concats)."""
     from plumekit_torch.config import UNetConfig
     from plumekit_torch.experiments.int8_conv_times import conv_cases
 
-    return conv_cases(UNetConfig(), 288)
+    cases = conv_cases(UNetConfig(), 288)
+    for c in conv_cases(UNetConfig(arch="unetpp", deep_supervision=True),
+                        288):
+        if all(c[:4] != d[:4] for d in cases):
+            cases.append(c)
+    return cases
+
+
+#: the UNet++'s dense concats that the U-Net has not: (c0, c1, cout), the
+#: first source the concat of a node's j same-scale planes
+UNETPP_TRIPLES = [(64, 32, 32), (96, 32, 32), (128, 32, 32), (128, 64, 64),
+                  (192, 64, 64), (256, 128, 128)]
+
+
+def test_unetpp_brings_six_new_conv_triples():
+    from plumekit_torch.config import UNetConfig
+    from plumekit_torch.experiments.int8_conv_times import conv_cases
+
+    unet = {c[:3] for c in conv_cases(UNetConfig(), 288)}
+    pp = {c[:3] for c in conv_cases(UNetConfig(arch="unetpp"), 288)}
+    assert sorted(pp - unet) == UNETPP_TRIPLES
 
 
 @pytest.mark.parametrize("case", _unet_convs(),
                          ids=lambda c: f"{c[0]}+{c[1]}-{c[2]}-{c[3]}")
 def test_rule_shape_and_tile_fit_every_unet_conv(case):
-    """Every conv of UNetConfig() at 288² tiles, 128 of them: the rule's
-    shape is a candidate, and at every candidate the tile's rows fit the
-    block, its shared memory the card, and the tiles cover the plane."""
+    """Every conv of UNetConfig() and of the UNet++ at 288² tiles, 128 of
+    them: the rule's shape is a candidate, and at every candidate the
+    tile's rows fit the block, its shared memory the card, and the tiles
+    cover the plane."""
     c_skip, cin, cout, side, int8_out = case
     c0, c1 = (c_skip, cin) if c_skip else (cin, 0)
     cands = int8_conv.shape_candidates(c0, c1, cout)
@@ -405,6 +428,19 @@ def emulate_q1(x0, x1, packed, tile, out_scale):
     ((2, 9, 7, 3), 0, 8, Shape(32, 4, True), (4, 5, 1))])  # Cin 3, fold
 def test_kernel_index_scheme_matches_plain_version(shape, c_skip, cout,
                                                    kernel_shape, tile):
+    _check_index_scheme(shape, c_skip, cout, kernel_shape, tile)
+
+
+@pytest.mark.parametrize("c0,c1,cout", UNETPP_TRIPLES)
+def test_kernel_index_scheme_at_the_unetpp_concats(c0, c1, cout):
+    """The six (c0, c1, cout) of the UNet++'s dense concats at the rule's
+    shape, on a small plane: several k chunks of the first source, the
+    second's after its padding, resident or streamed weights alike."""
+    _check_index_scheme((1, 9, 8, c1), c0, cout,
+                        int8_conv.conv_shape(c0, c1, cout), None)
+
+
+def _check_index_scheme(shape, c_skip, cout, kernel_shape, tile):
     rng = np.random.default_rng(sum(shape) + cout)
     x = _int8(rng, shape)
     skip = _int8(rng, shape[:3] + (c_skip,)) if c_skip else None

@@ -555,9 +555,18 @@ def test_fused_eval_after_train_steps_reads_the_new_weights(card, flag):
 # ------------------------------------------------------------ Q1, int8 conv
 
 def _int8_conv_cases():
+    """The 18 convs of UNetConfig() at 288², then the UNet++'s convs of
+    other shapes: its dense concats' (c0, c1, cout) triples."""
     from plumekit_torch.experiments.int8_conv_times import conv_cases
 
-    return conv_cases(UNetConfig(), 288)
+    cases = conv_cases(UNetConfig(), 288)
+    seen = {c[:3] for c in cases}
+    for c in conv_cases(UNetConfig(arch="unetpp", deep_supervision=True),
+                        288):
+        if c[:3] not in seen:
+            seen.add(c[:3])
+            cases.append(c)
+    return cases
 
 
 @pytest.mark.cuda
@@ -565,10 +574,11 @@ def _int8_conv_cases():
                          ids=lambda c: f"{c[0]}+{c[1]}-{c[2]}-{c[3]}"
                                        f"{'-i8' if c[4] else '-f32'}")
 def test_int8_conv_kernel_matches_plain_version(card, case):
-    """Q1 at the 18 convs of UNetConfig() at 288² tiles, batch 2, in the
+    """Q1 at the 18 convs of UNetConfig() and at the six other (c0, c1,
+    cout) of the UNet++'s dense concats, at 288² tiles, batch 2, in the
     output mode the forward gives each (int8, fp32 for the last), with the
-    decoder's two-plane concat: equal bit for bit (the epilogue rounds step
-    by step, as the plain version does), and once more in the other mode."""
+    two-plane concat: equal bit for bit (the epilogue rounds step by step,
+    as the plain version does), and once more in the other mode."""
     from plumekit_torch.experiments.int8_conv_times import case_inputs
     from plumekit_torch.models.kernels import int8_conv
 
@@ -752,6 +762,38 @@ def test_int8_forward_on_the_card_matches_the_cpu(card):
     assert int8_conv.LAUNCHES == before + 2 * (2 * cfg.depth + 1)
     assert int8_upsample.LAUNCHES == before_q2 + cfg.depth
     want = apply(cpu_qvars, torch.from_numpy(x), planes=planes_cpu)
+    assert len(planes_card) == len(planes_cpu) > 0
+    for p, q in zip(planes_card, planes_cpu):
+        assert p.dtype == torch.int8 and torch.equal(p.cpu(), q)
+    assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prune_level", [None, 2])
+def test_unetpp_int8_forward_on_the_card_matches_the_cpu(card, prune_level):
+    """The int8 forward of a seeded base-16 depth-3 deep-supervised UNet++,
+    whole and pruned at 2: Q1 twice per node, Q2 once per upsample, every
+    int8 plane (the dense concats' sources, the side heads' requants) equal
+    to the CPU's, the logits within 1e-5 of the largest."""
+    from plumekit_torch.models.kernels import int8_conv, int8_upsample
+    from plumekit_torch.models.quantized_forward import (
+        make_quantized_apply, quantize_unet, qvars_to)
+
+    cfg = UNetConfig(base_features=16, depth=3, arch="unetpp",
+                     deep_supervision=True, prune_level=prune_level)
+    model = build_model(cfg, torch.Generator().manual_seed(4)).to(card).eval()
+    x = np.random.default_rng(7).random((2, 64, 64, 2), dtype=np.float32)
+    qvars = quantize_unet(model, cfg, x)
+    apply = make_quantized_apply(cfg)
+    planes_card, planes_cpu = [], []
+    before = (int8_conv.LAUNCHES, int8_upsample.LAUNCHES)
+    got = apply(qvars, torch.from_numpy(x).to(card), planes=planes_card)
+    level = prune_level or cfg.depth
+    assert (int8_conv.LAUNCHES - before[0], int8_upsample.LAUNCHES
+            - before[1]) == ((level + 1) * (level + 2), level * (level + 1)
+                             // 2)
+    want = apply(qvars_to(qvars, "cpu"), torch.from_numpy(x),
+                 planes=planes_cpu)
     assert len(planes_card) == len(planes_cpu) > 0
     for p, q in zip(planes_card, planes_cpu):
         assert p.dtype == torch.int8 and torch.equal(p.cpu(), q)

@@ -30,7 +30,8 @@ needed = {"plumekit_torch.models.kernels.unet_mega",
           "plumekit_torch.experiments.int8_conv_times",
           "plumekit_torch.experiments.int8_variants",
           "plumekit_torch.ops.quant", "plumekit_torch.io.prefetch",
-          "plumekit_torch.infer.streaming", "plumekit_torch.infer.tta"}
+          "plumekit_torch.infer.streaming", "plumekit_torch.infer.tta",
+          "plumekit_torch.models.unetpp"}
 banned = {"jax", "jaxlib", "flax", "orbax", "pandas", "plumekit"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 missing = sorted(needed - set(names))

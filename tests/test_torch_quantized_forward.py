@@ -6,6 +6,8 @@ the calibration and the quantization, the apply; then the JAX file's own
 contracts (``tests/test_quantized_forward.py``) held on the port. On the
 CPU every 3×3 conv runs Q1's plain version."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,7 @@ from plumekit.models import quantized_forward as jq
 from plumekit_torch.config import InferConfig, TrainConfig, UNetConfig
 from plumekit_torch.convert import from_flax, qvars_from_flax
 from plumekit_torch.infer import make_multi_granule_infer
-from plumekit_torch.models import UNet, build_model
+from plumekit_torch.models import UNet, build_model, effective_level
 from plumekit_torch.models import quantized_forward as tq
 
 KW = dict(in_channels=2, base_features=8, depth=2, compute_dtype="float32")
@@ -149,34 +151,52 @@ def test_calibrate_unet_matches_jax(carried):
                                    rtol=SCALE_RTOL)
 
 
+def _leaves(tree, path=()):
+    """(path, leaf) of a quantized state, dicts and lists walked."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _assert_qvars_close(got, want):
+    """The same structure; the input scale ``s_in`` within SCALE_RTOL, the
+    other scales and fp32 vectors within SCALE_RTOL with an absolute floor
+    of SCALE_RTOL times their largest magnitude; int8 weights equal in at
+    least 99.9% of their elements and never more than one step apart."""
+    flat_w, flat_g = dict(_leaves(want)), dict(_leaves(got))
+    assert sorted(flat_g, key=str) == sorted(flat_w, key=str)
+    n_equal = n_total = 0
+    for k, w in flat_w.items():
+        g = flat_g[k]
+        if w is None:
+            assert g is None, k
+            continue
+        a, b = np.asarray(w), g.numpy()
+        assert a.shape == b.shape, k
+        if a.dtype == np.int8:
+            assert b.dtype == np.int8
+            d = np.abs(a.astype(int) - b.astype(int))
+            assert d.max() <= 1, k
+            n_equal += int((d == 0).sum())
+            n_total += d.size
+        elif k == ("s_in",):
+            np.testing.assert_allclose(b, a, rtol=SCALE_RTOL)
+        else:
+            np.testing.assert_allclose(b, a, rtol=SCALE_RTOL,
+                                       atol=SCALE_RTOL * np.abs(a).max(),
+                                       err_msg=str(k))
+    assert n_equal >= 0.999 * n_total
+
+
 def test_quantize_unet_matches_jax(carried):
     """Scales within rtol 1e-5; int8 weights equal in at least 99.9% of
     their elements and never more than one step apart."""
-    want, got = carried["jax"], carried["port"]
-    np.testing.assert_allclose(float(got["s_in"]), want["s_in"],
-                               rtol=SCALE_RTOL)
-    pairs = [(g, w) for g, w in zip(got["blocks"], want["blocks"])]
-    pairs += [(g, w) for g, w in zip(got["ups"], want["ups"])]
-    pairs += [(got["head"], want["head"])]
-    n_equal = n_total = 0
-    for g, w in pairs:
-        assert sorted(g) == sorted(w)
-        for k in w:
-            if w[k] is None:
-                assert g[k] is None
-                continue
-            a, b = np.asarray(w[k]), g[k].numpy()
-            assert a.shape == b.shape, k
-            if a.dtype == np.int8:
-                assert b.dtype == np.int8
-                d = np.abs(a.astype(int) - b.astype(int))
-                assert d.max() <= 1, k
-                n_equal += int((d == 0).sum())
-                n_total += d.size
-            else:
-                np.testing.assert_allclose(b, a, rtol=SCALE_RTOL,
-                                           atol=SCALE_RTOL * np.abs(a).max())
-    assert n_equal >= 0.999 * n_total
+    _assert_qvars_close(carried["port"], carried["jax"])
 
 
 def test_qvars_from_flax_carries_every_leaf(carried):
@@ -191,8 +211,11 @@ def test_qvars_from_flax_carries_every_leaf(carried):
                 assert g[k].dtype == (torch.int8 if v.dtype == np.int8
                                       else torch.float32)
                 np.testing.assert_array_equal(g[k].numpy(), v)
-    with pytest.raises(ValueError, match="A.13"):
-        qvars_from_flax({"s_in": 1.0, "blocks": {}, "ups": {}, "heads": {}})
+    # the UNet++ structure (dicts of blocks, ups and heads) carries too
+    pp = qvars_from_flax({"s_in": np.float32(0.5), "blocks": {}, "ups": {},
+                          "heads": {"head": {"bias": np.ones(1)}}})
+    assert float(pp["s_in"]) == 0.5 and pp["blocks"] == pp["ups"] == {}
+    assert pp["heads"]["head"]["bias"].dtype == torch.float32
 
 
 # ---------------------------------------------------------------- the apply
@@ -318,15 +341,15 @@ def test_quantized_apply_under_sliding_infer(trained):
 
 
 def test_quantized_guards(carried):
-    """tests/test_quantized_forward.py:326-335, and UNet++ named as not
-    ported."""
+    """tests/test_quantized_forward.py:326-335: the arch and norm checks,
+    UNet++ taken, and a prune level checked as the JAX package checks
+    it."""
     with pytest.raises(ValueError, match="arch"):
         tq.make_quantized_apply(UNetConfig(arch="nonsense"))
     with pytest.raises(ValueError, match="batch"):
         tq.make_quantized_apply(UNetConfig(norm="group"))
-    with pytest.raises(ValueError, match="A.13"):
-        tq.make_quantized_apply(UNetConfig(arch="unetpp"))
-    with pytest.raises(ValueError, match="A.13"):
+    assert callable(tq.make_quantized_apply(UNetConfig(arch="unetpp")))
+    with pytest.raises(ValueError, match="serving-time mode"):
         tq.quantize_unet(build_model(CFG), UNetConfig(**KW, prune_level=1),
                          np.zeros((1, 32, 32, 2), np.float32))
     calib = np.zeros((1, 32, 32, 2), np.float32)
@@ -371,3 +394,206 @@ def test_port_trained_flips_equal_jax_int8_flips():
     assert np.array_equal(ref, jax_ref)
     assert (port != jax_q).sum() <= 2
     assert abs(int((port != ref).sum()) - int((jax_q != jax_ref).sum())) <= 2
+
+
+# ------------------------------------------------------------------ UNet++
+# plumekit/models/quantized_forward.py:391-557 against the port's UNet++
+# half (tests/test_quantized_forward.py:279-437 at the JAX side): base 8,
+# depth 3, with and without deep supervision, and pruned at 1 and 2. The
+# weights come from the port's seeded init carried to flax by to_flax (a
+# flax init of the grid costs 15-40 s on the CPU); the JAX package's
+# quantization and apply run under jit.
+
+PP_KW = dict(in_channels=2, base_features=8, depth=3,
+             compute_dtype="float32", arch="unetpp")
+PP_CASES = {"plain": (False, None), "ds": (True, None), "ds-L1": (True, 1),
+            "ds-L2": (True, 2)}
+
+
+def _pp_cfgs(case):
+    ds, level = PP_CASES[case]
+    kw = dict(PP_KW, deep_supervision=ds, prune_level=level)
+    return UNetConfig(**kw), JaxUNetConfig(**kw)
+
+
+def _pp_model(ds):
+    from plumekit_torch.convert import to_flax
+
+    cfg = UNetConfig(**PP_KW, deep_supervision=ds)
+    model = build_model(cfg, torch.Generator().manual_seed(2))
+    v = jax.tree.map(lambda a: a + 0.03 * np.arange(a.size, dtype=a.dtype)
+                     .reshape(a.shape) if a.ndim == 1 else a,
+                     to_flax(model.state_dict()))
+    model.load_state_dict(from_flax(v))
+    return model.eval(), v
+
+
+@pytest.fixture(scope="module")
+def pp_carried():
+    """Per case: the port's model, the flax variables of the same weights,
+    a calibration batch, and each package's quantized state (built once,
+    on first use)."""
+    models = {ds: _pp_model(ds) for ds in (False, True)}
+    calib = np.random.default_rng(8).random((4, 32, 32, 2), np.float32)
+    quantize = jax.jit(jq.quantize_unet, static_argnums=1)
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            cfg, jcfg = _pp_cfgs(case)
+            model, v = models[cfg.deep_supervision]
+            cache[case] = {
+                "cfg": cfg, "jcfg": jcfg, "model": model, "variables": v,
+                "jax": _numpy_qvars(quantize(v, jcfg, jnp.asarray(calib))),
+                "port": tq.quantize_unet(model, cfg, calib)}
+        return cache[case]
+
+    return get
+
+
+@pytest.mark.parametrize("case", list(PP_CASES))
+def test_unetpp_quantize_matches_jax(pp_carried, case):
+    """Scales within SCALE_RTOL, int8 weights as the U-Net case holds
+    them; every concat participant at its own scale, X[0][L] head-only."""
+    c = pp_carried(case)
+    got, level = c["port"], effective_level(c["cfg"])
+    _assert_qvars_close(got, c["jax"])
+    nodes = [f"x{i}_{j}" for j in range(level + 1)
+             for i in range(level + 1 - j)]
+    assert sorted(got["blocks"]) == sorted(nodes)
+    assert len(got["ups"]) == level * (level + 1) // 2
+    assert [k for k, b in got["blocks"].items() if b["s_out"] is None] \
+        == [f"x0_{level}"]
+    assert sorted(got["heads"]) == (
+        [f"head_{j}" for j in range(1, level + 1)]
+        if c["cfg"].deep_supervision else ["head"])
+    # X[0][2]'s first conv reads X[0][0], X[0][1] and up0_2, each at its
+    # own scale folded into its weight rows
+    if level >= 2:
+        wq1 = got["blocks"]["x0_2"]["wq1"]
+        assert wq1.shape == (3, 3, 3 * 8, 8)
+
+
+@pytest.mark.parametrize("case", list(PP_CASES))
+def test_unetpp_qvars_from_flax_carries_every_leaf(pp_carried, case):
+    want = pp_carried(case)["jax"]
+    got = qvars_from_flax(want)
+    flat_w, flat_g = dict(_leaves(want)), dict(_leaves(got))
+    assert flat_g.keys() == flat_w.keys()
+    for k, w in flat_w.items():
+        if w is None:
+            assert flat_g[k] is None
+            continue
+        assert flat_g[k].dtype == (torch.int8 if w.dtype == np.int8
+                                   else torch.float32)
+        np.testing.assert_array_equal(flat_g[k].numpy(), w)
+
+
+@pytest.mark.parametrize("case", list(PP_CASES))
+def test_unetpp_apply_matches_jax(pp_carried, case):
+    """The port's apply on the carried JAX state against the JAX package's
+    ``make_quantized_apply``, under the file's ``_compare``; Q1 twice per
+    node, Q2 once per upsample."""
+    from plumekit_torch.models.kernels import int8_conv, int8_upsample
+
+    c = pp_carried(case)
+    x = np.random.default_rng(9).random((2, 32, 32, 2), np.float32)
+    want = np.asarray(jax.jit(jq.make_quantized_apply(c["jcfg"]))(
+        jax.tree.map(jnp.asarray, c["jax"]), jnp.asarray(x)))
+    apply = tq.make_quantized_apply(c["cfg"])
+    calls = {"q1": 0, "q2": 0}
+    real_conv, real_up = int8_conv.int8_conv3x3, int8_upsample.int8_upsample2x2
+
+    def conv(*a, **k):
+        calls["q1"] += 1
+        return real_conv(*a, **k)
+
+    def up(*a, **k):
+        calls["q2"] += 1
+        return real_up(*a, **k)
+
+    int8_conv.int8_conv3x3, int8_upsample.int8_upsample2x2 = conv, up
+    try:
+        got = apply(qvars_from_flax(c["jax"]), torch.from_numpy(x))
+    finally:
+        int8_conv.int8_conv3x3, int8_upsample.int8_upsample2x2 = (real_conv,
+                                                                  real_up)
+    level = effective_level(c["cfg"])
+    assert calls == {"q1": (level + 1) * (level + 2),
+                     "q2": level * (level + 1) // 2}
+    assert got.shape == want.shape == (2, 32, 32, 1)
+    _compare(got, want, APPLY_RTOL, APPLY_MIN_CORR)
+
+
+def test_unetpp_pruned_at_depth_is_the_unpruned_artifact(pp_carried):
+    c = pp_carried("ds")
+    cfg = dataclasses.replace(c["cfg"], prune_level=PP_KW["depth"])
+    calib = np.random.default_rng(8).random((4, 32, 32, 2), np.float32)
+    at_depth = tq.quantize_unet(c["model"], cfg, calib)
+    flat_a, flat_b = dict(_leaves(at_depth)), dict(_leaves(c["port"]))
+    assert flat_a.keys() == flat_b.keys()
+    for k, v in flat_b.items():
+        assert (v is None and flat_a[k] is None) or torch.equal(flat_a[k], v)
+    x = torch.from_numpy(calib[:2])
+    assert torch.equal(tq.make_quantized_apply(cfg)(at_depth, x),
+                       tq.make_quantized_apply(c["cfg"])(c["port"], x))
+
+
+def _plain_unetpp(qvars, cfg, x):
+    """The UNet++ int8 forward from Q1's and Q2's plain versions alone,
+    every node with Q1's fused requant and each side head on a second, fp32
+    run of its node's last conv: the plain version of the deep-supervised
+    top row's fp32-then-``quant_act`` path."""
+    from plumekit_torch.models.kernels import int8_conv, int8_upsample
+
+    level = effective_level(cfg)
+
+    def node(xq, blk, skip=None, fp32=False):
+        mq = int8_conv.int8_conv3x3_ref(xq, blk["wq1"], blk["a1"], blk["b1"],
+                                        blk["s_mid"], skip)
+        return int8_conv.int8_conv3x3_ref(mq, blk["wq2"], blk["a2"],
+                                          blk["b2"],
+                                          None if fp32 else blk["s_out"])
+
+    g, top = {}, {}
+    h = int8_conv.quant_act(x, qvars["s_in"])
+    for i in range(level + 1):
+        if i:
+            h = tq._max_pool2_q(g[(i - 1, 0)])
+        g[(i, 0)] = node(h, qvars["blocks"][f"x{i}_0"])
+    for j in range(1, level + 1):
+        for i in range(level + 1 - j):
+            up = qvars["ups"][f"up{i}_{j}"]
+            u = int8_upsample.int8_upsample2x2_ref(
+                g[(i + 1, j - 1)], up["kq"], up["sw"], up["bias"],
+                up["s_up"])
+            skip = torch.cat([g[(i, k)] for k in range(j)], dim=-1)
+            blk = qvars["blocks"][f"x{i}_{j}"]
+            if i == 0:
+                top[j] = node(u, blk, skip, fp32=True)
+            if blk["s_out"] is not None:
+                g[(i, j)] = node(u, blk, skip)
+    heads = ({j: f"head_{j}" for j in range(1, level + 1)}
+             if cfg.deep_supervision else {level: "head"})
+    outs = [top[j] @ qvars["heads"][n]["kernel"][0, 0]
+            + qvars["heads"][n]["bias"] for j, n in heads.items()]
+    return sum(outs) / len(outs)
+
+
+@pytest.mark.parametrize("case", ["ds", "ds-L2", "plain"])
+def test_unetpp_side_heads_match_the_plain_version(pp_carried, case):
+    """On the CPU the apply (the top row's nodes written fp32 for their
+    heads, then ``quant_act`` for the later concats) equals the forward of
+    Q1's and Q2's plain versions with the fused requant everywhere, bit for
+    bit; its debug form keeps every int8 plane: the input, the pools, two
+    per node (one for the head-only X[0][L]) and the upsamples."""
+    c = pp_carried(case)
+    x = torch.from_numpy(np.random.default_rng(10).random(
+        (2, 32, 32, 2), np.float32))
+    planes = []
+    got = tq.make_quantized_apply(c["cfg"])(c["port"], x, planes=planes)
+    assert torch.equal(got, _plain_unetpp(c["port"], c["cfg"], x))
+    level = effective_level(c["cfg"])
+    nodes, ups = (level + 1) * (level + 2) // 2, level * (level + 1) // 2
+    assert len(planes) == 1 + level + 2 * nodes - 1 + ups
+    assert all(p.dtype == torch.int8 for p in planes)

@@ -307,8 +307,6 @@ def test_quick_start_chain_on_the_cpu(tmp_path, caplog):
     (["--distill-alpha", "0.5"], "training and evaluation extras"),
     (["--distill-tta"], "training and evaluation extras"),
     (["--distill-calibrate"], "training and evaluation extras"),
-    (["--arch", "unetpp"], "UNet++"),
-    (["--deep-supervision"], "UNet++"),
 ])
 def test_unported_train_flags_exit_1_naming_their_item(flags, item, caplog,
                                                        tmp_path):

@@ -153,9 +153,13 @@ def test_augment_pairs_inputs_and_labels_per_sample():
         assert any(torch.equal(ax[i:i + 1], v) for v in views)
 
 
-@pytest.mark.parametrize("kw", [dict(), dict(base_features=8, depth=2),
-                                dict(in_channels=3, out_channels=2,
-                                     depth=3)])
+@pytest.mark.parametrize("kw", [
+    dict(), dict(base_features=8, depth=2),
+    dict(in_channels=3, out_channels=2, depth=3), dict(arch="unetpp"),
+    dict(arch="unetpp", deep_supervision=True),
+    dict(arch="unetpp", deep_supervision=True, prune_level=2),
+    dict(arch="unetpp", deep_supervision=True, out_channels=2, depth=3,
+         prune_level=1)])
 def test_flops_match_jax(kw):
     assert flops.model_flops_per_pixel(UNetConfig(**kw)) == \
         jax_flops.model_flops_per_pixel(JaxUNetConfig(**kw))
@@ -167,8 +171,9 @@ def test_flops_peak_is_the_h100_data_sheet():
     assert flops.PEAK_TFLOPS == {"bf16": 989.0, "int8": 1979.0}
     got = flops.mfu(100.0, 367808.0 * 3)
     assert got == {"tflops": 110.3, "pct_peak": 11.2}
-    with pytest.raises(NotImplementedError, match="UNet\\+\\+"):
-        flops.model_flops_per_pixel(UNetConfig(arch="unetpp"))
+    # UNet++ at UNetConfig(arch="unetpp"): 2.47x the U-Net's 367,808
+    assert flops.model_flops_per_pixel(UNetConfig(arch="unetpp")) \
+        == 908480.0
 
 
 def test_metrics_writer_matches_jax(tmp_path):

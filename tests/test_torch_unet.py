@@ -141,8 +141,13 @@ def test_from_flax_to_flax_round_trip(norm):
 
 
 def test_build_model_refuses_unported_architectures():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(UNetConfig(arch="unetpp"))
+    from plumekit_torch.models import UNetPP
+
+    # UNet++ is ported; an unknown arch is refused
+    assert isinstance(build_model(UNetConfig(arch="unetpp", depth=1,
+                                             base_features=4)), UNetPP)
+    with pytest.raises(ValueError, match="arch"):
+        build_model(UNetConfig(arch="resnet"))
     g = torch.Generator().manual_seed(0)
     a = build_model(UNetConfig(base_features=4, depth=1), g).state_dict()
     b = build_model(UNetConfig(base_features=4, depth=1),
