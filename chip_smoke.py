@@ -1,7 +1,7 @@
 """Smoke run of plumekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
-``nvcc`` per source, all at once) and drives the port's seven paths:
+``nvcc`` per source, all at once) and drives the port's eight paths:
 
 * megakernel serving: K7 (the whole U-Net forward in one launch) against
   its plain PyTorch version at the flagship U-Net over 128 tiles of 96²,
@@ -78,6 +78,19 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   continue) → ``predict_model`` plain, ``--fused`` and ``--int8``, and
   evals of the trained weights through K6 and K7 before and after one more
   step against the plain eval;
+* curation and evaluation, on the chain's root and trained checkpoint:
+  ``select --decisions`` keeping every plume, ``prepare_model_data``
+  (device masks) and the uncurated hull fills; ``evaluate_model`` plain
+  with ``--bootstrap``, ``--objects --min-size 100``, ``--sweep-threshold
+  obj_f1`` and ``--sweep-threshold --write-threshold`` (the plume
+  components labelled by K2, one launch per sample and threshold set, the
+  counts held against scipy's labels on the host and, at one threshold,
+  K2's plain version); a ``use_mega`` copy evaluated through K7 at tile
+  96 against the plain forward; ``train_model --curated --distill-from``
+  a ``use_pallas`` copy (K6 relabels) ``--distill-tta --distill-calibrate``
+  reading the written ``threshold.json``, one sample's relabelling held
+  against the plain teacher's; and ``predict_model`` serving the
+  calibrated threshold;
 * the streams (after the int8 serving path; its training side after the
   training phase): ``predict_model`` over the four 2048² granules through
   the decode pool and the stager for the plain, ``--fused`` and ``--int8``
@@ -2622,6 +2635,299 @@ def train_phase(tmp):
     return res
 
 
+# ---------------------------------------------------- curation, evaluation
+
+CURATION_MIN_SIZE = 100               # the reference's region floor
+CURATION_BOOTSTRAP = 200
+DISTILL_STEPS = 20
+
+
+def run_cli_json(*argv):
+    """``run_cli`` of a command that prints one JSON line: (seconds,
+    payload)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        seconds = run_cli(*argv)
+    out = buf.getvalue()
+    sys.stdout.write(out)
+    return seconds, json.loads(out.strip().splitlines()[-1])
+
+
+def host_labels(mask):
+    """scipy's 8-connected labels on the host: numbered 1..n in raster
+    order of first pixel, as the JAX package's host CCL numbers them."""
+    from scipy import ndimage
+
+    labels, n = ndimage.label(mask, structure=np.ones((3, 3)))
+    return labels.astype(np.int32), n
+
+
+def host_object_counts(pred, true, min_size):
+    from plumekit_torch.train.evaluate import object_counts_from_labels
+
+    return object_counts_from_labels(*host_labels(pred), *host_labels(true),
+                                     0.5, min_size)
+
+
+def eval_pairs(root, *flags):
+    """The (name, probs, true) pairs ``evaluate_model --root root *flags``
+    scores, through the same restore and inference."""
+    from plumekit_torch.train.evaluate import inference_prob_pairs
+
+    args = cli.build_parser().parse_args(["evaluate_model", "--root", root,
+                                          *flags])
+    cfg, model = cli._restore_model(args, DEV)
+    infer = cli._evaluation_infer(args, cfg, DEV)
+    data = os.path.join(root, "processed", "model_data")
+    return list(inference_prob_pairs(infer, model, data))
+
+
+def check_object_counts(pairs):
+    """K2's per-sample counts and object sweep (the functions the CLI
+    calls) against scipy's labels on the host, and at threshold 0.5
+    against K2's plain version on the card."""
+    from plumekit_torch.train import evaluate as ev
+
+    th = ev.default_thresholds()
+    table = ev.evaluate_objects(iter(pairs), min_size=CURATION_MIN_SIZE,
+                                device=DEV)
+    sweep = ev.sweep_object_thresholds(iter(pairs),
+                                       min_size=CURATION_MIN_SIZE, device=DEV)
+    want_rows = [host_object_counts(p > 0.5, t, CURATION_MIN_SIZE)
+                 for _n, p, t in pairs]
+    got_rows = [np.array(r[-3:]) for r in table.rows[:-1]]
+    if any(not np.array_equal(g, w) for g, w in zip(got_rows, want_rows)):
+        raise AssertionError(f"object counts: K2 {got_rows}, host "
+                             f"{want_rows}")
+    pooled = np.zeros((th.size, 3), np.int64)
+    for _n, p, t in pairs:
+        for i, tv in enumerate(th):
+            pooled[i] += host_object_counts(p > tv, t, CURATION_MIN_SIZE)
+    want_sweep = [(float(tv),) + tuple(ev.object_metrics_from_counts(c)
+                                       .values())
+                  for tv, c in zip(th, pooled)]
+    if sweep.rows != want_sweep:
+        raise AssertionError(f"object sweep: K2 {sweep.rows}, host "
+                             f"{want_sweep}")
+    real = ccl_sweep.multi_threshold_ccl
+    ccl_sweep.multi_threshold_ccl = (
+        lambda m, connectivity=2, nested=True:
+        ccl_sweep.multi_threshold_ccl_masks_ref(m, connectivity))
+    try:
+        plain_rows = [ev.object_counts(p > 0.5, t, 0.5, CURATION_MIN_SIZE,
+                                       device=DEV) for _n, p, t in pairs]
+    finally:
+        ccl_sweep.multi_threshold_ccl = real
+    if any(not np.array_equal(g, w) for g, w in zip(plain_rows, want_rows)):
+        raise AssertionError(f"object counts: K2's plain version "
+                             f"{plain_rows}, host {want_rows}")
+    return {"per_sample": [r.tolist() for r in got_rows],
+            "sweep_obj_f1": [r[-1] for r in sweep.rows]}
+
+
+def check_mega_eval(root, mega_ckpt):
+    """The use_mega checkpoint's probabilities at tile 96 against the plain
+    forward's: masks may differ only where the plain probability is within
+    PROB_ATOL of 0.5."""
+    flags = ["--tile", str(MEGA.tile_size), "--overlap", str(MEGA.overlap)]
+    plain = eval_pairs(root, *flags)
+    unet_mega.LAUNCHES = 0
+    mega = eval_pairs(root, "--checkpoint", mega_ckpt, *flags)
+    launches = unet_mega.LAUNCHES
+    res = {"launches": launches, "flips": 0, "unexplained_flips": 0,
+           "max_abs_dprobs": 0.0}
+    for (_n, p, _t), (_m, q, _u) in zip(plain, mega):
+        flip = (p > 0.5) != (q > 0.5)
+        res["flips"] += int(flip.sum())
+        res["unexplained_flips"] += int((flip & (np.abs(p - 0.5)
+                                                 > PROB_ATOL)).sum())
+        res["max_abs_dprobs"] = max(res["max_abs_dprobs"],
+                                    float(np.abs(p - q).max()))
+    if not launches or res["unexplained_flips"]:
+        raise AssertionError(f"use_mega evaluation: {res}")
+    return res
+
+
+def flagged_copy(ckpt, dst, **flags):
+    """A copy of the checkpoint's config and weights with ``flags`` set."""
+    os.makedirs(dst)
+    shutil.copy(os.path.join(ckpt, "weights.pt"), dst)
+    save_model_config(dst, dataclasses.replace(load_model_config(ckpt),
+                                               **flags))
+    return dst
+
+
+def curation_phase(tmp):
+    """select → prepare_model_data → evaluate_model (K2; K7) → train_model
+    --curated --distill-* (K6) → predict_model with the calibrated
+    threshold, on train_chain's root and trained checkpoint."""
+    import logging
+
+    from plumekit_torch.config import PathsConfig
+    from plumekit_torch.io.tables import Table
+    from plumekit_torch.train import distill
+    from plumekit_torch.train.curated import (build_model_data,
+                                              make_curated_dataset)
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "train_root")
+    paths = PathsConfig(root=root)
+    ckpt = os.path.join(root, "models", "checkpoints")
+    res = {"seconds": {}}
+    secs = res["seconds"]
+    rows = []
+    hull_dir = paths.resolve("hull_df_dir")
+    for f in sorted(os.listdir(hull_dir)):
+        ids = Table.read_csv(os.path.join(hull_dir, f)).column("id")
+        rows += [(int(i), "layer0", 1) for i in sorted(set(ids))]
+    decisions = os.path.join(tmp, "decisions.csv")
+    Table(("id", "datetime", "keep"), rows).to_csv(decisions)
+    secs["select"] = run_cli("select", "--root", root, "--decisions",
+                             decisions)
+
+    def plumes(key):
+        d = paths.resolve(key)
+        return sum(len(set(Table.read_csv(os.path.join(d, f)).column("id")))
+                   for f in os.listdir(d))
+
+    res["plumes"] = {"decided": len(rows),
+                     "kept": plumes("reduced_plume_hull_dir"),
+                     "auto_rejected": plumes("reduced_not_plume_hull_dir")}
+    secs["prepare_model_data"] = run_cli("prepare_model_data", "--root",
+                                         root)
+    samples = make_curated_dataset(paths.resolve("model_data_dir"))
+    os.makedirs(os.path.join(tmp, "uncurated"))
+    uncurated = build_model_data(paths, out_dir=os.path.join(tmp,
+                                                             "uncurated"),
+                                 use_masks=False, uncurated=True)
+    res["samples"] = {"curated": len(samples), "uncurated": len(uncurated),
+                      "curated_plume_px": [int(s.mask.sum())
+                                           for s in samples]}
+    print(f"curation: {res['plumes']['kept']} of {len(rows)} plumes kept, "
+          f"{res['plumes']['auto_rejected']} auto-rejected; samples "
+          f"written: {len(samples)} curated (device masks), "
+          f"{len(uncurated)} uncurated (hull fills)", flush=True)
+    if not samples or not res["plumes"]["kept"]:
+        raise AssertionError(f"curation kept nothing: {res}")
+
+    # evaluate_model on the trained checkpoint; K2 labels the components
+    ccl_sweep.MASK_LAUNCHES = 0
+    ev = ("evaluate_model", "--root", root)
+    secs["evaluate"], res["evaluate"] = run_cli_json(
+        *ev, "--bootstrap", str(CURATION_BOOTSTRAP))
+    secs["evaluate_objects"], res["objects"] = run_cli_json(
+        *ev, "--objects", "--min-size", str(CURATION_MIN_SIZE))
+    secs["sweep_obj_f1"], res["sweep_obj_f1"] = run_cli_json(
+        *ev, "--sweep-threshold", "obj_f1")
+    res["k2_launches"] = ccl_sweep.MASK_LAUNCHES
+    secs["sweep_write"], res["calibration"] = run_cli_json(
+        *ev, "--sweep-threshold", "--write-threshold")
+    with open(os.path.join(root, "models", "threshold.json")) as f:
+        calibrated = float(json.load(f)["threshold"])
+    # K2 sees len(samples) object tables and one (T + 1)-level stack each
+    if res["k2_launches"] != 2 * len(samples):
+        raise AssertionError(f"evaluate_model --objects and the object "
+                             f"sweep launched K2 {res['k2_launches']} times "
+                             f"for {len(samples)} samples")
+    # the trained net's maps, and maps that do not hang on its quality:
+    # the uncurated hull fills blurred, against the curated device masks
+    from scipy import ndimage
+
+    fills = sorted(os.listdir(os.path.join(tmp, "uncurated")))
+    blurred = []
+    for f, s in zip(fills, samples):
+        with np.load(os.path.join(tmp, "uncurated", f)) as d:
+            probs = ndimage.gaussian_filter(d["mask"], 3.0)
+        blurred.append((f, probs.astype(np.float32), s.mask.astype(bool)))
+    res["object_check"] = {"model": check_object_counts(eval_pairs(root)),
+                           "hull_fills": check_object_counts(blurred)}
+    if not any(r[0] for r in res["object_check"]["hull_fills"]["per_sample"]):
+        raise AssertionError(f"the hull-fill maps matched no plume: "
+                             f"{res['object_check']}")
+
+    # a use_mega copy through K7 at tile 96, against the plain forward
+    mega_ckpt = flagged_copy(ckpt, os.path.join(tmp, "ckpt_mega"),
+                             use_mega=True)
+    unet_mega.LAUNCHES = 0
+    secs["evaluate_mega"] = run_cli_json(
+        *ev, "--checkpoint", mega_ckpt, "--tile", str(MEGA.tile_size),
+        "--overlap", str(MEGA.overlap))[0]
+    res["k7_launches"] = unet_mega.LAUNCHES
+    secs["evaluate_plain_tile96"] = run_cli_json(
+        *ev, "--tile", str(MEGA.tile_size), "--overlap",
+        str(MEGA.overlap))[0]
+    res["mega"] = check_mega_eval(root, mega_ckpt)
+
+    # train_model --curated relabelled by a use_pallas teacher (K6), with
+    # the threshold evaluate_model wrote, in a root of its own
+    pallas_ckpt = flagged_copy(ckpt, os.path.join(tmp, "ckpt_pallas"),
+                               use_pallas=True)
+    droot = os.path.join(tmp, "distill_root")
+    shutil.copytree(paths.resolve("model_data_dir"),
+                    PathsConfig(root=droot).resolve("model_data_dir"))
+    os.makedirs(os.path.join(droot, "models"))
+    shutil.copy(os.path.join(root, "models", "threshold.json"),
+                os.path.join(droot, "models"))
+    logged = []
+    handler = logging.Handler()
+    handler.emit = lambda record: logged.append(record.getMessage())
+    distill.logger.addHandler(handler)
+    fused_conv.LAUNCHES = 0
+    try:
+        secs["train_distill"] = run_cli(
+            "train_model", "--root", droot, "--curated", "--distill-from",
+            pallas_ckpt, "--distill-tta", "--distill-calibrate", "--steps",
+            str(DISTILL_STEPS), "--tile", str(CHAIN_TILE), "--batch-size",
+            str(CHAIN_BATCH))
+    finally:
+        distill.logger.removeHandler(handler)
+    res["k6_launches"] = fused_conv.LAUNCHES
+    logged_t = [float(m.split("calibrate=")[1].rstrip(")")) for m in logged
+                if "calibrate=" in m]
+    res["logged_calibration"] = logged_t
+    if not res["k6_launches"] or logged_t != [calibrated]:
+        raise AssertionError(f"train_model --distill-from a use_pallas "
+                             f"teacher: K6 launches {res['k6_launches']}, "
+                             f"logged calibration {logged_t}, threshold.json "
+                             f"{calibrated}")
+    one = samples[:1]
+    got = distill.distill_samples(one, pallas_ckpt, alpha=1.0, device=DEV)
+    want = distill.distill_samples(one, ckpt, alpha=1.0, device=DEV)
+    res["distill_max_abs_dprobs"] = float(np.abs(got[0].mask
+                                                 - want[0].mask).max())
+    if res["distill_max_abs_dprobs"] > PROB_ATOL:
+        raise AssertionError(f"use_pallas teacher against the plain one: "
+                             f"max|dprobs| {res['distill_max_abs_dprobs']}")
+
+    # serving reads the calibrated threshold
+    secs["predict"] = run_cli("predict_model", "--root", root)
+    served = os.path.join(root, "processed", "predictions")
+    thresholds = []
+    for f in sorted(os.listdir(served)):
+        with np.load(os.path.join(served, f)) as d:
+            thresholds.append(float(d["threshold"]))
+    read_served(root)
+    if set(thresholds) != {float(np.float32(calibrated))}:
+        raise AssertionError(f"predict_model served thresholds {thresholds},"
+                             f" threshold.json {calibrated}")
+    res["seconds_total"] = time.perf_counter() - t0
+    print("curation phase: seconds " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items())
+        + f"; launches K2 {res['k2_launches']}, K6 {res['k6_launches']}, "
+        f"K7 {res['k7_launches']}; micro IoU {res['evaluate']['iou']}, "
+        f"obj_f1 {res['objects']['obj_f1']}, calibrated threshold "
+        f"{calibrated} (iou {res['calibration']['value']}); hull-fill maps' "
+        f"plumes [tp, fp, fn] "
+        f"{res['object_check']['hull_fills']['per_sample']}; K7 mask flips "
+        f"{res['mega']['flips']}, use_pallas teacher max|dprobs| "
+        f"{res['distill_max_abs_dprobs']:.4g}; "
+        f"{res['seconds_total']:.1f} s", flush=True)
+    return res
+
+
 # ------------------------------------------------------------------ UNet++
 
 # the UNet++ at full width (base 32, depth 4, bf16) with its side heads
@@ -2939,6 +3245,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
         training = train_phase(tmp)
+        # curation and evaluation on the chain's root (K2, K6, K7)
+        torch.cuda.empty_cache()
+        curation = curation_phase(tmp)
     chain = training["chain"]
     # the streams' training side, after the step times it reads
     t_streams = time.perf_counter()
@@ -3016,7 +3325,9 @@ def main() -> int:
             r["launches"] for r in chain["eval_routes"]["use_pallas"]),
         # predict_model --tta --fused at tile 96: one launch per block at
         # 8x the tiles
-        "tta_launches": tta_launches["k6"]},
+        "tta_launches": tta_launches["k6"],
+        # the use_pallas teacher of train_model --distill-from
+        "distill_launches": curation["k6_launches"]},
         ccl_entry("multi_threshold_ccl_fused",
                   "plumekit/ops/pallas/ccl_sweep.py:544", bench_ccl,
                   features["launches"]["k1"]
@@ -3028,7 +3339,9 @@ def main() -> int:
         ccl_entry("multi_threshold_ccl",
                   "plumekit/ops/pallas/ccl_sweep.py:468", basic_mask,
                   basic_features["launches"]["k2"]
-                  + gaussian_features["launches"]["k2"], mask_rows), {
+                  + gaussian_features["launches"]["k2"], mask_rows,
+                  # evaluate_model --objects and the object sweep
+                  evaluate_launches=curation["k2_launches"]), {
         "name": "fire_label_counts", "route": "cuda",
         "source": "plumekit_torch/csrc/label_counts.cu",
         "replaces": "plumekit/ops/pallas/label_counts.py:83",
@@ -3079,6 +3392,8 @@ def main() -> int:
         "train_launches": sum(r["launches"]
                               for r in chain["eval_routes"]["use_mega"]),
         "tta_launches": tta_launches["k7"],
+        # evaluate_model of a use_mega checkpoint at tile 96
+        "evaluate_launches": curation["k7_launches"],
         "at": f"one forward of UNetConfig(), {batch} tiles of "
               f"{MEGA.tile_size}x{MEGA.tile_size}"}, {
         "name": "scalar_gather_probe", "route": "cuda",
@@ -3194,7 +3509,8 @@ def main() -> int:
                    "detectors": detectors,
                    "build_features_basic": basic_features,
                    "build_features_gaussian": gaussian_features,
-                   "training": training, "streams": streams,
+                   "training": training, "curation": curation,
+                   "streams": streams,
                    "unetpp": unetpp,
                    "copy_rate_gb_per_s": copy_rate / 1e9,
                    "seconds": time.perf_counter() - t_start,

@@ -1,5 +1,6 @@
 """Command-line entry points of the port: ``make_dataset``,
-``build_features``, ``identify``, ``train_model`` and ``predict_model``.
+``build_features``, ``identify``, ``select``, ``prepare_model_data``,
+``train_model``, ``predict_model`` and ``evaluate_model``.
 
 Usage: ``plumekit-torch <command> --root R ...`` or
 ``python -m plumekit_torch.cli <command> ...``. ``build_features`` and
@@ -20,13 +21,21 @@ Usage: ``plumekit-torch <command> --root R ...`` or
 * ``make_dataset`` writes synthetic granules under
   ``raw/plume_identification/maiac`` and their fires to
   ``raw/fires/fires.csv``, as ``plumekit make_dataset`` does;
+* ``select --decisions CSV`` splits every rg or gaussian hull table into
+  kept (``dataframes/reduced/plume/hull``) and rejected
+  (``dataframes/reduced/not_plume/hull``) plumes; without ``--decisions``
+  it writes a review batch (PNGs and ``manifest.csv``) under
+  ``<root>/review/<base>``, most-suspect-first with
+  ``--rank-with-predictions``, and needs matplotlib;
+* ``prepare_model_data`` turns the kept hulls (or their device masks)
+  into model-ready samples under ``processed/model_data``;
 * ``train_model`` trains the U-Net (``--arch unetpp [--deep-supervision]``:
   the UNet++) on synthetic granules made from ``DataConfig``
-  (``--weak-labels``: labelled by the rg detector), as
-  ``plumekit train_model`` does (the root's own granules are not read;
-  ``--root`` places the checkpoints), and writes ``model_config.json``,
-  ``weights.pt`` and step checkpoints under ``<root>/models/checkpoints``
-  and the metrics CSV beside them;
+  (``--weak-labels``: labelled by the rg detector; ``--curated``: on the
+  root's model-ready samples), as ``plumekit train_model`` does,
+  optionally relabelled by a teacher checkpoint (``--distill-*``), and
+  writes ``model_config.json``, ``weights.pt`` and step checkpoints under
+  ``<root>/models/checkpoints`` and the metrics CSV beside them;
 * ``predict_model`` writes ``<root>/processed/predictions/<name>_pred.npz``
   (``probs``, ``mask``, ``threshold``) as ``plumekit predict_model`` does;
   ``--prune-level L`` serves a deep-supervised UNet++ checkpoint pruned at
@@ -36,7 +45,13 @@ Usage: ``plumekit-torch <command> --root R ...`` or
   uploads uint16 channels and ``--quantize-output`` reads back uint8
   probabilities. Granules decode on a thread pool and upload on a stager
   thread ahead of the forwards, as in the JAX package; ``build_features``
-  decodes on the same pool.
+  decodes on the same pool;
+* ``evaluate_model`` scores the checkpoint (or ``--predictions``) against
+  the model-ready samples: ``processed/evaluation.csv``, plume-level
+  counts with ``--objects`` (connected components through the K2 kernel on
+  the card), a threshold sweep with ``--sweep-threshold`` and, with
+  ``--write-threshold``, ``<root>/models/threshold.json``, which
+  ``predict_model`` and ``--distill-calibrate`` read.
 
 The device is the card unless ``--device`` says otherwise.
 """
@@ -74,13 +89,6 @@ UNPORTED_FLAGS = {
 #: when its value differs from the parser's default
 UNPORTED_TRAIN_FLAGS = {
     "data_parallel": "multi-card serving",
-    "curated": "training and evaluation extras",
-    "distill_from": "training and evaluation extras",
-    "distill_alpha": "training and evaluation extras",
-    "distill_temp": "training and evaluation extras",
-    "distill_prune_level": "training and evaluation extras",
-    "distill_tta": "training and evaluation extras",
-    "distill_calibrate": "training and evaluation extras",
 }
 
 #: granules the int8 calibration looks at for one with signal
@@ -91,6 +99,16 @@ logger = get_logger("plumekit_torch.cli")
 
 class _CliError(Exception):
     """Usage or configuration error: the message is logged, exit code 1."""
+
+
+def _write_json_atomic(path: str, payload: dict) -> None:
+    """pid-suffixed temporary and ``os.replace``: readers never see a torn
+    file, concurrent writers never share a temporary."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(payload, f, indent=2)
+    os.replace(tmp, path)
 
 
 def _restore_model(args, device):
@@ -383,6 +401,26 @@ def cmd_train_model(args) -> int:
     except RuntimeError as e:
         logger.error("%s", e)
         return 1
+    curated_dir = None
+    if args.curated:
+        curated_dir = PathsConfig(root=args.root).resolve("model_data_dir")
+    distill_calibrate = None
+    if args.distill_calibrate == "auto":
+        path = os.path.join(args.root, PathsConfig().model_dir,
+                            THRESHOLD_BASENAME)
+        try:
+            with open(path) as f:
+                distill_calibrate = float(json.load(f)["threshold"])
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            logger.error(
+                "--distill-calibrate given without a value but %s is "
+                "unreadable (%s); run evaluate_model --sweep-threshold "
+                "--write-threshold first or pass the value", path, e)
+            return 1
+        logger.info("distill calibration threshold %.2f from %s",
+                    distill_calibrate, path)
+    elif args.distill_calibrate is not None:
+        distill_calibrate = float(args.distill_calibrate)
     history = train(
         unet_cfg=UNetConfig(arch=args.arch,
                             deep_supervision=args.deep_supervision),
@@ -392,9 +430,14 @@ def cmd_train_model(args) -> int:
                 args.root, PathsConfig().model_dir, "checkpoints"),
             steps_per_dispatch=args.steps_per_dispatch,
             device_data=args.device_data,
-            quantize_transfer=args.quantize_transfer),
+            quantize_transfer=args.quantize_transfer,
+            distill_from=args.distill_from, distill_alpha=args.distill_alpha,
+            distill_temp=args.distill_temp,
+            distill_prune_level=args.distill_prune_level,
+            distill_tta=args.distill_tta,
+            distill_calibrate=distill_calibrate),
         data_cfg=DataConfig(granule_size=args.granule_size),
-        weak_labels=args.weak_labels, device=device)
+        weak_labels=args.weak_labels, device=device, curated_dir=curated_dir)
     logger.info("final eval IoU %.3f", history["eval_iou"][-1])
     return 0
 
@@ -565,6 +608,254 @@ def cmd_identify(args) -> int:
     return 0
 
 
+def cmd_select(args) -> int:
+    """Curation of every hull table: apply a decisions CSV, or write
+    review batches (``plumekit select``)."""
+    from plumekit_torch.io.granule import (LAYER0_SENTINEL, find_granule,
+                                           load_granule)
+    from plumekit_torch.io.tables import Table, read_decisions
+    from plumekit_torch.label import apply_decisions, export_review_batch
+
+    keep_set = None
+    if args.decisions:
+        keep_set = read_decisions(args.decisions)
+    else:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            logger.error("select without --decisions writes PNG review "
+                         "batches and needs matplotlib, which is not "
+                         "installed (ROADMAP.md, queue A: 'Curation'); pass "
+                         "--decisions to apply decisions")
+            return 1
+    paths = PathsConfig(root=args.root)
+    hull_dir = paths.ensure("hull_df_dir")
+    maiac_dir = paths.ensure("maiac_dir")
+    for fname in sorted(os.listdir(hull_dir)):
+        if not fname.endswith("_extent.csv"):
+            continue
+        plumes = Table.read_csv(os.path.join(hull_dir, fname))
+        if not {"hull_x", "hull_y"} <= set(plumes.columns):
+            # the basic detector's bbox-only extent CSVs have no hulls
+            logger.info("%s has no hull columns (basic detector) — "
+                        "skipping curation", fname)
+            continue
+        if "datetime" not in plumes.columns:
+            plumes = plumes.with_column("datetime", LAYER0_SENTINEL)
+        base = fname.replace("_extent.csv", "")
+        gpath = find_granule(maiac_dir, base)
+        if gpath is None:
+            logger.warning("no granule for %s", fname)
+            continue
+        granule = load_granule(gpath)
+        if keep_set is not None:
+            kept, rejected = apply_decisions(
+                plumes, granule,
+                lambda r: (r.plume_id, r.datetime) in keep_set)
+            kept.to_csv(os.path.join(
+                paths.ensure("reduced_plume_hull_dir"), fname))
+            rejected.to_csv(os.path.join(
+                paths.ensure("reduced_not_plume_hull_dir"), fname))
+            logger.info("%s: kept %d / rejected %d plume rows", base,
+                        len(kept), len(rejected))
+        else:
+            scores = None
+            if args.rank_with_predictions is not None:
+                scores = _curation_scores(args, paths, base, plumes)
+            out_dir = os.path.join(args.root, "review", base)
+            manifest = export_review_batch(plumes, granule, out_dir,
+                                           scores=scores)
+            logger.info("%s: %d plumes staged for review in %s%s", base,
+                        len(manifest), out_dir,
+                        " (model-ranked)" if scores is not None else "")
+    return 0
+
+
+def _curation_scores(args, paths, base, plumes):
+    """Per-plume model support for ``select --rank-with-predictions``, or
+    None with a warning (the queue stays in file order) when the granule
+    has no usable prediction."""
+    from plumekit_torch.label import (load_plume_masks, load_prediction,
+                                      plume_support)
+
+    pred_dir = args.rank_with_predictions or paths.resolve("predictions_dir")
+    probs = load_prediction(pred_dir, base)
+    if probs is None:
+        logger.warning(
+            "%s: no prediction in %s — review queue stays in file order "
+            "(run predict_model first to rank it)", base, pred_dir)
+        return None
+    masks = load_plume_masks(paths.resolve("plume_mask_dir"), base)
+    try:
+        return plume_support(probs, plumes, masks)
+    except Exception as e:
+        # a stale or malformed artifact must not abort the whole export
+        logger.warning("%s: scoring failed (%s: %s) — review queue stays "
+                       "in file order", base, type(e).__name__, e)
+        return None
+
+
+def cmd_prepare_model_data(args) -> int:
+    """Kept hulls (or their device masks) → model-ready samples under
+    ``model_data_dir``; exit 1 when none is written."""
+    from plumekit_torch.train.curated import build_model_data
+
+    paths = PathsConfig(root=args.root)
+    written = build_model_data(paths, fire_csv=args.fires,
+                               use_masks=not args.hulls_only,
+                               uncurated=args.uncurated)
+    logger.info("wrote %d model-ready samples to %s", len(written),
+                paths.resolve("model_data_dir"))
+    return 0 if written else 1
+
+
+def _evaluation_infer(args, unet_cfg, device):
+    """``infer(model, channels (H, W, C) numpy) -> (probs, mask)`` on
+    ``device``: the sliding-window inference of the checkpoint's own
+    forward (K6 for ``use_pallas``, K7 for ``use_mega``), fp32 without
+    TF32."""
+    from plumekit_torch.infer import make_sliding_infer
+    from plumekit_torch.models.quantized_forward import full_fp32
+
+    sliding = make_sliding_infer(
+        lambda model, x: model(x),
+        InferConfig(tile_size=args.tile, overlap=args.overlap,
+                    batch_tiles=args.batch_tiles),
+        channels=unet_cfg.in_channels)
+
+    def infer(model, channels):
+        with torch.inference_mode(), full_fp32():
+            return sliding(model, torch.from_numpy(
+                np.ascontiguousarray(channels)).to(device))
+
+    return infer
+
+
+def cmd_evaluate_model(args) -> int:
+    """Score the checkpoint (or saved predictions) against model-ready
+    labels (``plumekit evaluate_model``): every refusal comes before the
+    inference."""
+    import time
+
+    from plumekit_torch.train import evaluate as ev
+
+    paths = PathsConfig(root=args.root)
+    data_dir = args.data or paths.resolve("model_data_dir")
+    out_csv = args.out or paths.resolve("evaluation_csv")
+    if not 0.0 < args.match_iou <= 1.0:
+        logger.error("--match-iou must be in (0, 1], got %s",
+                     args.match_iou)
+        return 1
+    if args.min_size < 1:
+        logger.error("--min-size must be >= 1, got %s", args.min_size)
+        return 1
+    if args.bootstrap < 0:
+        logger.error("--bootstrap must be >= 0, got %s", args.bootstrap)
+        return 1
+    if args.objects and args.sweep_threshold:
+        logger.error(
+            "--objects and --sweep-threshold are exclusive: the sweep "
+            "scores every candidate threshold (use a plume metric, e.g. "
+            "--sweep-threshold obj_f1, to sweep at the plume level); "
+            "run --objects separately at the calibrated threshold")
+        return 1
+    if args.bootstrap and args.sweep_threshold:
+        logger.error(
+            "--bootstrap and --sweep-threshold are exclusive: CIs attach "
+            "to a single-threshold evaluation; sweep first, then re-run "
+            "evaluate_model --bootstrap at the calibrated threshold")
+        return 1
+    metrics = ev.METRIC_KEYS + ev.OBJECT_METRIC_KEYS
+    if args.sweep_threshold and args.sweep_threshold not in metrics:
+        logger.error("--sweep-threshold: unknown metric %r (one of %s)",
+                     args.sweep_threshold, ", ".join(metrics))
+        return 1
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        logger.error("%s", e)
+        return 1
+    infer = model = None
+    if not args.predictions:
+        try:
+            unet_cfg, model = _restore_model(args, device)
+        except _CliError as e:
+            logger.error("%s", e)
+            return 1
+        infer = _evaluation_infer(args, unet_cfg, device)
+
+    def pairs():
+        if args.predictions:
+            return ev.prediction_prob_pairs(args.predictions, data_dir)
+        return ev.inference_prob_pairs(infer, model, data_dir)
+
+    if args.sweep_threshold:
+        if args.sweep_threshold in ev.OBJECT_METRIC_KEYS:
+            # the pixel and plume optima differ: sweep in the served metric
+            sweep = ev.sweep_object_thresholds(
+                pairs(), match_iou=args.match_iou, min_size=args.min_size,
+                device=device)
+        else:
+            sweep = ev.sweep_thresholds(pairs())
+        sweep_csv = os.path.join(os.path.dirname(out_csv) or ".",
+                                 "threshold_sweep.csv")
+        sweep.to_csv(sweep_csv)
+        t, v = ev.best_threshold(sweep, metric=args.sweep_threshold)
+        payload = {"threshold": t, "metric": args.sweep_threshold,
+                   "value": round(v, 4),
+                   "at_default": round(ev.at_threshold(
+                       sweep, args.sweep_threshold), 4),
+                   "sweep_csv": sweep_csv}
+        if args.write_threshold:
+            tpath = os.path.join(args.root, PathsConfig().model_dir,
+                                 THRESHOLD_BASENAME)
+            _write_json_atomic(tpath, {
+                **payload,
+                "measured_utc": time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                              time.gmtime())})
+            payload["out"] = tpath
+            logger.info("calibrated threshold %.2f written to %s (serving "
+                        "reads it automatically)", t, tpath)
+        print(json.dumps(payload))
+        return 0
+
+    if args.objects:
+        table = ev.evaluate_objects(pairs(), threshold=args.threshold,
+                                    match_iou=args.match_iou,
+                                    min_size=args.min_size, device=device)
+        obj_csv = ev.objects_csv_path(out_csv)
+        os.makedirs(os.path.dirname(obj_csv) or ".", exist_ok=True)
+        table.to_csv(obj_csv)
+        micro = dict(zip(table.columns, table.rows[-1]))
+        payload = {
+            "samples": len(table) - 1,
+            "pred_plumes": int(micro["pred_plumes"]),
+            "true_plumes": int(micro["true_plumes"]),
+            **{k: round(float(micro[k]), 4) for k in ev.OBJECT_METRIC_KEYS},
+            "out": obj_csv}
+        if args.bootstrap:
+            payload["ci95"] = {
+                k: [round(lo, 4), round(hi, 4)] for k, (lo, hi) in
+                ev.bootstrap_from_df(table, kind="object",
+                                     n_boot=args.bootstrap).items()}
+        print(json.dumps(payload))
+        return 0
+
+    if args.predictions:
+        table = ev.evaluate_predictions(args.predictions, data_dir,
+                                        threshold=args.threshold)
+    else:
+        table = ev.evaluate_model_data(infer, model, data_dir,
+                                       threshold=args.threshold)
+    payload = ev.write_report(table, out_csv)
+    if args.bootstrap:
+        payload["ci95"] = {
+            k: [round(lo, 4), round(hi, 4)] for k, (lo, hi) in
+            ev.bootstrap_from_df(table, n_boot=args.bootstrap).items()}
+    print(json.dumps(payload))
+    return 0
+
+
 def _add_serving_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),
                    help="workspace root")
@@ -654,7 +945,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--data-parallel", type=int, default=1,
                    help="data-parallel cards" + unported + " above 1")
     t.add_argument("--curated", action="store_true",
-                   help="train on curated samples" + unported)
+                   help="train on the curated samples of <root>'s "
+                        "model_data_dir (run prepare_model_data first)")
     t.add_argument("--quantize-transfer", action="store_true",
                    help="uint16 channels and uint8 masks across the "
                         "host-to-device hop, dequantized in the step")
@@ -664,18 +956,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="UNet++ side heads on every top-row column, "
                         "averaged (enables --prune-level serving)")
     t.add_argument("--distill-from", default=None, metavar="CKPT_DIR",
-                   help="offline distillation" + unported)
+                   help="offline distillation: relabel the training "
+                        "granules with this checkpoint's soft "
+                        "probabilities first (the dev set keeps its "
+                        "labels)")
     t.add_argument("--distill-alpha", type=float, default=1.0,
-                   help="distillation blend" + unported)
+                   help="teacher blend weight: y' = a*p_teacher + (1-a)*y")
     t.add_argument("--distill-temp", type=float, default=1.0,
-                   help="distillation temperature" + unported)
+                   help="teacher logits divided by T before the sigmoid")
     t.add_argument("--distill-prune-level", type=int, default=None,
-                   help="pruned UNet++ teacher" + unported)
+                   help="serve a deep-supervised UNet++ teacher pruned at "
+                        "this fusion level")
     t.add_argument("--distill-tta", action="store_true",
-                   help="D4-averaged teacher labels" + unported)
+                   help="D4-average the teacher's soft labels")
     t.add_argument("--distill-calibrate", nargs="?", const="auto",
                    default=None, metavar="THRESH",
-                   help="recentred teacher logits" + unported)
+                   help="recentre the teacher's logits so its calibrated "
+                        "threshold maps to 0.5; no value reads <root>/"
+                        "models/threshold.json")
     t.set_defaults(fn=cmd_train_model)
 
     pr = sub.add_parser("predict_model", help="sliding-window inference")
@@ -711,6 +1009,85 @@ def build_parser() -> argparse.ArgumentParser:
     idp.add_argument("--out", default=None,
                      help="CSV path for the hull table")
     idp.set_defaults(fn=cmd_identify)
+
+    s = sub.add_parser("select", help="plume curation (review/decisions)")
+    s.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),
+                   help="workspace root")
+    s.add_argument("--decisions", default=None,
+                   help="CSV with id,datetime,keep columns")
+    s.add_argument("--rank-with-predictions", nargs="?", const="",
+                   default=None, metavar="DIR",
+                   help="order each review manifest most-suspect-first by "
+                        "the mean predicted probability over each plume "
+                        "(bare flag: <root>/processed/predictions)")
+    s.set_defaults(fn=cmd_select)
+
+    pm = sub.add_parser("prepare_model_data",
+                        help="curated hulls → model-ready training samples")
+    pm.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT",
+                                                     "data"),
+                    help="workspace root")
+    pm.add_argument("--fires", default=None,
+                    help="fire CSV (default raw/fires/fires.csv)")
+    pm.add_argument("--hulls-only", action="store_true",
+                    help="rasterise convex hulls even where per-plume "
+                         "device masks exist")
+    pm.add_argument("--uncurated", action="store_true",
+                    help="use every identified plume (hull_df_dir) instead "
+                         "of the curated set")
+    pm.set_defaults(fn=cmd_prepare_model_data)
+
+    ev = sub.add_parser("evaluate_model",
+                        help="score a checkpoint or saved predictions "
+                             "against model-ready labels")
+    ev.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT",
+                                                     "data"),
+                    help="workspace root")
+    ev.add_argument("--device", default="cuda",
+                    help="torch device of the forwards and the plume "
+                         "labelling (default: cuda; the CPU runs the "
+                         "kernels' plain versions)")
+    ev.add_argument("--checkpoint", default=None,
+                    help="directory of model_config.json and weights.pt "
+                         "(default <root>/models/checkpoints)")
+    ev.add_argument("--data", default=None,
+                    help="model-data dir (default <root>/processed/"
+                         "model_data)")
+    ev.add_argument("--predictions", default=None,
+                    help="score existing predict_model NPZs from this dir "
+                         "instead of running inference")
+    ev.add_argument("--tile", type=int, default=288)
+    ev.add_argument("--overlap", type=int, default=32)
+    ev.add_argument("--batch-tiles", type=int, default=64,
+                    help="tiles per forward")
+    ev.add_argument("--threshold", type=float, default=0.5)
+    ev.add_argument("--sweep-threshold", nargs="?", const="iou",
+                    default=None, metavar="METRIC",
+                    help="sweep the threshold 0.05..0.95 and report the "
+                         "best by METRIC (default iou; obj_precision, "
+                         "obj_recall, obj_f1 sweep at the plume level); "
+                         "writes threshold_sweep.csv beside the report")
+    ev.add_argument("--write-threshold", action="store_true",
+                    help="write the swept best threshold to <root>/models/"
+                         "threshold.json")
+    ev.add_argument("--objects", action="store_true",
+                    help="plume-level detection metrics: components matched "
+                         "one-to-one by IoU >= --match-iou")
+    ev.add_argument("--match-iou", type=float, default=0.5)
+    ev.add_argument("--min-size", type=int, default=1,
+                    help="component floor in pixels: smaller predicted "
+                         "components are pruned, smaller true ones ignored")
+    ev.add_argument("--bootstrap", type=int, nargs="?", const=1000,
+                    default=0, metavar="N",
+                    help="scene-level bootstrap 95%% intervals of the pooled "
+                         "metrics (N resamples, default 1000)")
+    ev.add_argument("--prune-level", type=int, default=None,
+                    help="evaluate a deep-supervised UNet++ pruned at "
+                         "fusion level L")
+    ev.add_argument("--out", default=None,
+                    help="report CSV (default <root>/processed/"
+                         "evaluation.csv)")
+    ev.set_defaults(fn=cmd_evaluate_model)
     return p
 
 

@@ -71,9 +71,9 @@ class TrainConfig:
     #: counter-based in (seed, step), a different sequence from the host
     #: iterator's numpy draws
     device_data: bool = False
-    #: offline distillation: kept so that the config reads as in the JAX
-    #: package, refused by the trainer until ROADMAP.md, queue A:
-    #: 'training and evaluation extras'
+    #: offline distillation (``train/distill.py``): the training samples
+    #: relabelled by this checkpoint's soft probabilities before training;
+    #: ``distill_infer`` None serves the teacher at ``InferConfig()``
     distill_from: Optional[str] = None
     distill_alpha: float = 1.0
     distill_temp: float = 1.0

@@ -14,7 +14,7 @@ from plumekit_torch.config.identify import (BasicIdentifyConfig,
 from plumekit_torch.identify import basic as _basic
 from plumekit_torch.identify import gaussian as _gaussian
 from plumekit_torch.identify import rg as _rg
-from plumekit_torch.identify.rg import Table
+from plumekit_torch.io.tables import Table
 from plumekit_torch.io.granule import Granule
 
 IdentifyConfig = Union[BasicIdentifyConfig, RGIdentifyConfig,

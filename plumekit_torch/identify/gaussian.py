@@ -22,10 +22,11 @@ from plumekit_torch.identify.locate import locate_fires_in_image, pad_fires
 from plumekit_torch.identify.pipeline import (SweepStatics,
                                               make_sweep_identifier,
                                               validate_descending_thresholds)
-from plumekit_torch.identify.rg import (HULL_COLUMNS, Table, _to_host,
+from plumekit_torch.identify.rg import (HULL_COLUMNS, _to_host,
                                         build_scene_dataframes)
 from plumekit_torch.io.fires import n_fires, subset_fires_to_image
 from plumekit_torch.io.granule import Granule
+from plumekit_torch.io.tables import Table
 from plumekit_torch.ops.cluster import raster_cluster_centroids
 from plumekit_torch.ops.inpaint import nearest_fill
 from plumekit_torch.utils import get_logger

@@ -9,10 +9,6 @@ tensor it is given.
 
 from __future__ import annotations
 
-import csv
-from dataclasses import dataclass, field
-from typing import List, Tuple
-
 import numpy as np
 import torch
 
@@ -24,6 +20,7 @@ from plumekit_torch.identify.pipeline import (SweepStatics,
                                               make_sweep_identifier,
                                               validate_descending_thresholds)
 from plumekit_torch.io.fires import n_fires, subset_fires_to_image
+from plumekit_torch.io.tables import Table
 from plumekit_torch.ops.cluster import mean_cluster_positions
 from plumekit_torch.ops.geometry import convex_hull_vertices_host
 from plumekit_torch.utils import get_logger
@@ -34,30 +31,6 @@ AOD_COLUMNS = ("id", "plume_pixel_extent", "plume_min_row", "plume_max_row",
                "plume_min_col", "plume_max_col", "plume_aod_mean",
                "plume_aod_sd", "bg_aod_level")
 HULL_COLUMNS = ("id", "hull_lats", "hull_lons", "hull_x", "hull_y")
-
-
-@dataclass
-class Table:
-    """Rows of plain Python values under named columns: the port's stand-in
-    for the JAX package's result dataframes."""
-
-    columns: Tuple[str, ...]
-    rows: List[tuple] = field(default_factory=list)
-
-    def __len__(self) -> int:
-        return len(self.rows)
-
-    def column(self, name: str) -> list:
-        i = self.columns.index(name)
-        return [r[i] for r in self.rows]
-
-    def to_csv(self, path: str) -> None:
-        """Header and rows; floats at full precision (``repr``), as
-        pandas writes them."""
-        with open(path, "w", newline="") as f:
-            w = csv.writer(f, lineterminator="\n")
-            w.writerow(self.columns)
-            w.writerows(self.rows)
 
 
 def _statics(cfg: RGIdentifyConfig) -> SweepStatics:

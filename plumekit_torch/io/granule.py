@@ -4,8 +4,9 @@ other's files."""
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -32,6 +33,38 @@ class Granule:
 
     def first_layer(self) -> np.ndarray:
         return next(iter(self.layers.values()))
+
+
+#: hull-CSV timestamp of detectors that run on the first layer (rg, basic);
+#: ``select`` stamps it on hull tables without a ``datetime`` column
+LAYER0_SENTINEL = "layer0"
+
+
+def resolve_layer(granule: Granule, ts) -> np.ndarray:
+    """The AOD layer a hull-CSV ``datetime`` names, strictly: the sentinel
+    and single-layer granules give the first layer, a known timestamp its
+    layer, and an unknown timestamp on a multi-orbit granule raises rather
+    than pair plume masks or decisions with another orbit's AOD."""
+    ts = str(ts)
+    if ts == LAYER0_SENTINEL:
+        return granule.first_layer()
+    if ts in granule.layers:
+        return granule.layers[ts]
+    if len(granule.layers) == 1:
+        return granule.first_layer()
+    raise ValueError(
+        f"hull timestamp {ts!r} not among granule layers "
+        f"{sorted(granule.layers)}; cannot pick an orbit layer")
+
+
+def find_granule(directory: str, base: str) -> Optional[str]:
+    """Path of the granule named ``base`` under ``directory`` in any
+    serialisation of :data:`GRANULE_EXTENSIONS`, or None."""
+    for ext in GRANULE_EXTENSIONS:
+        cand = os.path.join(directory, base + ext)
+        if os.path.exists(cand):
+            return cand
+    return None
 
 
 def _h5py():

@@ -151,7 +151,7 @@ def _head_vars(head):
 
 
 @contextmanager
-def _full_fp32():
+def full_fp32():
     """fp32 convolutions and products in full fp32, not TF32 (cuDNN's
     default for convolutions), restored after: the JAX reference replays in
     exact fp32, and a TF32 ``amax`` moves many weights to another int8."""
@@ -181,7 +181,7 @@ def calibrate_unet(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
         return _calibrate_unetpp(model, cfg, calib)
     depth = cfg.depth
     amax: Dict[str, Any] = {}
-    with _full_fp32():
+    with full_fp32():
         x = torch.as_tensor(calib, dtype=torch.float32,
                             device=model.head.weight.device)
         amax["in"] = _amax(x)
@@ -344,7 +344,7 @@ def _calibrate_unetpp(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
     replay of its BN-folded grid up to ``effective_level(cfg)``."""
     level = effective_level(cfg)
     amax: Dict[str, Any] = {}
-    with _full_fp32():
+    with full_fp32():
         x = torch.as_tensor(calib, dtype=torch.float32,
                             device=next(model.parameters()).device)
         amax["in"] = _amax(x)

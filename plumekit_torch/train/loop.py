@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import copy
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -29,6 +29,8 @@ from plumekit_torch.config.train import DataConfig, TrainConfig, UNetConfig
 from plumekit_torch.device import resolve_device
 from plumekit_torch.models.flops import PEAK_TFLOPS, model_flops_per_pixel
 from plumekit_torch.train import checkpoint as ckpt
+from plumekit_torch.train.curated import make_curated_dataset
+from plumekit_torch.train.distill import distill_samples
 from plumekit_torch.io.prefetch import device_prefetch, make_device_put
 from plumekit_torch.ops.quant import uint16_bits
 from plumekit_torch.train.data import (make_synthetic_dataset,
@@ -42,16 +44,6 @@ from plumekit_torch.train.step import make_eval_step, make_multi_train_step
 from plumekit_torch.utils import MetricsWriter, get_logger
 
 logger = get_logger(__name__)
-
-
-def _refuse_unported(unet_cfg: UNetConfig, train_cfg: TrainConfig) -> None:
-    if unet_cfg.prune_level is not None:
-        raise ValueError(
-            "prune_level is serving-only; train with the full depth")
-    if train_cfg.distill_from:
-        raise NotImplementedError(
-            "distillation is not ported to plumekit_torch yet (ROADMAP.md, "
-            "queue A: 'training and evaluation extras')")
 
 
 def chunk_schedule(start: int, total: int, k_max: int, intervals):
@@ -110,13 +102,19 @@ def host_chunks(samples, tile: int, batch_size: int, rng, device, sizes,
 def train(unet_cfg: UNetConfig = UNetConfig(),
           train_cfg: TrainConfig = TrainConfig(),
           data_cfg: DataConfig = DataConfig(), weak_labels: bool = False,
-          device="cuda") -> Dict[str, List[float]]:
+          device="cuda", curated_dir: Optional[str] = None
+          ) -> Dict[str, List[float]]:
     """Run the supervised loop on ``device``; returns the metric history.
     ``weak_labels`` trains on the rg detector's masks instead of synthetic
-    ground truth. The run resumes from the newest step checkpoint in
-    ``train_cfg.checkpoint_dir`` (a step-0 checkpoint starts it from given
-    weights)."""
-    _refuse_unported(unet_cfg, train_cfg)
+    ground truth; ``curated_dir`` (``prepare_model_data``'s samples)
+    overrides both, holding out its last sample as the dev set when it has
+    4 or more. With ``train_cfg.distill_from`` the training samples (not
+    the dev set) are relabelled by that teacher first. The run resumes from
+    the newest step checkpoint in ``train_cfg.checkpoint_dir`` (a step-0
+    checkpoint starts it from given weights)."""
+    if unet_cfg.prune_level is not None:
+        raise ValueError(
+            "prune_level is serving-only; train with the full depth")
     device = resolve_device(device)
     state = create_state(unet_cfg, train_cfg, device)
 
@@ -128,12 +126,30 @@ def train(unet_cfg: UNetConfig = UNetConfig(),
         start_step = last
         logger.info("resumed from checkpoint step %d", last)
 
-    if weak_labels:
+    if curated_dir:
+        samples = make_curated_dataset(curated_dir)
+        if len(samples) >= 4:
+            train_set, eval_set = samples[:-1], samples[-1:]
+        else:
+            train_set = eval_set = samples
+        logger.info("curated dataset: %d train / %d eval granule-layers",
+                    len(train_set), len(eval_set))
+    elif weak_labels:
         train_set = make_weak_label_dataset(data_cfg, True, device=device)
         eval_set = make_weak_label_dataset(data_cfg, False, device=device)
     else:
         train_set = make_synthetic_dataset(data_cfg, train=True)
         eval_set = make_synthetic_dataset(data_cfg, train=False)
+    if train_cfg.distill_from:
+        # one teacher pass per training granule, before the stream starts;
+        # the dev set keeps its labels, so dev IoU stays comparable
+        train_set = distill_samples(
+            train_set, train_cfg.distill_from,
+            alpha=train_cfg.distill_alpha,
+            temperature=train_cfg.distill_temp,
+            prune_level=train_cfg.distill_prune_level,
+            infer_cfg=train_cfg.distill_infer, tta=train_cfg.distill_tta,
+            calibrate_threshold=train_cfg.distill_calibrate, device=device)
 
     tile, batch = train_cfg.tile_size, train_cfg.batch_size
     quantize = train_cfg.quantize_transfer

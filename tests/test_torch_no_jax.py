@@ -1,6 +1,8 @@
 """plumekit_torch imports neither JAX nor the JAX package: the machine with
-the card has no jax, flax, orbax or pandas. Checked in a fresh interpreter,
-because this test process has JAX loaded (tests/conftest.py)."""
+the card has no jax, flax, orbax, pandas or matplotlib (which the review
+export imports when it runs, not at import). Checked in a fresh
+interpreter, because this test process has JAX loaded
+(tests/conftest.py)."""
 
 import os
 import subprocess
@@ -31,8 +33,12 @@ needed = {"plumekit_torch.models.kernels.unet_mega",
           "plumekit_torch.experiments.int8_variants",
           "plumekit_torch.ops.quant", "plumekit_torch.io.prefetch",
           "plumekit_torch.infer.streaming", "plumekit_torch.infer.tta",
-          "plumekit_torch.models.unetpp"}
-banned = {"jax", "jaxlib", "flax", "orbax", "pandas", "plumekit"}
+          "plumekit_torch.models.unetpp", "plumekit_torch.io.tables",
+          "plumekit_torch.label.selector", "plumekit_torch.label.ranking",
+          "plumekit_torch.train.curated", "plumekit_torch.train.evaluate",
+          "plumekit_torch.train.distill"}
+banned = {"jax", "jaxlib", "flax", "orbax", "pandas", "plumekit",
+          "matplotlib"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 missing = sorted(needed - set(names))
 print(len(names), "modules;", "loaded:", loaded, "missing:", missing)

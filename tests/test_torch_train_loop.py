@@ -302,11 +302,6 @@ def test_quick_start_chain_on_the_cpu(tmp_path, caplog):
 
 @pytest.mark.parametrize("flags, item", [
     (["--data-parallel", "2"], "multi-card serving"),
-    (["--curated"], "training and evaluation extras"),
-    (["--distill-from", "x"], "training and evaluation extras"),
-    (["--distill-alpha", "0.5"], "training and evaluation extras"),
-    (["--distill-tta"], "training and evaluation extras"),
-    (["--distill-calibrate"], "training and evaluation extras"),
 ])
 def test_unported_train_flags_exit_1_naming_their_item(flags, item, caplog,
                                                        tmp_path):
