@@ -1,7 +1,7 @@
 """Smoke run of plumekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
-``nvcc`` per source, all at once) and drives the port's eight paths:
+``nvcc`` per source, all at once) and drives the port's nine paths:
 
 * megakernel serving: K7 (the whole U-Net forward in one launch) against
   its plain PyTorch version at the flagship U-Net over 128 tiles of 96²,
@@ -43,6 +43,23 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   upsample one of Q2), and the trained checkpoint of the training phase
   served with ``--int8``, whose masks must flip under 1% against the plain
   forward's;
+* the serving entry points (after the streams): K6 at the nine blocks, K7
+  over the whole forward, Q1 at the 18 convs and Q2 at the 4 upsamples of
+  the flagship net at the serving tuner's 256², 384² and 512² tiles, at
+  every batch its default grid gives there on a 2048² granule, against
+  their plain versions (Q1 and Q2 bit for bit), timed at the largest
+  beside their bounds; ``tune --granule 2048`` on the default grid at G = 1,
+  2, 4 for the plain forward, a ``use_pallas`` copy (K6 9 launches per
+  forward), a ``use_mega`` copy (K7 1, K6 0) and ``--int8`` (Q1 18, Q2 4,
+  ``torch._int_mm`` 0), every candidate timed, with its ranked table, peak
+  memory and seconds; ``predict_model --tuned`` of each sweep over the four
+  2048² granules against the winner's flags given explicitly, and ``serve
+  --once --tuned`` against it (bit for bit for K6, Q1 and Q2, within the
+  serving gate for cuDNN and K7), beside the default geometry's rate;
+  ``serve`` resumed after a fifth granule lands, a corrupt upload
+  quarantined, an all-null backlog under ``--int8`` deferred, watch mode in
+  a child process (seconds from a granule's arrival to its prediction on
+  disk) and SIGTERM in the middle of an 8-granule backlog;
 * the rg weak labeller: K1/K4 (multi-threshold CCL) and K3 (label counts)
   against their plain versions, bit for bit, on the identify benchmark's
   1200² scene, 4096², 8192², a ragged 1201 × 997 scene and a serpentine,
@@ -141,10 +158,12 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -160,7 +179,8 @@ from plumekit_torch.infer.sliding import (  # noqa: E402
     _effective_batch, make_multi_granule_infer, tile_grid)
 from plumekit_torch.infer.streaming import (  # noqa: E402
     decode_granule_channels)
-from plumekit_torch.io.granule import Granule, save_granule  # noqa: E402
+from plumekit_torch.io.granule import (  # noqa: E402
+    Granule, load_granule, save_granule)
 from plumekit_torch.models import build_model  # noqa: E402
 from plumekit_torch.models.fused_forward import make_fused_apply  # noqa: E402
 from plumekit_torch.experiments import (  # noqa: E402
@@ -193,6 +213,7 @@ from plumekit_torch.train.state import create_state, make_schedule  # noqa
 from plumekit_torch.train.step import (  # noqa: E402
     make_train_step, step_generator)
 from plumekit_torch.infer import streaming, tta  # noqa: E402
+from plumekit_torch.infer import tune as tune_mod  # noqa: E402
 from plumekit_torch.io import prefetch  # noqa: E402
 from plumekit_torch.train.loop import train as train_loop  # noqa: E402
 
@@ -238,8 +259,9 @@ BENCH_SCENE = ccl_pass_times.BENCH_SCENE
 QUEUED = ccl_pass_times.QUEUED
 FEATURE_GRANULES = 4
 # at 8192² only this many plumes carry fires: locating a fire scans the
-# whole lat/lon grid on the host (about a quarter second each there)
-SWATH_FIRES = 64
+# whole lat/lon grid on the host (about half a second each there, 80% of a
+# run: 64 took 37 s a run)
+SWATH_FIRES = 32
 # K1 and K3 are integer results: kernel and plain version must be equal.
 # build_features on the card vs on the CPU: integer columns and masks
 # exact; the in-plume AOD mean and sd are float32 sums taken in another
@@ -327,6 +349,28 @@ def tile_of(tile):
             "fill": tile.fill, "smem": tile.smem}
 
 
+def block_inputs(rng, b, h, w, cin, cmid, cout):
+    """Seeded bf16 inputs of one double-conv block on the card: (x, w1, s1,
+    b1, w2, s2, b2), the weights at He scale; x is drawn on the card by a
+    generator seeded from ``rng`` (a 256-tile plane takes seconds through
+    numpy on the host)."""
+    def bf(*shape, scale=1.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * scale
+        return torch.from_numpy(a).to(DEV).to(torch.bfloat16)
+
+    gen = torch.Generator(device=DEV).manual_seed(int(rng.integers(2**62)))
+    x = torch.randn((b, h, w, cin), generator=gen, device=DEV,
+                    dtype=torch.float32).to(torch.bfloat16)
+    w1 = bf(3, 3, cin, cmid, scale=(2.0 / (9 * cin)) ** 0.5)
+    w2 = bf(3, 3, cmid, cout, scale=(2.0 / (9 * cmid)) ** 0.5)
+    s1 = torch.from_numpy(rng.uniform(0.5, 1.5, cmid).astype(np.float32)
+                          ).to(DEV).bfloat16()
+    s2 = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32)
+                          ).to(DEV).bfloat16()
+    b1, b2 = bf(cmid, scale=0.1), bf(cout, scale=0.1)
+    return (x, w1, s1, b1, w2, s2, b2)
+
+
 def check_kernel(rng, batch):
     """K6 vs its plain version at every block shape of the serving tile
     (288) and of the megakernel's tile (96), timed on weights packed once
@@ -345,19 +389,8 @@ def check_kernel(rng, batch):
               (64, 128, 128, 18, 18, 1, "ragged")]
     rows = []
     for cin, cmid, cout, h, w, b, kind in cases:
-        def bf(*shape, scale=1.0):
-            a = rng.standard_normal(shape, dtype=np.float32) * scale
-            return torch.from_numpy(a).to(DEV).to(torch.bfloat16)
-
-        x = bf(b, h, w, cin)
-        w1 = bf(3, 3, cin, cmid, scale=(2.0 / (9 * cin)) ** 0.5)
-        w2 = bf(3, 3, cmid, cout, scale=(2.0 / (9 * cmid)) ** 0.5)
-        s1 = torch.from_numpy(rng.uniform(0.5, 1.5, cmid).astype(np.float32)
-                              ).to(DEV).bfloat16()
-        s2 = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32)
-                              ).to(DEV).bfloat16()
-        b1, b2 = bf(cmid, scale=0.1), bf(cout, scale=0.1)
-        args = (x, w1, s1, b1, w2, s2, b2)
+        args = block_inputs(rng, b, h, w, cin, cmid, cout)
+        x, w1, s1, b1, w2, s2, b2 = args
         got = fused_conv.fused_double_conv3x3_bn_relu(*args)
         torch.cuda.synchronize()
         packed = fused_conv.pack_double_conv(*args[1:])
@@ -565,11 +598,8 @@ def serving_root(model, rng, tmp):
 def serving_geometry(icfg):
     """(tiles per granule, forwards of one call), from the serving geometry
     itself."""
-    stride = icfg.tile_size - icfg.overlap
-    padded = icfg.tile_size + -(-(GRANULE_PX - icfg.tile_size) // stride) \
-        * stride
-    n_tiles = len(tile_grid(padded, icfg.tile_size, stride)) ** 2
-    per_group = -(-n_tiles // _effective_batch(icfg.batch_tiles, n_tiles))
+    n_tiles, per_group, _ = geometry_forwards(tune_mod.Geometry(
+        icfg.tile_size, icfg.overlap, icfg.batch_tiles, BATCH_GRANULES))
     return n_tiles, -(-GRANULES // BATCH_GRANULES) * per_group
 
 
@@ -3163,6 +3193,622 @@ def unetpp_phase(rng, tmp):
     return res
 
 
+# ------------------------------------ serving entry points: tune, --tuned, serve
+
+# the tuner's default grid (infer/tune.DEFAULT_CANDIDATES) at G = 1, 2, 4
+TUNE_GRANULES = (1, 2, 4)
+# the grid's tiles that no earlier path runs (288 is the serving default)
+TUNER_TILES = (256, 384, 512)
+# the four forwards of the tuning sweeps: the checkpoint's flags, tune's and
+# predict_model's flags, serve's flags (``--fused`` on the plain checkpoint
+# is the use_pallas forward: the same fused apply)
+ENTRY_FORWARDS = (("plain", {}, [], []),
+                  ("use_pallas", {"use_pallas": True}, [], ["--fused"]),
+                  ("use_mega", {"use_mega": True}, [], []),
+                  ("int8", {}, ["--int8"], ["--int8"]))
+# watch mode: poll, settle and idle exit of the serve subprocess, and how
+# many granules it receives one after the other (after one backlog granule)
+WATCH_POLL, WATCH_SETTLE, WATCH_IDLE_EXIT, WATCH_DROPS = 0.5, 0.5, 6, 3
+SIGTERM_BACKLOG = 8
+SUBPROCESS_TIMEOUT_S = 180
+
+
+def grid_geometries():
+    return tune_mod.parse_candidates(tune_mod.DEFAULT_CANDIDATES,
+                                     TUNE_GRANULES)
+
+
+def geometry_forwards(geom):
+    """(tiles per granule, forwards of one call, tiles per forward) of the
+    serving program at ``geom`` on a GRANULE_PX² granule: each forward
+    carries the G granules' tiles."""
+    stride = geom.tile - geom.overlap
+    padded = geom.tile + -(-(GRANULE_PX - geom.tile) // stride) * stride
+    n = len(tile_grid(padded, geom.tile, stride)) ** 2
+    eff = _effective_batch(geom.batch_tiles, n)
+    return n, -(-n // eff), geom.granules * eff
+
+
+def tuner_batches(tile):
+    """The forward batches the default grid gives at ``tile``."""
+    return sorted({geometry_forwards(g)[2] for g in grid_geometries()
+                   if g.tile == tile})
+
+
+def tile_k6(rng, tile, batches):
+    """K6 at the nine blocks of UNetConfig() at ``tile``: against its plain
+    version at every batch of ``batches`` (the plain version once, at the
+    largest), timed at the largest beside cuDNN and the bound."""
+    big = batches[-1]
+    rows = []
+    for cin, cmid, cout, h in block_shapes(UNetConfig(), tile):
+        args = block_inputs(rng, big, h, h, cin, cmid, cout)
+        x, w1, s1, b1, w2, s2, b2 = args
+        packed = fused_conv.pack_double_conv(*args[1:])
+        ref = fused_conv.double_conv3x3_bn_relu_ref(*args).float()
+        worst = max_abs = 0.0
+        for b in batches:
+            got = fused_conv.fused_double_conv3x3_bn_relu_packed(x[:b],
+                                                                 packed)
+            err = (got.float() - ref[:b]).abs()
+            worst = max(worst, float((err / (ATOL + RTOL * ref[:b].abs()))
+                                     .max()))
+            max_abs = max(max_abs, float(err.max()))
+            del got, err
+        tile_rule = conv_tiles.double_conv_tile(h, h, cin, cmid, cout)
+        pw1 = w1.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        pw2 = w2.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        row = {"cin": cin, "cmid": cmid, "cout": cout, "h": h,
+               "batches": batches, "max_abs_err": max_abs,
+               "err_over_bound": worst, **tile_of(tile_rule),
+               "ms": time_ms(lambda: fused_conv
+                             .fused_double_conv3x3_bn_relu_packed(x, packed)),
+               "library_ms": time_ms(lambda: plain_bf16_double_conv(
+                   x, pw1, s1, b1, pw2, s2, b2)),
+               "plain_ms": time_ms(
+                   lambda: fused_conv.double_conv3x3_bn_relu_ref(*args),
+                   reps=3),
+               "ops": 2 * 9 * big * h * h * (cin * cmid + cmid * cout),
+               "bytes": sum(a.numel() * a.element_size() for a in args)
+               + big * h * h * cout * 2}
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"],
+                                                 PEAK_BF16_OPS_PER_S)
+        rows.append(row)
+        if not worst <= 1.0:
+            raise AssertionError(f"K6 disagrees with its plain version at "
+                                 f"{row}: tolerance {ATOL} + {RTOL}*|ref|")
+        del args, x, ref, packed, pw1, pw2
+    return rows
+
+
+def tile_k7(model, rng, tile, batches):
+    """One K7 forward of the flagship net per batch of ``batches`` at
+    ``tile`` against its plain version (``compare_logits``), timed at the
+    largest beside the cuDNN forward and the bound."""
+    big = batches[-1]
+    apply = unet_mega.make_mega_apply(model.cfg)
+    x = mega_tiles(rng, big, tile)
+    weights = unet_mega.weights_of(model, torch.bfloat16, DEV)
+    with torch.inference_mode():
+        ref = unet_mega.mega_forward_ref(weights.folded, x)
+        checks = {b: compare_logits(f"K7 {b}x{tile}^2 vs plain version",
+                                    apply(model, x[:b]), ref[:b], MEGA_RTOL)
+                  for b in batches}
+        del ref
+        row = {"batches": batches, "checks": checks,
+               "max_abs_err": max(c["max_abs_diff"] for c in checks.values()),
+               "ms": time_ms(lambda: apply(model, x), reps=5),
+               "library_ms": time_ms(lambda: model(x), reps=5),
+               "plain_ms": time_ms(
+                   lambda: unet_mega.mega_forward_ref(weights.folded, x),
+                   reps=2, warmup=1)}
+    row["ops"] = mega_ops(model.cfg, tile) * big
+    row["bytes"] = x.numel() * 2 + big * tile * tile * \
+        model.cfg.out_channels * 4 + weights.blob.numel()
+    row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"],
+                                             PEAK_BF16_OPS_PER_S)
+    del x
+    torch.cuda.empty_cache()
+    return row
+
+
+def tile_int8(rng, tile, batches):
+    """Q1 at the 18 convs and Q2 at the 4 upsamples of UNetConfig() at
+    ``tile``: timed and held bit for bit at the largest batch
+    (``int8_conv_times.time_case`` / ``time_upsample``), and bit for bit at
+    every other batch of ``batches``."""
+    big, others = batches[-1], batches[:-1]
+    q1, q2 = [], []
+    for case in int8_conv_times.conv_cases(UNetConfig(), tile):
+        q1.append(int8_conv_times.time_case(rng, case, big, DEV))
+        x, w, a, b, scale, skip = int8_conv_times.case_inputs(
+            rng, case, others[-1], DEV)
+        ref = int8_conv.int8_conv3x3_ref(x, w, a, b, scale, skip)
+        for n in others:
+            got = int8_conv.int8_conv3x3(
+                x[:n], w, a, b, scale, None if skip is None else skip[:n])
+            if not torch.equal(got, ref[:n]):
+                raise AssertionError(f"Q1 differs from its plain version at "
+                                     f"{case}, batch {n}")
+        del x, w, skip, ref, got
+    for case in int8_conv_times.upsample_cases(UNetConfig(), tile):
+        q2.append(int8_conv_times.time_upsample(rng, case, big, DEV))
+        x, kq, sw, bias, scale = int8_conv_times.upsample_inputs(
+            rng, case, others[-1], DEV)
+        ref = int8_upsample.int8_upsample2x2_ref(x, kq, sw, bias, scale)
+        for n in others:
+            if not torch.equal(int8_upsample.int8_upsample2x2(
+                    x[:n], kq, sw, bias, scale), ref[:n]):
+                raise AssertionError(f"Q2 differs from its plain version at "
+                                     f"{case}, batch {n}")
+        del x, kq, ref
+    torch.cuda.empty_cache()
+    return q1, q2
+
+
+def check_tuner_tiles(model, rng):
+    """K6, K7, Q1 and Q2 at the tuner's 256², 384² and 512² tiles, at the
+    batches the default grid gives there on a 2048² granule; per tile the
+    sums over one forward's blocks, convs and upsamples."""
+    out = {}
+    for tile in TUNER_TILES:
+        batches = tuner_batches(tile)
+        k6 = tile_k6(rng, tile, batches)
+        k7 = tile_k7(model, rng, tile, batches)
+        q1, q2 = tile_int8(rng, tile, batches)
+        summary = {"batch": batches[-1], "batches": batches}
+        for name, rows in (("k6", k6), ("q1", q1), ("q2", q2)):
+            share = {kind: sum(r["bound_ms"] for r in rows
+                               if r["bound_by"] == kind)
+                     for kind in ("bytes", "operations")}
+            summary[name] = {
+                "ms": sum(r["queued_ms" if name != "k6" else "ms"]
+                          for r in rows),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                "bound_by": max(share, key=share.get),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "library_ms": (sum(r["library_ms"] for r in rows)
+                               if name == "k6" else None),
+                "max_abs_err": max(r["max_abs_err"] for r in rows)}
+        summary["q1"]["bf16_cudnn_ms"] = sum(r["bf16_cudnn_ms"] for r in q1)
+        summary["q2"]["int_mm_ms"] = sum(r["int_mm_ms"] for r in q2)
+        summary["k7"] = {k: k7[k] for k in ("ms", "bound_ms", "bound_by",
+                                              "plain_ms", "library_ms",
+                                              "max_abs_err")}
+        out[str(tile)] = {"summary": summary, "k6_rows": k6, "k7": k7,
+                          "q1_rows": q1, "q2_rows": q2}
+        print(f"tuner tile {tile}^2, batches {batches} (timed at "
+              f"{batches[-1]}): " + "; ".join(
+                  f"{name.upper()} {v['ms']:.3f} ms (bound {v['bound_ms']:.4f}"
+                  f" by {v['bound_by']}, plain {v['plain_ms']:.2f}"
+                  + (f", library {v['library_ms']:.3f}"
+                     if v["library_ms"] is not None else "")
+                  + f", max|err| {v['max_abs_err']:.4g})"
+                  for name, v in summary.items() if isinstance(v, dict)),
+              flush=True)
+    return out
+
+
+class LaunchCount:
+    """The kernels' launch counters (and ``torch._int_mm`` calls) over a
+    ``with`` block: every counter is set to 0 on entry and read on exit."""
+
+    def __enter__(self):
+        fused_conv.LAUNCHES = unet_mega.LAUNCHES = 0
+        int8_conv.LAUNCHES = int8_upsample.LAUNCHES = 0
+        self.int_mm, self._real = 0, torch._int_mm
+
+        def counted(*args, **kw):
+            self.int_mm += 1
+            return self._real(*args, **kw)
+
+        torch._int_mm = counted
+        return self
+
+    def __exit__(self, *exc):
+        torch._int_mm = self._real
+        self.counts = {"k6": fused_conv.LAUNCHES, "k7": unet_mega.LAUNCHES,
+                       "q1": int8_conv.LAUNCHES, "q2": int8_upsample.LAUNCHES,
+                       "int_mm": self.int_mm}
+        return False
+
+
+def expected_launches(label, cfg):
+    """Launches of one forward of ``label``'s path."""
+    zero = dict.fromkeys(("k6", "k7", "q1", "q2", "int_mm"), 0)
+    blocks = 2 * cfg.depth + 1
+    return {"plain": zero, "use_pallas": dict(zero, k6=blocks),
+            "use_mega": dict(zero, k7=1),
+            "int8": dict(zero, q1=2 * blocks, q2=cfg.depth)}[label]
+
+
+def tune_sweep(label, ckpt, flags, out, cfg):
+    """``tune --granule 2048`` on the default grid at G = 1, 2, 4 for one
+    forward, every candidate's launches counted (``time_geometry`` wrapped:
+    the warm-up call and the repeats) against the forward's per-forward
+    count times its forwards."""
+    per_candidate = []
+    real = tune_mod.time_geometry
+
+    def counted(apply_fn, variables, stack, geom, channels, repeats=3):
+        with LaunchCount() as count:
+            rate = real(apply_fn, variables, stack, geom, channels, repeats)
+        per_candidate.append((geom, repeats, count.counts))
+        return rate
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tune_mod.time_geometry = counted
+    try:
+        rc = cli.main(["tune", "--root", os.path.dirname(out),
+                       "--checkpoint", ckpt, "--granule", str(GRANULE_PX),
+                       "--out", out, *flags])
+    finally:
+        tune_mod.time_geometry = real
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0:
+        raise AssertionError(f"tune {label} exited {rc}")
+    payload = tune_mod.load_tuned(out)
+    failed = [r for r in payload["results"] if r["mpix_s"] is None]
+    if failed or len(payload["results"]) != len(grid_geometries()):
+        raise AssertionError(f"tune {label}: failed candidates {failed}")
+    per_forward = expected_launches(label, cfg)
+    totals = dict.fromkeys(per_forward, 0)
+    for geom, repeats, counts in per_candidate:
+        calls = (1 + repeats) * geometry_forwards(geom)[1]
+        want = {k: v * calls for k, v in per_forward.items()}
+        if counts != want:
+            raise AssertionError(f"tune {label} at {geom.label()}: launches "
+                                 f"{counts}, not {want}")
+        for k in totals:
+            totals[k] += counts[k]
+    res = {"seconds": secs, "peak_gb": peak, "launches": totals,
+           "best": payload["best"], "best_blended": payload["best_blended"],
+           "results": payload["results"], "device_kind":
+           payload["device_kind"], "artifact": out}
+    print(f"tune {label} --granule {GRANULE_PX} ({len(per_candidate)} "
+          f"candidates, {secs:.1f} s, peak {peak:.2f} GB, launches "
+          f"{totals}): ranked " + ", ".join(
+              f"{r['tile']}/{r['overlap']}/{r['batch_tiles']} G={r['granules']}"
+              f" {r['mpix_s']:.1f}" for r in payload["results"])
+          + f" MPix/s; best {payload['best']['tile']}/"
+          f"{payload['best']['overlap']}/{payload['best']['batch_tiles']} "
+          f"G={payload['best']['granules']}, best blended "
+          + (f"{payload['best_blended']['tile']}/"
+             f"{payload['best_blended']['overlap']}/"
+             f"{payload['best_blended']['batch_tiles']} "
+             f"G={payload['best_blended']['granules']}"
+             if payload["best_blended"] else "none"), flush=True)
+    return res
+
+
+def read_log(root, name):
+    path = os.path.join(root, "processed", "predictions", name)
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return f.read().split()
+
+
+def serve_once(root, *flags):
+    """``serve --once --settle 0`` on ``root``: (exit code, seconds,
+    launches)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with LaunchCount() as count:
+        rc = cli.main(["serve", "--root", root, "--once", "--settle", "0",
+                       *flags])
+        torch.cuda.synchronize()
+    return rc, time.perf_counter() - t0, count.counts
+
+
+def fresh_predictions(root):
+    out = os.path.join(root, "processed", "predictions")
+    shutil.rmtree(out, ignore_errors=True)
+    return out
+
+
+def same_probs(label, got, want, exact):
+    """Bit for bit where ``exact``, else within ``compare_served``'s gate;
+    returns (max |dp|, mask flips)."""
+    max_dp, share, confident = compare_served(got, want)
+    if exact and not all(np.array_equal(got[k], want[k]) for k in want):
+        raise AssertionError(f"{label}: probs differ (max|dp| {max_dp})")
+    if max_dp > PROB_ATOL or confident:
+        raise AssertionError(f"{label}: max|dp| {max_dp}, {confident} "
+                             "confident flips")
+    return max_dp, share
+
+
+def tuned_and_served(root, tmp, sweeps, default_mpix):
+    """Per forward: ``predict_model --tuned <its artifact>`` against the
+    winner's four flags given explicitly, and ``serve --once --tuned``
+    against ``predict_model --tuned``: bit for bit for the hand-kernel
+    forwards (K6, Q1 and Q2), within ``compare_served``'s gate for cuDNN
+    and K7; the rates beside the default geometry's."""
+    mpix = GRANULES * GRANULE_PX**2 / 1e6
+    names = [f"g{i}" for i in range(GRANULES)]
+    out = {}
+    for label, _cfg_flags, flags, serve_flags in ENTRY_FORWARDS:
+        sweep = sweeps[label]
+        ckpt = ["--checkpoint", sweep["checkpoint"]]
+        best = sweep["best"]
+        exact = label in ("use_pallas", "int8")
+        tuned_s, tuned = serve(root, "--tuned", sweep["artifact"], *ckpt,
+                               *flags)
+        explicit_s, explicit = serve(
+            root, "--tile", str(best["tile"]), "--overlap",
+            str(best["overlap"]), "--batch-tiles", str(best["batch_tiles"]),
+            "--batch-granules", str(best["granules"]), *ckpt, *flags)
+        tuned_dp, _ = same_probs(f"{label}: --tuned against explicit flags",
+                                 tuned, explicit, exact)
+        if label in default_mpix:
+            default = default_mpix[label]
+        else:
+            default_s, _ = serve(root, *ckpt, *flags)
+            default = mpix / default_s
+        serve_ckpt = (["--checkpoint", sweeps["plain"]["checkpoint"]]
+                      if label == "use_pallas" else ckpt)
+        out_dir = fresh_predictions(root)
+        rc, serve_s, launches = serve_once(root, "--tuned", sweep["artifact"],
+                                           *serve_ckpt, *serve_flags)
+        if rc != 0 or read_log(root, "served_granules.txt") != [
+                f"{n}.npz" for n in names]:
+            raise AssertionError(f"serve --once {label}: exit {rc}, log "
+                                 f"{read_log(root, 'served_granules.txt')}")
+        per_forward = expected_launches(label, sweep["cfg"])
+        forwards = -(-GRANULES // best["granules"]) * geometry_forwards(
+            tune_mod.Geometry(best["tile"], best["overlap"],
+                              best["batch_tiles"], best["granules"]))[1]
+        want = {k: v * forwards for k, v in per_forward.items()}
+        if launches != want:
+            raise AssertionError(f"serve {label}: launches {launches}, not "
+                                 f"{want}")
+        served_dp, flips = same_probs(f"serve {label} against predict_model",
+                                      read_split(out_dir), tuned, exact)
+        out[label] = {"tuned_s": tuned_s, "explicit_s": explicit_s,
+                      "tuned_mpix_s": mpix / tuned_s,
+                      "explicit_mpix_s": mpix / explicit_s,
+                      "default_mpix_s": default,
+                      "serve_s": serve_s, "serve_mpix_s": mpix / serve_s,
+                      "serve_launches": launches,
+                      "tuned_max_abs_dprobs": tuned_dp,
+                      "served_max_abs_dprobs": served_dp,
+                      "served_flip_share": flips}
+        print(f"{label}: predict_model --tuned ({best['tile']}/"
+              f"{best['overlap']}/{best['batch_tiles']} G={best['granules']})"
+              f" {mpix / tuned_s:.2f} MPix/s, explicit flags "
+              f"{mpix / explicit_s:.2f}, default geometry {default:.2f}; "
+              f"equal {'bit for bit' if exact else f'within the gate (max|dp| {tuned_dp:.3g})'}"
+              f"; serve --once --tuned {mpix / serve_s:.2f} MPix/s, launches "
+              f"{launches}, against predict_model max|dp| {served_dp:.3g}",
+              flush=True)
+    fresh_predictions(root)
+    return out
+
+
+def link_root(src_root, dst, names):
+    """A root whose maiac directory links ``names`` of ``src_root``'s and
+    whose checkpoint is ``src_root``'s."""
+    maiac = os.path.join(dst, "raw", "plume_identification", "maiac")
+    os.makedirs(maiac)
+    src = os.path.join(src_root, "raw", "plume_identification", "maiac")
+    for name in names:
+        os.link(os.path.join(src, f"{name}.npz"),
+                os.path.join(maiac, f"{name}.npz"))
+    shutil.copytree(os.path.join(src_root, "models"),
+                    os.path.join(dst, "models"))
+    return maiac
+
+
+def save_renamed(src_path, dst_path, name):
+    """The granule of ``src_path`` saved at ``dst_path`` under ``name``."""
+    g = load_granule(src_path)
+    save_granule(dst_path, Granule(g.layers, g.lat, g.lon, name=name))
+
+
+def serve_subprocess(root, log_path, *flags):
+    """``python -m plumekit_torch.cli serve`` in a child process, its output
+    in ``log_path``."""
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "plumekit_torch.cli", "serve", "--root", root,
+         *flags], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=log, stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def wait_for(path, proc, timeout):
+    deadline = time.time() + timeout
+    while not os.path.exists(path):
+        if proc.poll() is not None:
+            raise AssertionError(f"serve exited {proc.returncode} before "
+                                 f"{path} was written")
+        if time.time() > deadline:
+            raise AssertionError(f"{path} not written in {timeout} s")
+        time.sleep(0.01)
+    return time.time()
+
+
+def stop_process(proc, log):
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+    log.close()
+
+
+def serve_behaviour(root, tmp):
+    """``serve`` as a deployment meets it, on the plain forward over 2048²
+    granules: a second ``--once`` after a fifth granule lands serves only
+    it; a corrupt upload is quarantined and ``--once`` exits 1; an all-null
+    backlog under ``--int8`` serves and marks nothing; watch mode in a
+    child process receives granules one after the other (the seconds from
+    each arrival to its prediction on disk), then a backlog, and SIGTERM in
+    the middle of it exits 0 and leaves every granule served (prediction
+    and log line) or untouched, and no temporary."""
+    src = os.path.join(root, "raw", "plume_identification", "maiac")
+    names = [f"g{i}" for i in range(GRANULES)]
+    res = {}
+    entry = os.path.join(tmp, "entry_root")
+    maiac = link_root(root, entry, names)
+    rc, first_s, _ = serve_once(entry)
+    served = read_log(entry, "served_granules.txt")
+    if rc != 0 or served != [f"{n}.npz" for n in names]:
+        raise AssertionError(f"serve --once: exit {rc}, log {served}")
+    out = os.path.join(entry, "processed", "predictions")
+    before = {n: os.stat(os.path.join(out, f"{n}_pred.npz")).st_mtime_ns
+              for n in names}
+    save_renamed(os.path.join(src, "g0.npz"), os.path.join(maiac, "g4.npz"),
+                 "g4")
+    rc, second_s, _ = serve_once(entry)
+    after = {n: os.stat(os.path.join(out, f"{n}_pred.npz")).st_mtime_ns
+             for n in names}
+    if (rc != 0 or read_log(entry, "served_granules.txt") != served
+            + ["g4.npz"] or after != before
+            or not os.path.exists(os.path.join(out, "g4_pred.npz"))):
+        raise AssertionError("the second serve --once did not serve only the "
+                             "new granule")
+    with open(os.path.join(maiac, "a_corrupt.npz"), "wb") as f:
+        f.write(b"a truncated upload")
+    rc, _s, _ = serve_once(entry)
+    if rc != 1 or read_log(entry, "failed_granules.txt") != [
+            "a_corrupt.npz"] or len(read_log(entry, "served_granules.txt")) \
+            != GRANULES + 1:
+        raise AssertionError(f"corrupt upload: exit {rc}, failed "
+                             f"{read_log(entry, 'failed_granules.txt')}")
+    res["resume_s"] = [first_s, second_s]
+
+    null_root = os.path.join(tmp, "null_root")
+    null_maiac = link_root(root, null_root, [])
+    g = load_granule(os.path.join(src, "g0.npz"))
+    save_granule(os.path.join(null_maiac, "ocean.npz"), Granule(
+        {k: np.zeros_like(v) for k, v in g.layers.items()}, g.lat, g.lon,
+        name="ocean"))
+    rc, _s, launches = serve_once(null_root, "--int8")
+    null_out = os.path.join(null_root, "processed", "predictions")
+    if rc != 0 or [f for f in os.listdir(null_out) if f.endswith(".npz")] \
+            or read_log(null_root, "served_granules.txt") \
+            or read_log(null_root, "failed_granules.txt") or launches["q1"]:
+        raise AssertionError(f"all-null backlog under --int8: exit {rc}, "
+                             f"{os.listdir(null_out)}, launches {launches}")
+
+    # one serve child process in watch mode: one granule in its backlog,
+    # then WATCH_DROPS arrivals one after the other (the seconds from each
+    # arrival to its prediction on disk), then a backlog of
+    # SIGTERM_BACKLOG at once and SIGTERM after its first prediction. The
+    # arrivals are written beforehand, side by side (zlib releases the
+    # interpreter lock), and moved in when they arrive
+    watch = os.path.join(tmp, "watch_root")
+    watch_maiac = link_root(root, watch, ["g0"])
+    staging = os.path.join(tmp, "watch_staging")
+    os.makedirs(staging)
+    drops = [f"w{i}" for i in range(1, WATCH_DROPS + 1)]
+    backlog = [f"s{i}" for i in range(SIGTERM_BACKLOG)]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(lambda i_name: save_renamed(
+            os.path.join(src, f"g{i_name[0] % GRANULES}.npz"),
+            os.path.join(staging, f"{i_name[1]}.npz"), i_name[1]),
+            enumerate(drops + backlog, start=1)))
+
+    def arrive(name):
+        staged = os.path.join(staging, f"{name}.npz")
+        os.utime(staged)                # the upload ends now
+        os.replace(staged, os.path.join(watch_maiac, f"{name}.npz"))
+        return time.time()
+
+    out = os.path.join(watch, "processed", "predictions")
+    proc, log = serve_subprocess(
+        watch, os.path.join(tmp, "watch.log"), "--poll", str(WATCH_POLL),
+        "--settle", str(WATCH_SETTLE), "--idle-exit", str(WATCH_IDLE_EXIT))
+    latencies = []
+    try:
+        t_start = time.time()
+        wait_for(os.path.join(out, "g0_pred.npz"), proc,
+                 SUBPROCESS_TIMEOUT_S)
+        res["watch_first_s"] = time.time() - t_start
+        for name in drops:
+            arrived = arrive(name)
+            latencies.append(wait_for(os.path.join(out, f"{name}_pred.npz"),
+                                      proc, 60) - arrived)
+        for name in backlog:
+            arrive(name)
+        wait_for(os.path.join(out, f"{backlog[0]}_pred.npz"), proc, 60)
+        proc.send_signal(signal.SIGTERM)
+        t_sig = time.time()
+        rc = proc.wait(timeout=60)
+        res["sigterm_exit_s"] = time.time() - t_sig
+    finally:
+        stop_process(proc, log)
+    logged = read_log(watch, "served_granules.txt")
+    written = {f[:-len("_pred.npz")] for f in os.listdir(out)
+               if f.endswith("_pred.npz")}
+    temporaries = [f for f in os.listdir(out) if ".tmp" in f]
+    untouched = [n for n in backlog if n not in written
+                 and f"{n}.npz" not in logged]
+    if (rc != 0 or temporaries or len(set(logged)) != len(logged)
+            or logged[:1 + WATCH_DROPS] != [f"{n}.npz"
+                                            for n in ["g0"] + drops]
+            or {f"{n}.npz" for n in written} != set(logged)
+            or not untouched):
+        raise AssertionError(f"watch mode and SIGTERM: exit {rc}, written "
+                             f"{sorted(written)}, logged {logged}, "
+                             f"temporaries {temporaries}")
+    res["watch_latency_s"] = latencies
+    res["watch_median_latency_s"] = float(np.median(latencies))
+    written_backlog = len(written) - 1 - WATCH_DROPS
+    res["sigterm"] = {"served": written_backlog, "untouched": len(untouched)}
+    print(f"serve on {GRANULE_PX}^2 granules: --once {first_s:.2f} s for "
+          f"{GRANULES}, then {second_s:.2f} s serving only the fifth; a "
+          "corrupt upload quarantined (exit 1); an all-null backlog under "
+          "--int8 served and marked nothing; watch mode (poll "
+          f"{WATCH_POLL}, settle {WATCH_SETTLE}) first granule "
+          f"{res['watch_first_s']:.2f} s after the start, arrival to "
+          "prediction " + ", ".join(f"{s:.3f}" for s in latencies)
+          + f" s (median {res['watch_median_latency_s']:.3f}); SIGTERM after "
+          f"the first of {SIGTERM_BACKLOG}: exit 0 in "
+          f"{res['sigterm_exit_s']:.2f} s, {written_backlog} served, "
+          f"{len(untouched)} untouched, no temporary", flush=True)
+    return res
+
+
+def entry_phase(model, rng, root, tmp, default_mpix):
+    """The serving entry points: the kernels at the tuner's tiles, ``tune``
+    of four forwards, ``predict_model --tuned``, ``serve``."""
+    t0 = time.perf_counter()
+    tiles = check_tuner_tiles(model, rng)
+    t_tiles = time.perf_counter() - t0
+    ckpt = os.path.join(root, "models", "checkpoints")
+    sweeps = {}
+    for label, cfg_flags, flags, _serve_flags in ENTRY_FORWARDS:
+        path = (flagged_copy(ckpt, os.path.join(tmp, f"{label}_ckpt"),
+                             **cfg_flags) if cfg_flags else ckpt)
+        sweeps[label] = tune_sweep(
+            label, path, flags, os.path.join(tmp, f"tune_{label}",
+                                             "tuned_geometry.json"),
+            load_model_config(path))
+        sweeps[label]["checkpoint"] = path
+        sweeps[label]["cfg"] = load_model_config(path)
+    t_tune = time.perf_counter() - t0 - t_tiles
+    served = tuned_and_served(root, tmp, sweeps, default_mpix)
+    t_served = time.perf_counter() - t0 - t_tiles - t_tune
+    behaviour = serve_behaviour(root, tmp)
+    parts = {"tiles": t_tiles, "tune": t_tune, "tuned_and_served": t_served,
+             "serve_behaviour": time.perf_counter() - t0 - t_tiles - t_tune
+             - t_served}
+    for sweep in sweeps.values():
+        sweep["cfg"] = dataclasses.asdict(sweep["cfg"])
+    res = {"tiles": tiles, "sweeps": sweeps, "served": served,
+           "behaviour": behaviour, "seconds_by_part": parts,
+           "seconds": sum(parts.values())}
+    print(f"serving entry points phase {res['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()) + ")", flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -3222,6 +3868,14 @@ def main() -> int:
                    "tta": stream_tta(model, root,
                                      mega_served["checkpoint"])}
         streams_s = time.perf_counter() - t_streams
+        # the serving entry points: K6, K7, Q1, Q2 at the tuner's tiles,
+        # tune of four forwards, predict_model --tuned, serve (its own
+        # random stream, so that the later phases draw what they drew)
+        torch.cuda.empty_cache()
+        entry = entry_phase(model, np.random.default_rng(SEED + 14), root,
+                            tmp, {"plain": served["plain_mpix_s"][0],
+                                  "use_pallas": served["fused_mpix_s"][0],
+                                  "int8": int8_served["int8_mpix_s"][0]})
     del model
     torch.cuda.empty_cache()
 
@@ -3483,6 +4137,21 @@ def main() -> int:
         "unetpp_at": f"the 10 upsamples of one int8 forward of {PP_CFG}, "
                      f"{INT8_BATCH} tiles of {ICFG.tile_size}x"
                      f"{ICFG.tile_size}"}]
+    # the serving entry points: launches of tune's sweep and of serve
+    # --once for the kernel's forward, and the kernel at the tuner's tiles
+    entry_of = {"fused_double_conv3x3_bn_relu": ("k6", "use_pallas"),
+                "mega_forward": ("k7", "use_mega"),
+                "int8_conv3x3": ("q1", "int8"),
+                "int8_upsample2x2": ("q2", "int8")}
+    for k in kernels:
+        if k["name"] in entry_of:
+            key, label = entry_of[k["name"]]
+            k["tune_launches"] = entry["sweeps"][label]["launches"][key]
+            k["serve_launches"] = \
+                entry["served"][label]["serve_launches"][key]
+            k["at_tuner_tiles"] = {
+                t: {"batch": v["summary"]["batch"], **v["summary"][key]}
+                for t, v in entry["tiles"].items()}
     copy_rate = measured_copy_rate()
     for k in kernels:
         k["bound_at_copy_rate_ms"] = k["bound_ms"] * (
@@ -3511,7 +4180,7 @@ def main() -> int:
                    "build_features_gaussian": gaussian_features,
                    "training": training, "curation": curation,
                    "streams": streams,
-                   "unetpp": unetpp,
+                   "unetpp": unetpp, "entry_points": entry,
                    "copy_rate_gb_per_s": copy_rate / 1e9,
                    "seconds": time.perf_counter() - t_start,
                    "kernels": kernels},

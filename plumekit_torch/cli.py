@@ -1,6 +1,7 @@
 """Command-line entry points of the port: ``make_dataset``,
 ``build_features``, ``identify``, ``select``, ``prepare_model_data``,
-``train_model``, ``predict_model`` and ``evaluate_model``.
+``train_model``, ``predict_model``, ``serve``, ``tune`` and
+``evaluate_model``.
 
 Usage: ``plumekit-torch <command> --root R ...`` or
 ``python -m plumekit_torch.cli <command> ...``. ``build_features`` and
@@ -45,7 +46,14 @@ Usage: ``plumekit-torch <command> --root R ...`` or
   uploads uint16 channels and ``--quantize-output`` reads back uint8
   probabilities. Granules decode on a thread pool and upload on a stager
   thread ahead of the forwards, as in the JAX package; ``build_features``
-  decodes on the same pool;
+  decodes on the same pool; ``--tuned`` serves the geometry that ``tune``
+  measured;
+* ``serve`` watches the granule directory and writes the same prediction
+  files for each arrival, with ``served_granules.txt`` and the quarantine
+  ``failed_granules.txt`` beside them, as ``plumekit serve`` does;
+* ``tune`` times candidate serving geometries of the checkpoint's forward
+  on the device and writes the ranked table to
+  ``<root>/models/tuned_geometry.json``;
 * ``evaluate_model`` scores the checkpoint (or ``--predictions``) against
   the model-ready samples: ``processed/evaluation.csv``, plume-level
   counts with ``--objects`` (connected components through the K2 kernel on
@@ -80,7 +88,6 @@ THRESHOLD_BASENAME = "threshold.json"
 UNPORTED_FLAGS = {
     "exported": "exported serving artifacts",
     "mesh_devices": "multi-card serving",
-    "tuned": "serving geometry tuner",
     "plot": "prediction quicklooks",
 }
 
@@ -150,10 +157,72 @@ def _restore_model(args, device):
     return unet_cfg, model.to(device).eval()
 
 
+def _module_forward(model, x):
+    """The checkpoint's own forward: cuDNN, K6 under ``use_pallas``, K7
+    under ``use_mega`` (the module routes inside)."""
+    return model(x)
+
+
+def _refuse_unported(args) -> bool:
+    """Log and return True when a serving flag of the JAX CLI that the port
+    does not serve yet is given."""
+    for flag, item in UNPORTED_FLAGS.items():
+        if getattr(args, flag):
+            logger.error("--%s is not ported to plumekit_torch yet "
+                         "(ROADMAP.md, queue A: '%s')",
+                         flag.replace("_", "-"), item)
+            return True
+    return False
+
+
+def _apply_tuned(args, unet_cfg=None) -> None:
+    """Resolve ``--tuned`` (bare: ``<root>/models/tuned_geometry.json``)
+    into ``--tile``, ``--overlap``, ``--batch-tiles`` and
+    ``--batch-granules``, overriding them: the artifact is the measurement
+    those flags guess at. Warns, and still applies, when the artifact was
+    measured for another forward or architecture."""
+    from plumekit_torch.infer.tune import TUNED_BASENAME, load_tuned
+
+    tpath = args.tuned
+    if tpath == "auto":
+        tpath = os.path.join(args.root, PathsConfig().model_dir,
+                             TUNED_BASENAME)
+    try:
+        payload = load_tuned(tpath)
+    except FileNotFoundError:
+        raise _CliError(
+            f"--tuned: {tpath} not found — run `plumekit tune` first")
+    except (OSError, ValueError) as e:
+        raise _CliError(f"--tuned: {e}")
+    for field, want, label in (
+            ("int8", bool(getattr(args, "int8", False)), "forward"),
+            ("arch", getattr(unet_cfg, "arch", None), "architecture")):
+        have = payload.get(field)
+        if have is not None and want is not None and have != want:
+            logger.warning(
+                "--tuned: artifact was measured with %s=%s but serving "
+                "%s=%s — the optimum is %s-dependent, re-run `plumekit "
+                "tune` for this configuration", field, have, field, want,
+                label)
+    best = payload["best"]
+    args.tile, args.overlap = best["tile"], best["overlap"]
+    args.batch_tiles = best["batch_tiles"]
+    args.batch_granules = best["granules"]
+    logger.info(
+        "tuned geometry from %s (measured %s on %s): tile %d/%d, "
+        "batch_tiles %d, G=%d — %.1f MPix/s",
+        tpath, payload.get("measured_utc"), payload.get("device_kind"),
+        args.tile, args.overlap, args.batch_tiles, args.batch_granules,
+        best.get("mpix_s") or float("nan"))
+
+
 def _build_serving(args, unet_cfg, threshold: float):
-    """The multi-granule inference program of the chosen forward."""
+    """The multi-granule inference program of the chosen forward, at the
+    ``--tuned`` geometry when that is given."""
     from plumekit_torch.infer import make_multi_granule_infer
 
+    if args.tuned:
+        _apply_tuned(args, unet_cfg)
     if args.fused and args.int8:
         raise _CliError("--fused and --int8 are mutually exclusive forward "
                         "paths")
@@ -178,8 +247,7 @@ def _build_serving(args, unet_cfg, threshold: float):
         except ValueError as e:
             raise _CliError(f"--int8: {e}")
     else:
-        def apply_fn(model, x):
-            return model(x)
+        apply_fn = _module_forward
     if args.tta:
         # the 8 D4 views in one forward at 8x the batch, around any forward
         from plumekit_torch.infer.tta import make_tta_apply
@@ -214,31 +282,47 @@ def _resolve_threshold(args) -> float:
     return 0.5
 
 
-def _int8_quantize_from_paths(granule_paths, tile, unet_cfg, model):
+def _int8_quantize_from_paths(granule_paths, tile, unet_cfg, model,
+                              known_null=None, on_decode_error=None):
     """Calibrate the int8 forward on the first granule with signal among
-    the first ``INT8_CALIBRATION_CANDIDATES`` of ``granule_paths``, on a 3×3
-    grid of tiles (the fp32 replay keeps full-resolution planes of every
-    level, so not on the whole granule), as ``plumekit predict_model
-    --int8`` does.
+    the first ``INT8_CALIBRATION_CANDIDATES`` of ``granule_paths`` not in
+    ``known_null``, on a 3×3 grid of tiles (the fp32 replay keeps
+    full-resolution planes of every level, so not on the whole granule), as
+    ``plumekit predict_model --int8`` and ``serve --int8`` do.
 
     Returns ``(qvars or None, predecoded)``: every decode made here is
     handed back for the stream, so that no granule is decoded twice; None
     when none of the candidates has signal. An all-null granule (every
     activation scale would collapse to about 0 and clip all later signal)
-    is skipped with a warning; it is still served once calibration
-    succeeds."""
+    is skipped with a warning and added to ``known_null`` (a set, updated in
+    place when given), so that a long-running caller does not decode it
+    again every cycle; it is still served once calibration succeeds. A
+    candidate whose decode raises is fatal unless ``on_decode_error(path)``
+    is given, which then takes the granule (``serve`` quarantines it) and
+    the search goes on."""
     from plumekit_torch.infer import streaming
     from plumekit_torch.models.quantized_forward import quantize_unet
 
+    candidates = [p for p in granule_paths
+                  if known_null is None
+                  or os.path.basename(p) not in known_null]
     predecoded, chosen, calib = {}, None, None
-    for path in granule_paths[:INT8_CALIBRATION_CANDIDATES]:
-        cand = streaming.decode_granule_channels(path, unet_cfg.depth)
+    for path in candidates[:INT8_CALIBRATION_CANDIDATES]:
+        try:
+            cand = streaming.decode_granule_channels(path, unet_cfg.depth)
+        except Exception:
+            if on_decode_error is None:
+                raise
+            on_decode_error(path)
+            continue
         predecoded[path] = cand
         if float(np.abs(cand[1]).max()) > 1e-3:
             chosen, calib = path, cand[1]
             break
         logger.warning("int8: %s is all-null — not usable for calibration, "
                        "trying the next granule", os.path.basename(path))
+        if known_null is not None:
+            known_null.add(os.path.basename(path))
     if chosen is None:
         return None, predecoded
     h, w = calib.shape[:2]
@@ -299,12 +383,8 @@ def cmd_predict_model(args) -> int:
     from plumekit_torch.infer.streaming import stream_inference
     from plumekit_torch.io.granule import GRANULE_EXTENSIONS
 
-    for flag, item in UNPORTED_FLAGS.items():
-        if getattr(args, flag):
-            logger.error("--%s is not ported to plumekit_torch yet "
-                         "(ROADMAP.md, queue A: '%s')",
-                         flag.replace("_", "-"), item)
-            return 1
+    if _refuse_unported(args):
+        return 1
     paths = PathsConfig(root=args.root)
     threshold = _resolve_threshold(args)
     try:
@@ -344,6 +424,245 @@ def cmd_predict_model(args) -> int:
                 quantize=args.quantize, batch_granules=args.batch_granules,
                 predecoded=predecoded, quantize_output=args.quantize_output):
             _write_prediction(out_dir, name, probs, threshold=threshold)
+    return 0
+
+
+def cmd_tune(args) -> int:
+    """Time candidate serving geometries on the device and write the ranked
+    table (``plumekit tune``); ``predict_model --tuned`` and ``serve
+    --tuned`` then serve its winner. The checkpoint's own forward is timed
+    (cuDNN; K6 under ``use_pallas``; K7 under ``use_mega``), or with
+    ``--int8`` the int8 forward (Q1, Q2), on untrained weights when there
+    is no checkpoint: the rate does not depend on the weights' values."""
+    from plumekit_torch.infer.tune import (DEFAULT_CANDIDATES, TUNED_BASENAME,
+                                           parse_candidates, save_tuned,
+                                           tune_geometry)
+
+    try:
+        granules = [int(x) for x in
+                    args.granules_per_program.split(",") if x.strip()]
+        geoms = parse_candidates(args.candidates or DEFAULT_CANDIDATES,
+                                 granules)
+    except ValueError as e:
+        logger.error("tune: %s", e)
+        return 1
+    try:
+        device = resolve_device(args.device)
+        unet_cfg, model = _restore_model(args, device)
+    except (RuntimeError, _CliError) as e:
+        logger.error("%s", e)
+        return 1
+    apply_fn, variables = _module_forward, model
+    if args.int8:
+        from plumekit_torch.models.quantized_forward import (
+            make_quantized_apply, quantize_unet)
+
+        try:
+            apply_fn = make_quantized_apply(unet_cfg)
+        except ValueError as e:
+            logger.error("--int8: %s", e)
+            return 1
+        # random calibration tiles: the scales' values do not change the
+        # timed program's work; serving calibrates on a granule
+        calib = np.random.default_rng(1).random(
+            (4, args.tile_calib, args.tile_calib, unet_cfg.in_channels),
+            np.float32)
+        variables = quantize_unet(model, unet_cfg, calib)
+    try:
+        payload = tune_geometry(
+            apply_fn, variables, unet_cfg.in_channels, args.granule, geoms,
+            repeats=args.repeats, device=device,
+            progress=lambda msg: logger.info("tune: %s", msg))
+    except RuntimeError:
+        # every candidate refused, or a kernel or CUDA fault: no ranking
+        logger.exception("tune: no geometry ranked")
+        return 1
+    payload["int8"] = bool(args.int8)
+    payload["arch"] = unet_cfg.arch
+    out = args.out or os.path.join(args.root, PathsConfig().model_dir,
+                                   TUNED_BASENAME)
+    save_tuned(out, payload)
+    logger.info("tuned geometry written to %s", out)
+    print(json.dumps({"best": payload["best"],
+                      "best_blended": payload["best_blended"], "out": out}))
+    return 0
+
+
+class _DeviceFault(Exception):
+    """A kernel's launch error or a CUDA error other than out-of-memory
+    while ``serve`` ran a granule: no granule's fault."""
+
+
+def cmd_serve(args) -> int:
+    """Continuous serving (``plumekit serve``, :mod:`plumekit_torch.infer.
+    serve`): the program is built once; each cycle streams the granules not
+    yet in ``served_granules.txt`` or ``failed_granules.txt``, writes each
+    prediction atomically and then marks it. A granule whose own decode or
+    forward fails is quarantined in ``failed_granules.txt``; a kernel's
+    launch error or a CUDA error other than out-of-memory is no granule's
+    fault, so serve logs it and exits 1 instead. SIGINT and SIGTERM stop
+    after the current granule."""
+    import signal
+    import threading
+
+    from plumekit_torch.infer.serve import UnionLog, serve_loop
+    from plumekit_torch.infer.streaming import (decode_granule_channels,
+                                                stream_inference)
+    from plumekit_torch.io.granule import GRANULE_EXTENSIONS
+    from plumekit_torch.train.checkpoint import WorkLog
+
+    if _refuse_unported(args):
+        return 1
+    paths = PathsConfig(root=args.root)
+    try:
+        device = resolve_device(args.device)
+        unet_cfg, model = _restore_model(args, device)
+        infer = _build_serving(args, unet_cfg, _resolve_threshold(args))
+    except (RuntimeError, _CliError) as e:
+        logger.error("%s", e)
+        return 1
+
+    out_dir = paths.ensure("predictions_dir")
+    maiac_dir = paths.ensure("maiac_dir")
+    _sweep_stale_tmps(out_dir)
+    worklog = WorkLog(os.path.join(out_dir, "served_granules.txt"))
+    # a granule whose decode or forward fails on its own (a corrupt upload
+    # that finished) is quarantined so that it cannot crash-loop the
+    # daemon; delete its line to retry it
+    failed_log = WorkLog(os.path.join(out_dir, "failed_granules.txt"))
+    stop = threading.Event()
+
+    def on_signal(signum, _frame):
+        logger.info("serve: received signal %d — finishing the current "
+                    "granule, then exiting", signum)
+        stop.set()
+
+    previous = {}
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            previous[sig] = signal.signal(sig, on_signal)
+        except ValueError:
+            pass  # not the main thread
+
+    # int8: calibrated lazily on the first granule with signal; until then
+    # every cycle defers its batch. known_null keeps all-null candidates
+    # from being decoded again every poll
+    state = {"variables": None if args.int8 else model, "known_null": set(),
+             "warned": False, "failures": 0, "fault": False}
+
+    def quarantine(gpath):
+        failed_log.mark(os.path.basename(gpath))
+        state["failures"] += 1
+        logger.exception("serve: %s failed — quarantined in "
+                         "failed_granules.txt (delete its line to retry)",
+                         os.path.basename(gpath))
+
+    def serve_paths(paths_list, predecoded, served_acc):
+        """Stream ``paths_list``, writing and marking each granule as it
+        completes into ``served_acc``, so that the granules served before a
+        failure still count."""
+        path_iter = iter(paths_list)
+        # per batch: a recalibrated threshold.json applies from the next scan
+        threshold = _resolve_threshold(args)
+        with torch.inference_mode():
+            for name, probs in stream_inference(
+                    paths_list, infer, state["variables"], unet_cfg.depth,
+                    device, quantize=args.quantize,
+                    batch_granules=args.batch_granules, predecoded=predecoded,
+                    quantize_output=args.quantize_output):
+                gpath = next(path_iter)    # the stream keeps the order
+                stem = os.path.splitext(os.path.basename(gpath))[0]
+                if stem != name:
+                    logger.warning("serve: granule name %r differs from file "
+                                   "stem %r — worklog keys by filename",
+                                   name, stem)
+                _write_prediction(out_dir, name, probs, threshold=threshold)
+                worklog.mark(os.path.basename(gpath))
+                served_acc.append(os.path.basename(gpath))
+                if stop.is_set():
+                    break  # the rest stays pending for the restart
+
+    def serve_alone(gpath, served_acc):
+        """One granule after a failed batched pass: quarantined when its own
+        decode or forward fails (a refused shape, out of memory);
+        :class:`_DeviceFault` for a RuntimeError of the forward."""
+        try:
+            item = decode_granule_channels(gpath, unet_cfg.depth)
+        except Exception:
+            quarantine(gpath)
+            return
+        try:
+            serve_paths([gpath], {gpath: item}, served_acc)
+        except torch.OutOfMemoryError:
+            quarantine(gpath)
+        except RuntimeError as e:
+            raise _DeviceFault(f"{os.path.basename(gpath)}: {e}") from e
+        except Exception:
+            quarantine(gpath)
+
+    def serve_batch(pending, served_acc):
+        predecoded = None
+        if state["variables"] is None:
+            try:
+                qvars, predecoded = _int8_quantize_from_paths(
+                    pending, args.tile, unet_cfg, model,
+                    known_null=state["known_null"],
+                    on_decode_error=quarantine)
+            except torch.OutOfMemoryError:
+                raise
+            except RuntimeError as e:
+                raise _DeviceFault(f"int8 calibration: {e}") from e
+            if qvars is None:
+                if not state["warned"]:
+                    logger.warning(
+                        "int8: no granule with signal yet among %d pending "
+                        "— deferring until a calibratable granule arrives",
+                        len(pending))
+                    state["warned"] = True
+                return
+            state["variables"] = qvars
+        try:
+            serve_paths(pending, predecoded, served_acc)
+            return
+        except Exception:
+            logger.exception("serve: batched pass failed — isolating per "
+                             "granule to locate the poison granule")
+        # a granule that fails alone is the culprit; what is marked already
+        # (served or quarantined) is skipped
+        done = set(served_acc) | failed_log.items()
+        for gpath in pending:
+            if os.path.basename(gpath) in done or stop.is_set():
+                continue
+            serve_alone(gpath, served_acc)
+
+    def process_batch(pending):
+        served = []
+        try:
+            serve_batch(pending, served)
+        except _DeviceFault:
+            logger.exception("serve: a kernel or CUDA fault is no granule's "
+                             "fault — nothing quarantined, stopping")
+            state["fault"] = True
+            stop.set()
+        return len(served)
+
+    try:
+        stats = serve_loop(
+            maiac_dir, UnionLog(worklog, failed_log), process_batch,
+            GRANULE_EXTENSIONS, poll_s=args.poll, once=args.once,
+            idle_exit=args.idle_exit, max_cycles=args.max_cycles,
+            settle_s=args.settle, stop_event=stop)
+    finally:
+        for sig, handler in previous.items():
+            if handler is not None:
+                signal.signal(sig, handler)
+    logger.info("serve: exit (%s) after %d cycle(s), %d granule(s) served, "
+                "%d quarantined", stats.stopped_by, stats.cycles,
+                stats.served, state["failures"])
+    if state["fault"]:
+        return 1
+    if args.once and state["failures"]:
+        return 1  # batch semantics: a --once invocation reports failures
     return 0
 
 
@@ -718,7 +1037,7 @@ def _evaluation_infer(args, unet_cfg, device):
     from plumekit_torch.models.quantized_forward import full_fp32
 
     sliding = make_sliding_infer(
-        lambda model, x: model(x),
+        _module_forward,
         InferConfig(tile_size=args.tile, overlap=args.overlap,
                     batch_tiles=args.batch_tiles),
         channels=unet_cfg.in_channels)
@@ -902,7 +1221,11 @@ def _add_serving_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mesh-devices", type=int, default=0, metavar="D",
                    help="multi-card serving" + unported)
     p.add_argument("--tuned", nargs="?", const="auto", default=None,
-                   metavar="JSON", help="tuned serving geometry" + unported)
+                   metavar="JSON",
+                   help="serve the geometry measured by `tune` (bare flag "
+                        "reads <root>/models/tuned_geometry.json); "
+                        "overrides --tile/--overlap/--batch-tiles/"
+                        "--batch-granules")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -979,6 +1302,61 @@ def build_parser() -> argparse.ArgumentParser:
     pr = sub.add_parser("predict_model", help="sliding-window inference")
     _add_serving_args(pr)
     pr.set_defaults(fn=cmd_predict_model)
+
+    sv = sub.add_parser("serve",
+                        help="continuous serving: watch the granule dir, "
+                             "predict new arrivals, resume-idempotent")
+    _add_serving_args(sv)
+    sv.add_argument("--poll", type=float, default=10.0,
+                    help="seconds between directory scans")
+    sv.add_argument("--once", action="store_true",
+                    help="serve the current backlog and exit (one scan)")
+    sv.add_argument("--idle-exit", type=int, default=0,
+                    help="exit after N consecutive empty scans (0 = run "
+                         "until signalled)")
+    sv.add_argument("--max-cycles", type=int, default=0,
+                    help="hard bound on scan cycles (0 = unbounded)")
+    sv.add_argument("--settle", type=float, default=2.0,
+                    help="skip files whose mtime is younger than this "
+                         "(still-uploading guard)")
+    sv.set_defaults(fn=cmd_serve)
+
+    tn = sub.add_parser(
+        "tune",
+        help="time candidate serving geometries (tile/overlap/batch_tiles "
+             "x granules per program) on the device and write the ranked "
+             "table for predict_model/serve --tuned")
+    tn.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),
+                    help="workspace root")
+    tn.add_argument("--device", default="cuda",
+                    help="torch device to time on (default: cuda)")
+    tn.add_argument("--checkpoint", default=None,
+                    help="time this checkpoint's forward (default: "
+                         "<root>/models/checkpoints, else untrained default "
+                         "weights: the rate does not depend on their "
+                         "values)")
+    tn.add_argument("--int8", action="store_true",
+                    help="time the int8 quantized forward")
+    tn.add_argument("--prune-level", type=int, default=None,
+                    help="time a deep-supervised UNet++ checkpoint pruned "
+                         "at fusion level L")
+    tn.add_argument("--granule", type=int, default=2048,
+                    help="square granule size to tune at: the production "
+                         "granule's (the optimum depends on it)")
+    tn.add_argument("--granules-per-program", default="1,2,4",
+                    help="comma list of G values to sweep (granules per "
+                         "program)")
+    tn.add_argument("--candidates", default=None,
+                    help="comma list of tile/overlap[/batch_tiles] "
+                         "candidates (default: the JAX package's grid)")
+    tn.add_argument("--repeats", type=int, default=3,
+                    help="timed calls per candidate, after one warm-up call")
+    tn.add_argument("--tile-calib", type=int, default=288,
+                    help="int8 calibration tile size (structure only)")
+    tn.add_argument("--out", default=None,
+                    help="artifact path (default <root>/models/"
+                         "tuned_geometry.json)")
+    tn.set_defaults(fn=cmd_tune)
 
     bf = sub.add_parser("build_features",
                         help="a fire-driven detector over every granule → "

@@ -24,6 +24,7 @@ import numpy as np
 
 from plumekit_torch.config import UNetConfig
 from plumekit_torch.experiments import scalar_gather_probe
+from plumekit_torch.experiments.conv_kernel_times import block_shapes
 from plumekit_torch.models import build_model
 from plumekit_torch.models.fused_forward import blocks_of, make_fused_apply
 from plumekit_torch.models.kernels import conv_tiles, fused_conv, unet_mega
@@ -905,3 +906,80 @@ def test_tta_over_k6_launches_it_once_per_forward(card):
     # the views' own forwards group the tiles otherwise: two bf16 steps
     assert float((got - want).abs().max()) <= BF16_ATOL
     assert float((got - plain).abs().max()) <= 5e-2
+
+
+# --------------------------- K6, K7, Q1, Q2 at the serving tuner's new tiles
+
+TUNER_TILES = [256, 384, 512]     # the default grid's tiles besides 288
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", TUNER_TILES)
+def test_double_conv_kernel_at_the_tuners_tiles(card, tile):
+    """K6 at the nine block shapes of UNetConfig() at the tuner's 256²,
+    384² and 512² tiles, two tiles a batch, within two bf16 steps."""
+    for cin, cmid, cout, h in block_shapes(UNetConfig(), tile):
+        arrays = [torch.from_numpy(a).to(card).to(torch.bfloat16) for a in
+                  _he_scaled(double_conv_case(h, (2, h, h, cin), cmid, cout))]
+        before = fused_conv.LAUNCHES
+        got = fused_conv.fused_double_conv3x3_bn_relu(*arrays)
+        torch.cuda.synchronize()
+        assert fused_conv.LAUNCHES == before + 1
+        assert got.shape == (2, h, h, cout)
+        assert _within_two_bf16_steps(
+            got, fused_conv.double_conv3x3_bn_relu_ref(*arrays)), (cin, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", TUNER_TILES)
+def test_mega_kernel_at_the_tuners_tiles(card, tile):
+    """K7's forward of UNetConfig() over two tiles of the tuner's sizes
+    against its plain version: one launch, 2% of the largest logit,
+    correlation above 0.999, the head reading fp32."""
+    cfg = UNetConfig()
+    model, x = mega_case(cfg, (2, tile, tile, 2), tile, card)
+    apply = unet_mega.make_mega_apply(cfg)
+    before = unet_mega.LAUNCHES
+    got = apply(model, x)
+    torch.cuda.synchronize()
+    assert unet_mega.LAUNCHES == before + 1
+    weights = unet_mega.weights_of(model, torch.bfloat16, x.device)
+    ref = unet_mega.mega_forward_ref(weights.folded, x)
+    assert got.shape == ref.shape == (2, tile, tile, 1)
+    g, r = got.cpu().numpy().ravel(), ref.cpu().numpy().ravel()
+    assert np.isfinite(g).all()
+    assert np.abs(g - r).max() <= LOGIT_RTOL * np.abs(r).max()
+    assert np.corrcoef(g, r)[0, 1] > LOGIT_MIN_CORR
+    rounding = unet_mega.mega_forward_ref(weights.folded, x,
+                                          head_in_f32=False) - ref
+    share = float(((got - ref) * rounding).sum() / (rounding * rounding).sum())
+    assert abs(share) <= HEAD_ROUNDING_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", TUNER_TILES)
+def test_int8_kernels_at_the_tuners_tiles(card, tile):
+    """Q1 at the 18 convs and Q2 at the 4 upsamples of the int8 forward of
+    UNetConfig() at the tuner's tiles, two tiles a batch: equal bit for bit
+    to their plain versions, one launch each."""
+    from plumekit_torch.experiments.int8_conv_times import (
+        case_inputs, conv_cases, upsample_cases, upsample_inputs)
+    from plumekit_torch.models.kernels import int8_conv, int8_upsample
+
+    rng = np.random.default_rng(tile)
+    for case in conv_cases(UNetConfig(), tile):
+        x, w, a, b, scale, skip = case_inputs(rng, case, 2, card)
+        before = int8_conv.LAUNCHES
+        got = int8_conv.int8_conv3x3(x, w, a, b, scale, skip)
+        torch.cuda.synchronize()
+        assert int8_conv.LAUNCHES == before + 1
+        assert torch.equal(got, int8_conv.int8_conv3x3_ref(x, w, a, b, scale,
+                                                           skip)), case
+    for case in upsample_cases(UNetConfig(), tile):
+        x, kq, sw, bias, scale = upsample_inputs(rng, case, 2, card)
+        before = int8_upsample.LAUNCHES
+        got = int8_upsample.int8_upsample2x2(x, kq, sw, bias, scale)
+        torch.cuda.synchronize()
+        assert int8_upsample.LAUNCHES == before + 1
+        assert torch.equal(got, int8_upsample.int8_upsample2x2_ref(
+            x, kq, sw, bias, scale)), case
