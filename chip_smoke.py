@@ -1,7 +1,7 @@
 """Smoke run of plumekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
-``nvcc`` per source, all at once) and drives the port's nine paths:
+``nvcc`` per source, all at once) and drives the port's eleven paths:
 
 * megakernel serving: K7 (the whole U-Net forward in one launch) against
   its plain PyTorch version at the flagship U-Net over 128 tiles of 96²,
@@ -60,6 +60,18 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   quarantined, an all-null backlog under ``--int8`` deferred, watch mode in
   a child process (seconds from a granule's arrival to its prediction on
   disk) and SIGTERM in the middle of an 8-granule backlog;
+* exported serving artifacts (after the serving entry points):
+  ``export_model`` of the flagship net at 2048² granules, 4 a program, for
+  the plain forward (for the card and the CPU), a ``use_pallas`` copy, a
+  ``use_mega`` copy at tile 96 and ``--int8``, with the seconds to trace
+  and to load and the kernels' ``plumekit::`` op nodes in each program's
+  graph (K6 9, K7 16, Q1 18, Q2 4, no ``aten._int_mm``); each artifact
+  served by ``predict_model --exported`` over the four granules (K6 9, K7
+  1, Q1 18, Q2 4 launches per forward, ``torch._int_mm`` 0) against what
+  the phases above served: bit for bit for K6, K7, Q1 and Q2, within the
+  serving gate for cuDNN; each program against the live program on the
+  same staged granules (equal, the same launches) and their program rates
+  in turns; one ragged group of 3 through the ``use_pallas`` program;
 * the rg weak labeller: K1/K4 (multi-threshold CCL) and K3 (label counts)
   against their plain versions, bit for bit, on the identify benchmark's
   1200² scene, 4096², 8192², a ragged 1201 × 997 scene and a serpentine,
@@ -215,6 +227,7 @@ from plumekit_torch.train.step import (  # noqa: E402
 from plumekit_torch.infer import streaming, tta  # noqa: E402
 from plumekit_torch.infer import tune as tune_mod  # noqa: E402
 from plumekit_torch.io import prefetch  # noqa: E402
+from plumekit_torch.infer import export as export_mod  # noqa: E402
 from plumekit_torch.train.loop import train as train_loop  # noqa: E402
 
 SEED = 0
@@ -655,7 +668,9 @@ def main_path(model, root, tmp):
            "fused_forward_mpix_s": mpix / (forwards * fused_fwd / 1e3),
            "plain_forward_mpix_s": mpix / (forwards * plain_fwd / 1e3),
            "max_abs_dprobs": max_dp, "mask_flip_share": share,
-           "confident_flips": confident_flips, "fused_split_s": split}
+           "confident_flips": confident_flips, "fused_split_s": split,
+           # for the export phase; popped before the JSON record
+           "preds": {"plain": plain_preds, "use_pallas": fused_preds}}
     print(f"predict_model {GRANULES}x{GRANULE_PX}^2: K6 launches {launches} "
           f"({forwards} forwards x 9); whole call fused "
           f"{res['fused_mpix_s'][0]:.2f}/{res['fused_mpix_s'][1]:.2f} MPix/s,"
@@ -1028,7 +1043,7 @@ def mega_path(model, root, tmp, forward_ms):
                               for k, v in forward_ms.items()},
            "max_abs_dprobs": max_dp, "mask_flip_share": share,
            "confident_flips": confident_flips, "mega_split_s": split,
-           "checkpoint": mega_ckpt}
+           "checkpoint": mega_ckpt, "preds": mega_preds}
     print(f"predict_model --tile {MEGA.tile_size} --overlap {MEGA.overlap} "
           f"{GRANULES}x{GRANULE_PX}^2: K7 launches {launches['k7']} "
           f"({forwards} forwards of {BATCH_GRANULES * MEGA.batch_tiles} tiles),"
@@ -1236,7 +1251,7 @@ def int8_path(root, cfg):
     cli._int8_quantize_from_paths = timed
     try:
         int8_conv.LAUNCHES = int8_upsample.LAUNCHES = 0
-        int8_s, _preds = serve(root, "--int8")
+        int8_s, int8_preds = serve(root, "--int8")
         launches = int8_conv.LAUNCHES
         q2_launches = int8_upsample.LAUNCHES
         int8_s2, _ = serve(root, "--int8")
@@ -1253,7 +1268,7 @@ def int8_path(root, cfg):
            "q2_launches": q2_launches,
            "int8_s": [int8_s, int8_s2],
            "int8_mpix_s": [mpix / int8_s, mpix / int8_s2],
-           "calibration_s": calib_s}
+           "calibration_s": calib_s, "preds": int8_preds}
     print(f"predict_model --int8 {GRANULES}x{GRANULE_PX}^2: Q1 launches "
           f"{launches} ({forwards} forwards x {per_forward}), Q2 launches "
           f"{q2_launches}; whole call "
@@ -3809,6 +3824,201 @@ def entry_phase(model, rng, root, tmp, default_mpix):
     return res
 
 
+# ------------------------------------------ exported serving artifacts
+
+EXPORT_GRANULES = 4                   # granules per exported program
+#: per forward: the checkpoint's config flags, the geometry, export_model's
+#: extra flags and whether its served probabilities must equal the earlier
+#: phases' bit for bit (cuDNN's plain forward may pick other algorithms for
+#: another batch: the phases served 2 granules a forward, the artifact
+#: serves 4, so it is held to compare_served's gate there, and its
+#: exactness is reported)
+EXPORT_FORWARDS = (("plain", {}, ICFG, ["--platforms", "gpu,cpu"], False),
+                   ("use_pallas", {"use_pallas": True}, ICFG, [], True),
+                   ("use_mega", {"use_mega": True}, MEGA, [], True),
+                   ("int8", {}, ICFG, ["--int8"], True))
+
+
+def program_rate(fn, variables, stack, repeats=3):
+    """MPix/s of ``repeats`` calls of a serving program on staged granules
+    between two synchronizes, after one warm-up call."""
+    with torch.inference_mode():
+        fn(variables, stack)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            fn(variables, stack)
+        torch.cuda.synchronize()
+    return repeats * stack.shape[0] * stack.shape[1] * stack.shape[2] / (
+        time.perf_counter() - t0) / 1e6
+
+
+def graph_ops(path):
+    """(seconds to load the program, its ``plumekit::`` op nodes by name,
+    its ``aten._int_mm`` nodes)."""
+    t0 = time.perf_counter()
+    program = torch.export.load(path)
+    load_s = time.perf_counter() - t0
+    ops, int_mm = {}, 0
+    for node in program.graph.nodes:
+        name = str(node.target)
+        if name.startswith("plumekit."):
+            ops[name.split(".")[1]] = ops.get(name.split(".")[1], 0) + 1
+        int_mm += name.startswith("aten._int_mm")
+    return load_s, ops, int_mm
+
+
+def export_phase(model, root, tmp, live):
+    """``export_model`` of the flagship net at the main path's geometry
+    (2048² granules, G = 4) for the plain, ``use_pallas``, ``use_mega``
+    and ``--int8`` forwards; each artifact served over the four granules
+    by ``predict_model --exported`` (launches per forward, the probabilities
+    against ``live``, what the earlier phases served) and its program timed
+    beside the live program at the same geometry on staged granules, in
+    turns, outputs equal; one ragged group of 3 through the G = 4
+    program."""
+    t0 = time.perf_counter()
+    ckpt = os.path.join(root, "models", "checkpoints")
+    maiac = os.path.join(root, "raw", "plume_identification", "maiac")
+    paths = [os.path.join(maiac, f"g{i}.npz") for i in range(GRANULES)]
+    stack = torch.from_numpy(np.stack([
+        decode_granule_channels(p, model.cfg.depth)[1]
+        for p in paths[:EXPORT_GRANULES]])).to(DEV)
+    mpix = GRANULES * GRANULE_PX**2 / 1e6
+    out = {}
+    for label, cfg_flags, icfg, flags, exact in EXPORT_FORWARDS:
+        path = (flagged_copy(ckpt, os.path.join(tmp, f"export_{label}_ckpt"),
+                             **cfg_flags) if cfg_flags else ckpt)
+        cfg = load_model_config(path)
+        art = os.path.join(tmp, f"exported_{label}")
+        geometry = ["--tile", str(icfg.tile_size), "--overlap",
+                    str(icfg.overlap), "--batch-tiles", str(icfg.batch_tiles)]
+        t_export = time.perf_counter()
+        rc = cli.main(["export_model", "--root", root, "--checkpoint", path,
+                       "--granule", str(GRANULE_PX), "--batch-granules",
+                       str(EXPORT_GRANULES), "--platforms", "gpu", "--out",
+                       art, *geometry, *flags])
+        export_s = time.perf_counter() - t_export
+        if rc != 0:
+            raise AssertionError(f"export_model {label} exited {rc}")
+        with open(os.path.join(art, "meta.json")) as f:
+            meta = json.load(f)
+        load_s, ops, int_mm = graph_ops(os.path.join(art, "program.gpu.pt2"))
+        forwards = geometry_forwards(tune_mod.Geometry(
+            icfg.tile_size, icfg.overlap, icfg.batch_tiles,
+            EXPORT_GRANULES))[1]
+        per_forward = expected_launches(label, cfg)
+        want_ops = {name: n * forwards for name, n in (
+            ("fused_double_conv3x3", per_forward["k6"]),
+            ("unet_mega", per_forward["k7"]),
+            ("int8_conv3x3", per_forward["q1"]),
+            ("int8_upsample2x2", per_forward["q2"])) if n}
+        if ops != want_ops or int_mm:
+            raise AssertionError(f"{label}: program ops {ops}, _int_mm "
+                                 f"{int_mm}, not {want_ops}")
+        with LaunchCount() as count:
+            served_s, served = serve(root, "--exported", art,
+                                     "--checkpoint", path)
+        launches = count.counts
+        want = {k: v * forwards for k, v in per_forward.items()}
+        if launches != want:
+            raise AssertionError(f"{label} --exported: launches {launches}, "
+                                 f"not {want}")
+        served_dp, flips = same_probs(f"{label} --exported against live",
+                                      served, live[label], exact)
+        served_exact = all(np.array_equal(served[k], live[label][k])
+                           for k in served)
+
+        # the program against the live one at the same geometry
+        variables = build_model(cfg).to(DEV).eval()
+        variables.load_state_dict(model.state_dict())
+        apply_fn = cli._module_forward
+        if label == "int8":
+            variables, _ = cli._int8_quantize_from_paths(
+                paths, icfg.tile_size, cfg, variables)
+            apply_fn = make_quantized_apply(cfg)
+        live_fn = make_multi_granule_infer(apply_fn, icfg)
+        t_load = time.perf_counter()
+        fn, meta = export_mod.load_exported(art, DEV)
+        tree = export_mod.serving_tree(meta["route"], cfg, variables,
+                                       DEV)[0]
+        load_exported_s = time.perf_counter() - t_load
+        with torch.inference_mode():
+            p_live = live_fn(variables, stack)[0]
+            with LaunchCount() as count:
+                p_exp = fn(tree, stack)[0]
+                torch.cuda.synchronize()
+        program_exact = torch.equal(p_live, p_exp)
+        program_dp = float((p_live - p_exp).abs().max())
+        if count.counts != want or (
+                (exact or label == "plain") and not program_exact) or \
+                program_dp > PROB_ATOL:
+            raise AssertionError(f"{label}: program against live max|dp| "
+                                 f"{program_dp}, launches {count.counts}")
+        rates = {"live": [], "exported": []}
+        for kind in ("live", "exported", "exported", "live"):
+            rates[kind].append(program_rate(
+                *((live_fn, variables) if kind == "live" else (fn, tree)),
+                stack))
+        del p_live, p_exp
+        out[label] = {
+            "route": meta["route"], "tile": icfg.tile_size,
+            "overlap": icfg.overlap, "granules": EXPORT_GRANULES,
+            "forwards_per_program": forwards,
+            "platforms": meta["platforms"],
+            "export_s": export_s, "program_load_s": load_s,
+            "load_exported_s": load_exported_s,
+            "program_bytes": os.path.getsize(
+                os.path.join(art, "program.gpu.pt2")),
+            "graph_ops": ops, "graph_int_mm": int_mm,
+            "served_launches": launches,
+            "launches_per_forward": {k: v // forwards
+                                     for k, v in launches.items()},
+            "served_s": served_s, "served_mpix_s": mpix / served_s,
+            "served_max_abs_dprobs": served_dp, "served_flip_share": flips,
+            "served_exact": served_exact, "program_exact": program_exact,
+            "program_max_abs_dprobs": program_dp,
+            "live_program_mpix_s": rates["live"],
+            "exported_program_mpix_s": rates["exported"]}
+        print(f"export {label} ({meta['route']}, {icfg.tile_size}/"
+              f"{icfg.overlap}, G={EXPORT_GRANULES}): export_model "
+              f"{export_s:.1f} s, load {load_s:.2f} s, "
+              f"{out[label]['program_bytes']} bytes, ops {ops}; served "
+              f"{mpix / served_s:.2f} MPix/s, launches {launches} "
+              f"({forwards} forwards), against the live phase "
+              + ("bit for bit" if served_exact else
+                 f"max|dp| {served_dp:.3g}, flips {flips:.2e}")
+              + "; program against live "
+              + ("bit for bit" if program_exact else
+                 f"max|dp| {program_dp:.3g}")
+              + "; program rate live "
+              + "/".join(f"{r:.1f}" for r in rates["live"]) + ", exported "
+              + "/".join(f"{r:.1f}" for r in rates["exported"])
+              + " MPix/s", flush=True)
+        if label == "use_pallas":
+            # one ragged group: 3 granules through the G = 4 program, the
+            # last repeated and its outputs dropped
+            with torch.inference_mode(), LaunchCount() as count:
+                ragged = dict(streaming.stream_inference(
+                    paths[:3], fn, tree, cfg.depth, DEV,
+                    batch_granules=EXPORT_GRANULES, infer_is_batched=True))
+            if list(ragged) != ["g0", "g1", "g2"] or count.counts != want \
+                    or not all(np.array_equal(ragged[k], served[k])
+                               for k in ragged):
+                raise AssertionError(f"ragged group: {list(ragged)}, "
+                                     f"launches {count.counts}")
+            out["ragged_group"] = {"granules": 3, "launches": count.counts}
+            print(f"export use_pallas: a ragged group of 3 through the G = "
+                  f"{EXPORT_GRANULES} program, launches {count.counts}, "
+                  "equal to the served granules", flush=True)
+        del variables, tree, fn
+        torch.cuda.empty_cache()
+    fresh_predictions(root)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"export phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -3876,6 +4086,12 @@ def main() -> int:
                             tmp, {"plain": served["plain_mpix_s"][0],
                                   "use_pallas": served["fused_mpix_s"][0],
                                   "int8": int8_served["int8_mpix_s"][0]})
+        # exported serving artifacts of the four forwards, held against
+        # what the phases above served
+        torch.cuda.empty_cache()
+        exported = export_phase(model, root, tmp, {
+            **served.pop("preds"), "use_mega": mega_served.pop("preds"),
+            "int8": int8_served.pop("preds")})
     del model
     torch.cuda.empty_cache()
 
@@ -4152,6 +4368,13 @@ def main() -> int:
             k["at_tuner_tiles"] = {
                 t: {"batch": v["summary"]["batch"], **v["summary"][key]}
                 for t, v in entry["tiles"].items()}
+            # predict_model --exported over the 4 granules, and the op's
+            # nodes in the exported program's graph
+            k["exported_launches"] = \
+                exported[label]["served_launches"][key]
+            k["exported_graph_nodes"] = exported[label]["graph_ops"][
+                {"k6": "fused_double_conv3x3", "k7": "unet_mega",
+                 "q1": "int8_conv3x3", "q2": "int8_upsample2x2"}[key]]
     copy_rate = measured_copy_rate()
     for k in kernels:
         k["bound_at_copy_rate_ms"] = k["bound_ms"] * (
@@ -4181,6 +4404,7 @@ def main() -> int:
                    "training": training, "curation": curation,
                    "streams": streams,
                    "unetpp": unetpp, "entry_points": entry,
+                   "exported": exported,
                    "copy_rate_gb_per_s": copy_rate / 1e9,
                    "seconds": time.perf_counter() - t_start,
                    "kernels": kernels},

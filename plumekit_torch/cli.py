@@ -1,7 +1,7 @@
 """Command-line entry points of the port: ``make_dataset``,
 ``build_features``, ``identify``, ``select``, ``prepare_model_data``,
-``train_model``, ``predict_model``, ``serve``, ``tune`` and
-``evaluate_model``.
+``train_model``, ``predict_model``, ``serve``, ``tune``,
+``export_model`` and ``evaluate_model``.
 
 Usage: ``plumekit-torch <command> --root R ...`` or
 ``python -m plumekit_torch.cli <command> ...``. ``build_features`` and
@@ -47,13 +47,18 @@ Usage: ``plumekit-torch <command> --root R ...`` or
   probabilities. Granules decode on a thread pool and upload on a stager
   thread ahead of the forwards, as in the JAX package; ``build_features``
   decodes on the same pool; ``--tuned`` serves the geometry that ``tune``
-  measured;
+  measured; ``--exported DIR`` serves an ``export_model`` artifact;
 * ``serve`` watches the granule directory and writes the same prediction
   files for each arrival, with ``served_granules.txt`` and the quarantine
   ``failed_granules.txt`` beside them, as ``plumekit serve`` does;
 * ``tune`` times candidate serving geometries of the checkpoint's forward
   on the device and writes the ranked table to
   ``<root>/models/tuned_geometry.json``;
+* ``export_model`` traces the serving program of the checkpoint's forward
+  (``--int8``, ``--tta``, ``--prune-level``) at a fixed granule geometry
+  with ``torch.export`` into ``<root>/models/exported`` (one program per
+  platform of ``--platforms``, default ``gpu,cpu``), which ``--exported``
+  serves with any checkpoint of the architecture;
 * ``evaluate_model`` scores the checkpoint (or ``--predictions``) against
   the model-ready samples: ``processed/evaluation.csv``, plume-level
   counts with ``--objects`` (connected components through the K2 kernel on
@@ -71,7 +76,7 @@ import dataclasses
 import json
 import os
 import sys
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -86,7 +91,6 @@ THRESHOLD_BASENAME = "threshold.json"
 #: serving flags of the JAX CLI that this port does not serve yet, with the
 #: ROADMAP.md item (queue A) that ports each
 UNPORTED_FLAGS = {
-    "exported": "exported serving artifacts",
     "mesh_devices": "multi-card serving",
     "plot": "prediction quicklooks",
 }
@@ -165,7 +169,24 @@ def _module_forward(model, x):
 
 def _refuse_unported(args) -> bool:
     """Log and return True when a serving flag of the JAX CLI that the port
-    does not serve yet is given."""
+    does not serve yet is given, or a flag that an exported program cannot
+    honour beside ``--exported`` (the JAX CLI's refusals and messages)."""
+    if args.exported:
+        for flag, message in (
+                ("tuned", "--tuned and --exported are mutually exclusive: "
+                          "an exported artifact's geometry is baked into "
+                          "its program"),
+                ("tta", "--tta and --exported are mutually exclusive: the "
+                        "exported program's forward is baked in — export "
+                        "with `export_model --tta` to ship a TTA artifact"),
+                ("mesh_devices", "--mesh-devices and --exported are "
+                                 "mutually exclusive: the exported "
+                                 "program's device layout is baked in — "
+                                 "serve the live model on the mesh "
+                                 "instead")):
+            if getattr(args, flag):
+                logger.error("%s", message)
+                return True
     for flag, item in UNPORTED_FLAGS.items():
         if getattr(args, flag):
             logger.error("--%s is not ported to plumekit_torch yet "
@@ -216,11 +237,31 @@ def _apply_tuned(args, unet_cfg=None) -> None:
         best.get("mpix_s") or float("nan"))
 
 
-def _build_serving(args, unet_cfg, threshold: float):
+@dataclasses.dataclass
+class _Serving:
+    """What ``predict_model`` and ``serve`` run: the program, the depth the
+    decode pads to, the granules per program (a fixed group when
+    ``infer_is_batched``), whether it is the int8 forward and the tile its
+    calibration uses, and ``variables_of``, which makes the program's
+    variables of the model (of its int8 variables under ``use_int8``)."""
+
+    infer: Callable
+    depth: int
+    batch_granules: int
+    infer_is_batched: bool
+    use_int8: bool
+    calib_tile: int
+    variables_of: Callable = lambda variables: variables  # noqa: E731
+
+
+def _build_serving(args, unet_cfg, threshold: float, device) -> _Serving:
     """The multi-granule inference program of the chosen forward, at the
-    ``--tuned`` geometry when that is given."""
+    ``--tuned`` geometry when that is given; with ``--exported`` the
+    artifact's program (:func:`_exported_serving`)."""
     from plumekit_torch.infer import make_multi_granule_infer
 
+    if args.exported:
+        return _exported_serving(args, unet_cfg, device)
     if args.tuned:
         _apply_tuned(args, unet_cfg)
     if args.fused and args.int8:
@@ -255,8 +296,47 @@ def _build_serving(args, unet_cfg, threshold: float):
         apply_fn = make_tta_apply(apply_fn)
     icfg = InferConfig(tile_size=args.tile, overlap=args.overlap,
                        batch_tiles=args.batch_tiles, threshold=threshold)
-    return make_multi_granule_infer(apply_fn, icfg,
-                                    channels=unet_cfg.in_channels)
+    return _Serving(make_multi_granule_infer(apply_fn, icfg,
+                                             channels=unet_cfg.in_channels),
+                    unet_cfg.depth, args.batch_granules, False, args.int8,
+                    args.tile)
+
+
+def _exported_serving(args, unet_cfg, device) -> _Serving:
+    """An ``export_model`` artifact: its program for ``device``, its
+    geometry and forward. An int8 artifact calibrates on its recorded tile
+    size, so that serving it does not depend on ``--tile``. ``--threshold``
+    still applies to the written masks; only the program's own mask output
+    carries the export-time threshold."""
+    from plumekit_torch.infer.export import load_exported, serving_tree
+
+    try:
+        infer, meta = load_exported(args.exported, device)
+    except ValueError as e:
+        raise _CliError(str(e))
+    batch_granules = int(meta["granules"])
+    logger.info("serving exported program %s (granule %s, G=%d)",
+                args.exported, tuple(meta["granule_hw"]), batch_granules)
+    use_int8 = meta.get("forward", "flax") == "int8"
+    if args.int8 and not use_int8:
+        raise _CliError(
+            f"--int8 passed but {args.exported} was exported with the fp "
+            f"forward; re-export with export_model --int8")
+    if batch_granules == 1:
+        # a one-granule program takes an (H, W, C) granule; the stream
+        # hands every program a (G, H, W, C) group
+        single = infer
+
+        def infer(variables, images):
+            probs, masks = single(variables, images[0])
+            return probs[None], masks[None]
+
+    route = meta["route"]
+    return _Serving(
+        infer, int(meta["depth"]), batch_granules, batch_granules > 1,
+        use_int8, int(meta["tile_size"]) if use_int8 else args.tile,
+        lambda variables: serving_tree(route, unet_cfg, variables,
+                                       device)[0])
 
 
 def _resolve_threshold(args) -> float:
@@ -394,7 +474,7 @@ def cmd_predict_model(args) -> int:
         return 1
     try:
         unet_cfg, model = _restore_model(args, device)
-        infer = _build_serving(args, unet_cfg, threshold)
+        serving = _build_serving(args, unet_cfg, threshold, device)
     except _CliError as e:
         logger.error("%s", e)
         return 1
@@ -406,9 +486,9 @@ def cmd_predict_model(args) -> int:
                      for f in sorted(os.listdir(maiac_dir))
                      if f.endswith(GRANULE_EXTENSIONS)]
     variables, predecoded = model, None
-    if args.int8 and granule_paths:
+    if serving.use_int8 and granule_paths:
         variables, predecoded = _int8_quantize_from_paths(
-            granule_paths, args.tile, unet_cfg, model)
+            granule_paths, serving.calib_tile, unet_cfg, model)
         if variables is None:
             logger.error("int8: no granule with signal among the first %d "
                          "of %d — refusing to serve with degenerate "
@@ -418,11 +498,14 @@ def cmd_predict_model(args) -> int:
             return 1
     # granule i+1 decodes (on a pool) and uploads (on a stager thread)
     # while granule i computes and is written here, in order
+    variables = serving.variables_of(variables)
     with torch.inference_mode():
         for name, probs in stream_inference(
-                granule_paths, infer, variables, unet_cfg.depth, device,
-                quantize=args.quantize, batch_granules=args.batch_granules,
-                predecoded=predecoded, quantize_output=args.quantize_output):
+                granule_paths, serving.infer, variables, serving.depth,
+                device, quantize=args.quantize,
+                batch_granules=serving.batch_granules, predecoded=predecoded,
+                quantize_output=args.quantize_output,
+                infer_is_batched=serving.infer_is_batched):
             _write_prediction(out_dir, name, probs, threshold=threshold)
     return 0
 
@@ -517,7 +600,8 @@ def cmd_serve(args) -> int:
     try:
         device = resolve_device(args.device)
         unet_cfg, model = _restore_model(args, device)
-        infer = _build_serving(args, unet_cfg, _resolve_threshold(args))
+        serving = _build_serving(args, unet_cfg, _resolve_threshold(args),
+                                 device)
     except (RuntimeError, _CliError) as e:
         logger.error("%s", e)
         return 1
@@ -547,8 +631,10 @@ def cmd_serve(args) -> int:
     # int8: calibrated lazily on the first granule with signal; until then
     # every cycle defers its batch. known_null keeps all-null candidates
     # from being decoded again every poll
-    state = {"variables": None if args.int8 else model, "known_null": set(),
-             "warned": False, "failures": 0, "fault": False}
+    state = {"variables": None, "known_null": set(), "warned": False,
+             "failures": 0, "fault": False}
+    if not serving.use_int8:
+        state["variables"] = serving.variables_of(model)
 
     def quarantine(gpath):
         failed_log.mark(os.path.basename(gpath))
@@ -566,10 +652,12 @@ def cmd_serve(args) -> int:
         threshold = _resolve_threshold(args)
         with torch.inference_mode():
             for name, probs in stream_inference(
-                    paths_list, infer, state["variables"], unet_cfg.depth,
-                    device, quantize=args.quantize,
-                    batch_granules=args.batch_granules, predecoded=predecoded,
-                    quantize_output=args.quantize_output):
+                    paths_list, serving.infer, state["variables"],
+                    serving.depth, device, quantize=args.quantize,
+                    batch_granules=serving.batch_granules,
+                    predecoded=predecoded,
+                    quantize_output=args.quantize_output,
+                    infer_is_batched=serving.infer_is_batched):
                 gpath = next(path_iter)    # the stream keeps the order
                 stem = os.path.splitext(os.path.basename(gpath))[0]
                 if stem != name:
@@ -587,7 +675,7 @@ def cmd_serve(args) -> int:
         decode or forward fails (a refused shape, out of memory);
         :class:`_DeviceFault` for a RuntimeError of the forward."""
         try:
-            item = decode_granule_channels(gpath, unet_cfg.depth)
+            item = decode_granule_channels(gpath, serving.depth)
         except Exception:
             quarantine(gpath)
             return
@@ -605,9 +693,11 @@ def cmd_serve(args) -> int:
         if state["variables"] is None:
             try:
                 qvars, predecoded = _int8_quantize_from_paths(
-                    pending, args.tile, unet_cfg, model,
+                    pending, serving.calib_tile, unet_cfg, model,
                     known_null=state["known_null"],
                     on_decode_error=quarantine)
+                if qvars is not None:
+                    qvars = serving.variables_of(qvars)
             except torch.OutOfMemoryError:
                 raise
             except RuntimeError as e:
@@ -1050,6 +1140,45 @@ def _evaluation_infer(args, unet_cfg, device):
     return infer
 
 
+def cmd_export_model(args) -> int:
+    """Trace the serving program of the checkpoint's forward with
+    ``torch.export`` into an artifact directory (``plumekit export_model``):
+    served by ``--exported`` without the model code that traced it, with any
+    checkpoint of the architecture. One program per platform of
+    ``--platforms``, each traced on its own device; ``gpu`` needs a card."""
+    from plumekit_torch.infer.export import export_sliding_infer, save_exported
+
+    try:
+        unet_cfg, model = _restore_model(args, torch.device("cpu"))
+    except _CliError as e:
+        logger.error("%s", e)
+        return 1
+    div = 2 ** unet_cfg.depth
+    h = args.granule + (-args.granule) % div
+    w = (args.granule_width or args.granule)
+    w += (-w) % div
+    if (h, w) != (args.granule, args.granule_width or args.granule):
+        logger.info("granule padded to (%d, %d) for 2**depth divisibility",
+                    h, w)
+    icfg = InferConfig(tile_size=args.tile, overlap=args.overlap,
+                       batch_tiles=args.batch_tiles,
+                       threshold=_resolve_threshold(args))
+    try:
+        programs, meta = export_sliding_infer(
+            model, unet_cfg, icfg, (h, w), granules=args.batch_granules,
+            platforms=[p.strip() for p in args.platforms.split(",")
+                       if p.strip()],
+            forward="int8" if args.int8 else "flax", tta=args.tta)
+    except ValueError as e:
+        logger.error("export failed: %s", e)
+        return 1
+    out = args.out or os.path.join(args.root, PathsConfig().model_dir,
+                                   "exported")
+    save_exported(programs, meta, out)
+    print(out)
+    return 0
+
+
 def cmd_evaluate_model(args) -> int:
     """Score the checkpoint (or saved predictions) against model-ready
     labels (``plumekit evaluate_model``): every refusal comes before the
@@ -1214,7 +1343,9 @@ def _add_serving_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--quantize-output", action="store_true",
                    help="uint8 probability readback (within 1/510)")
     p.add_argument("--exported", default=None,
-                   help="serve an exported artifact" + unported)
+                   help="serve an export_model artifact dir instead of the "
+                        "live model; the granule geometry must match the "
+                        "export")
     p.add_argument("--prune-level", type=int, default=None,
                    help="serve a deep-supervised UNet++ checkpoint pruned "
                         "at fusion level L (1..depth)")
@@ -1357,6 +1488,46 @@ def build_parser() -> argparse.ArgumentParser:
                     help="artifact path (default <root>/models/"
                          "tuned_geometry.json)")
     tn.set_defaults(fn=cmd_tune)
+
+    ex = sub.add_parser("export_model",
+                        help="trace the serving program into an artifact "
+                             "(torch.export; served by --exported without "
+                             "the model code)")
+    ex.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),
+                    help="workspace root")
+    ex.add_argument("--checkpoint", default=None)
+    ex.add_argument("--granule", type=int, default=2048,
+                    help="granule height (pixels); padded to 2**depth")
+    ex.add_argument("--granule-width", type=int, default=None,
+                    help="granule width if not square")
+    ex.add_argument("--batch-granules", type=int, default=1,
+                    help="granules per program (the group --exported "
+                         "serves at once)")
+    ex.add_argument("--tile", type=int, default=288)
+    ex.add_argument("--overlap", type=int, default=32)
+    ex.add_argument("--int8", action="store_true",
+                    help="export the int8 post-training-quantized program; "
+                         "the serving host quantizes each restored "
+                         "checkpoint at load time, so the artifact stays "
+                         "checkpoint-agnostic")
+    ex.add_argument("--batch-tiles", type=int, default=64)
+    ex.add_argument("--prune-level", type=int, default=None,
+                    help="export the UNet++ grid truncated at fusion column "
+                         "L (deep-supervision checkpoints; see "
+                         "predict_model --prune-level)")
+    ex.add_argument("--threshold", type=float, default=None,
+                    help="mask threshold baked into the program (default: "
+                         "the calibrated models/threshold.json if present, "
+                         "else 0.5)")
+    ex.add_argument("--tta", action="store_true",
+                    help="bake D4 test-time augmentation into the exported "
+                         "program (8 views per tile, one forward)")
+    ex.add_argument("--platforms", default="gpu,cpu",
+                    help="comma-separated platforms (gpu, cpu): one program "
+                         "each, traced on its own device")
+    ex.add_argument("--out", default=None,
+                    help="artifact dir (default <root>/models/exported)")
+    ex.set_defaults(fn=cmd_export_model)
 
     bf = sub.add_parser("build_features",
                         help="a fire-driven detector over every granule → "

@@ -10,7 +10,9 @@ channels, dequantized on the device before the forward; with
 ``quantize_output`` the probabilities are encoded as uint8 on the device
 and the readback carries that code. A caller that had to decode some
 granules already (the int8 calibration) hands them in through
-``predecoded``, so that no granule is decoded twice.
+``predecoded``, so that no granule is decoded twice. An exported program of
+fixed G takes whole groups (``infer_is_batched``): a ragged tail is padded
+by repeating its last granule, and the duplicates' outputs are dropped.
 """
 
 from __future__ import annotations
@@ -97,6 +99,7 @@ def stream_inference(
     batch_granules: int = 1,
     predecoded: Optional[dict] = None,
     quantize_output: bool = False,
+    infer_is_batched: bool = False,
 ) -> Iterator[Tuple[str, np.ndarray]]:
     """Run ``infer_fn(variables, images (G, H, W, C)) -> (probs, masks)``
     over the granules of ``paths``; yields (granule name, float32 probs
@@ -106,7 +109,15 @@ def stream_inference(
     (:func:`default_decode_workers`). ``quantize`` uploads uint16 payloads
     and dequantizes them on the device; ``quantize_output`` reads back
     uint8 probabilities (within 1/510 of the fp32 ones). ``predecoded`` as
-    in :func:`granule_channel_stream`."""
+    in :func:`granule_channel_stream`. ``infer_is_batched`` says that
+    ``infer_fn`` takes exactly ``batch_granules`` granules (an exported
+    multi-granule program): a ragged tail group is padded by repeating its
+    last granule, and the duplicates' outputs are dropped."""
+    if infer_is_batched and batch_granules < 2:
+        raise ValueError(
+            "infer_is_batched requires batch_granules >= 2 (the program's "
+            "leading granule dim); a single-granule program takes plain "
+            "(H, W, C) images — pass infer_is_batched=False")
     if decode_workers is None:
         decode_workers = default_decode_workers()
     device = torch.device(device)
@@ -123,6 +134,9 @@ def stream_inference(
         buffer_size=buffer_size, device_put=stage)
 
     def flush(group):
+        n = len(group)
+        if infer_is_batched and n < batch_granules:
+            group = group + [group[-1]] * (batch_granules - n)
         stacked = [torch.stack(parts) for parts in
                    zip(*(payload for _, payload, _ in group))]
         if quantize:
@@ -134,7 +148,7 @@ def stream_inference(
         if quantize_output:
             probs = quantize_probs_uint8(probs)
         host = readback(probs)
-        for i, (name, _p, (h, w)) in enumerate(group):
+        for i, (name, _p, (h, w)) in enumerate(group[:n]):
             p = host[i, :h, :w]
             yield name, dequantize_probs_uint8(p) if quantize_output else p
 

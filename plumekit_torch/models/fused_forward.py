@@ -8,6 +8,12 @@ stride-2 transposed conv as one matmul plus a pixel shuffle, the 1×1 head
 as an fp32 matmul. Inference only: running statistics, no autograd. The
 BatchNorm folding and, on a card, the kernel's weight packing are done once
 per model and device and again only after a parameter changed.
+
+The forward reads one tree of tensors (:func:`fused_tree`): the blocks as
+K6's op takes them, the transposed convs and the head. The live forward
+builds it from the model's cache; an exported program
+(:mod:`plumekit_torch.infer.export`) takes it as an input, built once when
+the artifact is loaded.
 """
 
 from __future__ import annotations
@@ -18,9 +24,8 @@ import torch
 
 from plumekit_torch.config.train import UNetConfig
 from plumekit_torch.models.kernels.fused_conv import (
-    double_conv3x3_bn_relu_ref,
     fold_batchnorm,
-    fused_double_conv3x3_bn_relu_packed,
+    fused_double_conv3x3_op,
     pack_double_conv,
     state_key,
 )
@@ -57,10 +62,32 @@ def blocks_of(model, dtype, device, packed=None) -> list:
     return cached[1]
 
 
-def _double_conv(x, block):
-    if x.device.type == "cpu":
-        return double_conv3x3_bn_relu_ref(x, *block)
-    return fused_double_conv3x3_bn_relu_packed(x, block)
+def fused_tree(model, dtype, device) -> dict:
+    """The tensors the fused forward reads, on ``device``: ``blocks``, per
+    double conv the six tensors of :func:`blocks_of` (folded on the CPU,
+    packed for K6 on a card); ``ups``, per transposed conv its (Cin, Cout,
+    2, 2) weight and bias; ``head``, the 1×1 head's (out, C0) weight and
+    bias, all fp32 but the blocks."""
+    blocks = blocks_of(model, dtype, device)
+    if device.type == "cuda":
+        blocks = [b.first.tensors + b.second.tensors for b in blocks]
+    return {"blocks": list(blocks),
+            "ups": [(up.weight.detach(), up.bias.detach())
+                    for up in model.ups],
+            "head": (model.head.weight.detach()[:, :, 0, 0].float(),
+                     model.head.bias.detach().float())}
+
+
+def block_channels(cfg: UNetConfig) -> list:
+    """(mid, out) channels of each double conv, in the flax block order."""
+    feats = [cfg.base_features * 2**i for i in range(cfg.depth + 1)]
+    return [(f, f) for f in feats + feats[-2::-1]]
+
+
+def _double_conv(x, block, cmid: int, cout: int):
+    """K6's op on one block of :func:`fused_tree`: folded on the CPU,
+    packed on the card."""
+    return fused_double_conv3x3_op(x.contiguous(), *block, cmid, cout)
 
 
 def _max_pool2(x):
@@ -83,36 +110,48 @@ def _conv_transpose2(x, weight, bias):
     return y + bias.to(x.dtype)
 
 
+def make_fused_tree_apply(cfg: UNetConfig):
+    """Returns ``apply(tree, x) -> logits``: the fused forward on a
+    :func:`fused_tree`, one K6 op per block; x is NHWC."""
+    if cfg.norm != "batch":
+        raise ValueError("fused forward requires the batch-norm U-Net")
+    depth = cfg.depth
+    dtype = DTYPES[cfg.compute_dtype]
+    channels = block_channels(cfg)
+
+    def apply(tree, x):
+        blocks = tree["blocks"]
+        x = x.to(dtype).contiguous()
+        skips = []
+        for i in range(depth):
+            x = _double_conv(x, blocks[i], *channels[i])
+            skips.append(x)
+            x = _max_pool2(x)
+        x = _double_conv(x, blocks[depth], *channels[depth])
+        for u, skip in enumerate(reversed(skips)):
+            x = _conv_transpose2(x, *tree["ups"][u])
+            x = torch.cat([skip, x], dim=-1)
+            x = _double_conv(x, blocks[depth + 1 + u],
+                               *channels[depth + 1 + u])
+        head_w, head_b = tree["head"]
+        return x.float() @ head_w.t() + head_b
+
+    return apply
+
+
 def make_fused_apply(cfg: UNetConfig):
     """Returns ``apply(model, x, train=False) -> logits`` with the semantics
     of the model's forward, through the fused kernel. ``model`` is a
     batch-norm :class:`plumekit_torch.models.UNet`; x is NHWC."""
-    if cfg.norm != "batch":
-        raise ValueError("fused forward requires the batch-norm U-Net")
-    depth = cfg.depth
+    tree_apply = make_fused_tree_apply(cfg)
     dtype = DTYPES[cfg.compute_dtype]
 
     @torch.no_grad()
     def apply(model, x, train: bool = False):
         if train:
             raise ValueError("fused forward is inference-only")
-        x = x.to(dtype).contiguous()
         if x.device.type not in ("cpu", "cuda"):
             raise ValueError(f"no kernel for device {x.device}")
-        blocks = blocks_of(model, dtype, x.device)
-        skips = []
-        for block in blocks[:depth]:
-            x = _double_conv(x, block)
-            skips.append(x)
-            x = _max_pool2(x)
-        x = _double_conv(x, blocks[depth])
-        for u, skip in enumerate(reversed(skips)):
-            up = model.ups[u]
-            x = _conv_transpose2(x, up.weight, up.bias)
-            x = torch.cat([skip, x], dim=-1)
-            x = _double_conv(x, blocks[depth + 1 + u])
-        head = model.head
-        return (x.float() @ head.weight[:, :, 0, 0].float().t()
-                + head.bias.float())
+        return tree_apply(fused_tree(model, dtype, x.device), x)
 
     return apply

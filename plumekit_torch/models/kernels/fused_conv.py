@@ -20,6 +20,15 @@ a tensor on the CPU and its CUDA kernel for a tensor on the card; it never
 falls back from the kernel. The TPU entry of K5 falls back to XLA unless
 the channel counts are multiples of 128, a lane rule of that chip: here
 every shape takes the kernel.
+
+Both kernels are ``torch.library`` custom ops, ``plumekit::fused_conv3x3``
+(K5) and ``plumekit::fused_double_conv3x3`` (K6), so that ``torch.export``
+and graph tools see them: the CPU implementation is the plain version on
+the folded weights, the CUDA one the kernel's launch on weights packed for
+it (the op's weight arguments are the weights as its device's
+implementation reads them), the fake one the output's shape from ``x`` and
+the int arguments. Registration runs at import; ``nvcc`` runs at the first
+launch.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from plumekit_torch.models.kernels import conv_tiles
 
@@ -163,9 +173,25 @@ def _check_input(x, tensors, cin: int):
             raise ValueError("weights and input lie on different devices")
 
 
-def fused_conv3x3_bn_relu_packed(x, packed: PackedConv):
-    """K5 on weights packed by :func:`pack_single_conv`: one launch."""
+def _check_packed(conv: PackedConv):
+    """The packed weight's shape is the one its path gives ``conv``'s
+    channels (an op's CUDA implementation rebuilds ``conv`` from the
+    tensors and ints it was given)."""
+    cin_p, cout_p = conv.padded
+    w = conv.tensors[0]
+    want = ((cout_p // conv_tiles.PASS_N, cin_p // conv_tiles.CHUNK_K,
+             9, conv_tiles.CHUNK_K // 8, conv_tiles.PASS_N, 8)
+            if conv.path == "wgmma" else (cout_p, 9, cin_p))
+    if tuple(w.shape) != want or w.dtype != torch.bfloat16:
+        raise ValueError(f"a weight packed as {tuple(w.shape)} {w.dtype} "
+                         f"does not fit {conv.cin} -> {conv.cout} channels "
+                         f"on the {conv.path} path")
+
+
+def _launch_single(x, packed: PackedConv):
+    """One launch of K5: every launch of it comes through here."""
     _check_input(x, packed.tensors, packed.cin)
+    _check_packed(packed)
     b, h, wd, cin = x.shape
     cin_p, cout_p = packed.padded
     tile = conv_tiles.single_conv_tile(h, wd, cin, packed.cout)
@@ -188,29 +214,12 @@ def fused_conv3x3_bn_relu_packed(x, packed: PackedConv):
     return out
 
 
-def fused_conv3x3_bn_relu(x, w, scale, shift):
-    """One SAME 3×3 conv + scale/shift + ReLU (K5).
-
-    x: (B, H, W, Cin); w: (3, 3, Cin, Cout); scale, shift: (Cout,). Returns
-    (B, H, W, Cout) in ``x.dtype``. On the card ``x`` must be bf16 and
-    contiguous; the weight, scale and shift are used at bf16 and packed on
-    every call (:func:`fused_conv3x3_bn_relu_packed` takes them packed).
-    """
-    if x.device.type == "cpu":
-        return conv3x3_bn_relu_ref(x, w, scale, shift)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if w.dim() != 4 or w.shape[2] != x.shape[-1]:
-        raise ValueError(f"weight {tuple(w.shape)}, scale {tuple(scale.shape)}"
-                         f" and shift {tuple(shift.shape)} do not fit an "
-                         f"input of {x.shape[-1]} channels")
-    return fused_conv3x3_bn_relu_packed(x, pack_single_conv(w, scale, shift))
-
-
-def fused_double_conv3x3_bn_relu_packed(x, packed: PackedDoubleConv):
-    """K6 on weights packed by :func:`pack_double_conv`: one launch."""
+def _launch_double(x, packed: PackedDoubleConv):
+    """One launch of K6: every launch of it comes through here."""
     first, second = packed.first, packed.second
     _check_input(x, first.tensors + second.tensors, first.cin)
+    _check_packed(first)
+    _check_packed(second)
     b, h, w, cin = x.shape
     cin_p, cmid_p = first.padded
     cout_p = second.padded[1]
@@ -235,6 +244,91 @@ def fused_double_conv3x3_bn_relu_packed(x, packed: PackedDoubleConv):
     return out
 
 
+# ------------------------------------------------------------ custom ops
+
+@torch.library.custom_op("plumekit::fused_conv3x3", mutates_args=(),
+                         device_types="cpu")
+def fused_conv3x3_op(x: Tensor, w: Tensor, scale: Tensor, shift: Tensor,
+                     cout: int) -> Tensor:
+    """K5 as an op. CPU: :func:`conv3x3_bn_relu_ref` on the HWIO weight;
+    CUDA: the kernel on the weight, scale and shift that
+    :func:`pack_single_conv` packed for ``cout`` output channels."""
+    return conv3x3_bn_relu_ref(x, w, scale, shift)
+
+
+@fused_conv3x3_op.register_kernel("cuda")
+def _fused_conv3x3_cuda(x, w, scale, shift, cout):
+    return _launch_single(x, PackedConv(conv_tiles.path_for(cout),
+                                        x.shape[-1], cout, (w, scale, shift)))
+
+
+@fused_conv3x3_op.register_fake
+def _fused_conv3x3_fake(x, w, scale, shift, cout):
+    return x.new_empty((*x.shape[:3], cout))
+
+
+@torch.library.custom_op("plumekit::fused_double_conv3x3", mutates_args=(),
+                         device_types="cpu")
+def fused_double_conv3x3_op(x: Tensor, w1: Tensor, scale1: Tensor,
+                            shift1: Tensor, w2: Tensor, scale2: Tensor,
+                            shift2: Tensor, cmid: int, cout: int) -> Tensor:
+    """K6 as an op. CPU: :func:`double_conv3x3_bn_relu_ref` on the folded
+    HWIO weights; CUDA: the kernel on the block that
+    :func:`pack_double_conv` packed for ``cmid`` and ``cout`` channels."""
+    return double_conv3x3_bn_relu_ref(x, w1, scale1, shift1, w2, scale2,
+                                      shift2)
+
+
+@fused_double_conv3x3_op.register_kernel("cuda")
+def _fused_double_conv3x3_cuda(x, w1, scale1, shift1, w2, scale2, shift2,
+                               cmid, cout):
+    path = conv_tiles.path_for(cmid)
+    first = PackedConv(path, x.shape[-1], cmid, (w1, scale1, shift1))
+    second = PackedConv(path, first.padded[1], cout, (w2, scale2, shift2))
+    return _launch_double(x, PackedDoubleConv(first, second))
+
+
+@fused_double_conv3x3_op.register_fake
+def _fused_double_conv3x3_fake(x, w1, scale1, shift1, w2, scale2, shift2,
+                               cmid, cout):
+    return x.new_empty((*x.shape[:3], cout))
+
+
+# ------------------------------------------------------------- entries
+
+def fused_conv3x3_bn_relu_packed(x, packed: PackedConv):
+    """K5 on weights packed by :func:`pack_single_conv`: one launch."""
+    _check_input(x, packed.tensors, packed.cin)
+    return fused_conv3x3_op(x, *packed.tensors, packed.cout)
+
+
+def fused_conv3x3_bn_relu(x, w, scale, shift):
+    """One SAME 3×3 conv + scale/shift + ReLU (K5).
+
+    x: (B, H, W, Cin); w: (3, 3, Cin, Cout); scale, shift: (Cout,). Returns
+    (B, H, W, Cout) in ``x.dtype``. On the card ``x`` must be bf16 and
+    contiguous; the weight, scale and shift are used at bf16 and packed on
+    every call (:func:`fused_conv3x3_bn_relu_packed` takes them packed).
+    """
+    if x.device.type == "cpu":
+        return fused_conv3x3_op(x, w, scale, shift, w.shape[-1])
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if w.dim() != 4 or w.shape[2] != x.shape[-1]:
+        raise ValueError(f"weight {tuple(w.shape)}, scale {tuple(scale.shape)}"
+                         f" and shift {tuple(shift.shape)} do not fit an "
+                         f"input of {x.shape[-1]} channels")
+    return fused_conv3x3_bn_relu_packed(x, pack_single_conv(w, scale, shift))
+
+
+def fused_double_conv3x3_bn_relu_packed(x, packed: PackedDoubleConv):
+    """K6 on weights packed by :func:`pack_double_conv`: one launch."""
+    first, second = packed.first, packed.second
+    _check_input(x, first.tensors + second.tensors, first.cin)
+    return fused_double_conv3x3_op(x, *first.tensors, *second.tensors,
+                                   first.cout, second.cout)
+
+
 def fused_double_conv3x3_bn_relu(x, w1, scale1, shift1, w2, scale2, shift2):
     """One U-Net double-conv block, (conv3×3 + scale/shift + ReLU) × 2 (K6).
 
@@ -246,8 +340,8 @@ def fused_double_conv3x3_bn_relu(x, w1, scale1, shift1, w2, scale2, shift2):
     them packed, as the fused forward does).
     """
     if x.device.type == "cpu":
-        return double_conv3x3_bn_relu_ref(x, w1, scale1, shift1,
-                                          w2, scale2, shift2)
+        return fused_double_conv3x3_op(x, w1, scale1, shift1, w2, scale2,
+                                       shift2, w1.shape[-1], w2.shape[-1])
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if w1.dim() != 4 or w1.shape[2] != x.shape[-1]:

@@ -23,6 +23,13 @@ concat is never written. The entry runs the plain version for a tensor on
 the CPU and the kernel for a tensor on the card; it never falls back from
 the kernel. Weights are packed once per weight tensor and device and again
 only after the tensor changed in place.
+
+Q1 is the ``torch.library`` custom op ``plumekit::int8_conv3x3``, so that
+``torch.export`` and graph tools see it: its CPU implementation is the
+plain version on the HWIO weight, its CUDA one the kernel's launch on the
+weight, ``a`` and ``b`` packed by :func:`pack_conv` (the kernel's shape is
+read off the packed weight's layout), its fake one the output's shape and
+dtype.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 from torch.utils.weak import WeakIdKeyDictionary
 
 from plumekit_torch.models.kernels.conv_tiles import round_up
@@ -354,22 +362,30 @@ def _check_plane(x, name):
         raise ValueError(f"{name} is not 16-byte aligned")
 
 
-def int8_conv3x3_packed(xq, packed: PackedInt8Conv, out_scale=None,
-                        skip=None, tile: Optional[Q1Tile] = None):
-    """Q1 on weights packed by :func:`pack_conv`: one launch. ``tile``: a
-    tile at ``packed.shape`` (:func:`conv_tile` by default)."""
+def _check_fit(xq, skip, packed: PackedInt8Conv):
     x0, x1 = (xq, None) if skip is None else (skip, xq)
-    for name, t in (("x", xq), ("skip", skip)):
-        if t is not None:
-            if t.device.type != "cuda":
-                raise ValueError(f"no kernel for device {t.device}")
-            _check_plane(t, name)
     if x0.shape[-1] != packed.c0 or (0 if x1 is None else x1.shape[-1]) \
             != packed.c1 or (x1 is not None and x1.shape[:3] != x0.shape[:3]):
         raise ValueError(f"planes {tuple(x0.shape)} and "
                          f"{None if x1 is None else tuple(x1.shape)} do not "
                          f"fit weights packed for {packed.c0} + {packed.c1} "
                          "channels")
+
+
+def _launch(xq, packed: PackedInt8Conv, out_scale=None, skip=None,
+            tile: Optional[Q1Tile] = None):
+    """One launch of Q1: every launch of it comes through here."""
+    x0, x1 = (xq, None) if skip is None else (skip, xq)
+    for name, t in (("x", xq), ("skip", skip)):
+        if t is not None:
+            if t.device.type != "cuda":
+                raise ValueError(f"no kernel for device {t.device}")
+            _check_plane(t, name)
+    _check_fit(xq, skip, packed)
+    if packed.kp != (KC if packed.shape.fold else
+                     round_up(packed.c0, KC) + round_up(packed.c1, KC)):
+        raise ValueError(f"weights packed for {packed.kp} input channels do "
+                         f"not fit {packed.c0} + {packed.c1}")
     for t in (packed.wt, packed.a, packed.b):
         if t.device != xq.device:
             raise ValueError("weights and input lie on different devices")
@@ -408,6 +424,72 @@ def int8_conv3x3_packed(xq, packed: PackedInt8Conv, out_scale=None,
     return out
 
 
+def packed_shape(wt, fold: bool) -> Shape:
+    """The kernel shape a weight packed by :func:`pack_int8_weights` (or
+    Q2's packing, never folded) was laid out for: ``nb`` rows of 16 bytes
+    per group."""
+    if wt.dim() != 6 or wt.dtype != torch.int8 or wt.shape[3:] != (
+            2, wt.shape[4], 16):
+        raise ValueError(f"{tuple(wt.shape)} {wt.dtype} is no packed int8 "
+                         "weight")
+    for s in SHAPES:
+        if s.nb == wt.shape[4] and s.fold == fold:
+            return s
+    raise ValueError(f"no kernel shape packs {tuple(wt.shape)}")
+
+
+@torch.library.custom_op("plumekit::int8_conv3x3", mutates_args=(),
+                         device_types="cpu")
+def int8_conv3x3_op(xq: Tensor, w: Tensor, a: Tensor, b: Tensor,
+                    out_scale: Optional[Tensor], skip: Optional[Tensor],
+                    cout: int) -> Tensor:
+    """Q1 as an op: ``cout`` output channels, int8 with ``out_scale``, else
+    fp32. CPU: :func:`int8_conv3x3_ref` on the HWIO ``w``; CUDA: one
+    launch on ``w``, ``a`` and ``b`` as :func:`pack_conv` packs them."""
+    return int8_conv3x3_ref(xq, w, a, b, out_scale, skip)
+
+
+@int8_conv3x3_op.register_kernel("cuda")
+def _int8_conv3x3_cuda(xq, w, a, b, out_scale, skip, cout):
+    c0, c1 = ((xq.shape[-1], 0) if skip is None
+              else (skip.shape[-1], xq.shape[-1]))
+    # the fold is the one layout with a single tap: the 9 taps in one row
+    return _launch(xq, PackedInt8Conv(w, a, b, c0, c1, cout,
+                                      packed_shape(w, w.shape[2] == 1)),
+                   out_scale, skip)
+
+
+@int8_conv3x3_op.register_fake
+def _int8_conv3x3_fake(xq, w, a, b, out_scale, skip, cout):
+    return xq.new_empty((*xq.shape[:3], cout), dtype=(
+        torch.float32 if out_scale is None else torch.int8))
+
+
+def conv_op(xq, w, a, b, out_scale, skip, cout: int):
+    """Q1's op on weights as the device's implementation reads them (raw
+    on the CPU, packed on the card), on planes made contiguous."""
+    return int8_conv3x3_op(
+        xq.contiguous(), w, a, b,
+        None if out_scale is None else scale_tensor(out_scale, xq),
+        None if skip is None else skip.contiguous(), cout)
+
+
+def int8_conv3x3_packed(xq, packed: PackedInt8Conv, out_scale=None,
+                        skip=None, tile: Optional[Q1Tile] = None):
+    """Q1 on weights packed by :func:`pack_conv`: one launch. ``tile``: a
+    tile at ``packed.shape`` (:func:`conv_tile`, the op's rule, by
+    default)."""
+    if tile is not None:
+        return _launch(xq, packed, out_scale, skip, tile)
+    if xq.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xq.device}")
+    _check_fit(xq, skip, packed)
+    return int8_conv3x3_op(
+        xq, packed.wt, packed.a, packed.b,
+        None if out_scale is None else scale_tensor(out_scale, xq), skip,
+        packed.cout)
+
+
 def int8_conv3x3(xq, wq, a, b, out_scale=None, skip=None):
     """One SAME 3×3 int8 conv with the fused epilogue (Q1).
 
@@ -417,7 +499,7 @@ def int8_conv3x3(xq, wq, a, b, out_scale=None, skip=None):
     out). A CPU tensor takes :func:`int8_conv3x3_ref`, a CUDA tensor the
     kernel."""
     if xq.device.type == "cpu":
-        return int8_conv3x3_ref(xq, wq, a, b, out_scale, skip)
+        return conv_op(xq, wq, a, b, out_scale, skip, wq.shape[-1])
     if xq.device.type != "cuda":
         raise ValueError(f"no kernel for device {xq.device}")
     c0 = None if skip is None else skip.shape[-1]

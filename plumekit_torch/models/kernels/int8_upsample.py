@@ -20,6 +20,11 @@ input's device. The entry runs the plain version for a tensor on the CPU and
 the kernel for a tensor on the card; it never falls back from the kernel.
 Weights are packed once per weight tensor and device and again only after
 the tensor changed in place.
+
+Q2 is the ``torch.library`` custom op ``plumekit::int8_upsample2x2``: its
+CPU implementation is the plain version on ``kq``, ``sw`` and ``bias``, its
+CUDA one the kernel's launch on them as :func:`pack_upsample` packs them,
+its fake one the output's shape.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 from torch.utils.weak import WeakIdKeyDictionary
 
 from plumekit_torch.models.kernels import int8_conv
@@ -166,8 +172,8 @@ def _library():
                       + [ctypes.c_void_p])
 
 
-def int8_upsample2x2_packed(xq, packed: PackedUpsample, out_scale):
-    """Q2 on weights packed by :func:`pack_upsample`: one launch."""
+def _launch(xq, packed: PackedUpsample, out_scale):
+    """One launch of Q2: every launch of it comes through here."""
     if xq.device.type != "cuda":
         raise ValueError(f"no kernel for device {xq.device}")
     if xq.dtype != torch.int8 or xq.dim() != 4 or not xq.is_contiguous():
@@ -178,6 +184,9 @@ def int8_upsample2x2_packed(xq, packed: PackedUpsample, out_scale):
     if xq.shape[-1] != packed.cin:
         raise ValueError(f"a plane of {xq.shape[-1]} channels does not fit "
                          f"weights packed for {packed.cin}")
+    if packed.kp != round_up(packed.cin, KC):
+        raise ValueError(f"weights packed for {packed.kp} input channels do "
+                         f"not fit a plane of {packed.cin}")
     for t in (packed.wt, packed.a, packed.b):
         if t.device != xq.device:
             raise ValueError("weights and input lie on different devices")
@@ -201,6 +210,48 @@ def int8_upsample2x2_packed(xq, packed: PackedUpsample, out_scale):
     return out
 
 
+@torch.library.custom_op("plumekit::int8_upsample2x2", mutates_args=(),
+                         device_types="cpu")
+def int8_upsample2x2_op(xq: Tensor, w: Tensor, a: Tensor, b: Tensor,
+                        out_scale: Tensor, cout: int) -> Tensor:
+    """Q2 as an op: (B, h, w, Cin) int8 → (B, 2h, 2w, ``cout``) int8. CPU:
+    :func:`int8_upsample2x2_ref` on ``kq``, ``sw``, ``bias``; CUDA: one
+    launch on them as :func:`pack_upsample` packs them."""
+    return int8_upsample2x2_ref(xq, w, a, b, out_scale)
+
+
+@int8_upsample2x2_op.register_kernel("cuda")
+def _int8_upsample2x2_cuda(xq, w, a, b, out_scale, cout):
+    return _launch(xq, PackedUpsample(w, a, b, xq.shape[-1], cout,
+                                      int8_conv.packed_shape(w, False)),
+                   out_scale)
+
+
+@int8_upsample2x2_op.register_fake
+def _int8_upsample2x2_fake(xq, w, a, b, out_scale, cout):
+    return xq.new_empty((xq.shape[0], 2 * xq.shape[1], 2 * xq.shape[2],
+                         cout))
+
+
+def upsample_op(xq, w, a, b, out_scale, cout: int):
+    """Q2's op on weights as the device's implementation reads them (raw
+    on the CPU, packed on the card), on a contiguous plane."""
+    return int8_upsample2x2_op(xq.contiguous(), w, a, b,
+                               int8_conv.scale_tensor(out_scale, xq), cout)
+
+
+def int8_upsample2x2_packed(xq, packed: PackedUpsample, out_scale):
+    """Q2 on weights packed by :func:`pack_upsample`: one launch."""
+    if xq.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xq.device}")
+    if xq.shape[-1] != packed.cin:
+        raise ValueError(f"a plane of {xq.shape[-1]} channels does not fit "
+                         f"weights packed for {packed.cin}")
+    return int8_upsample2x2_op(xq, packed.wt, packed.a, packed.b,
+                               int8_conv.scale_tensor(out_scale, xq),
+                               packed.cout)
+
+
 def int8_upsample2x2(xq, kq, sw, bias, out_scale):
     """One 2×2 stride-2 transposed conv in int8 with its requant (Q2).
 
@@ -209,7 +260,7 @@ def int8_upsample2x2(xq, kq, sw, bias, out_scale):
     Cout) int8. A CPU tensor takes :func:`int8_upsample2x2_ref`, a CUDA
     tensor the kernel."""
     if xq.device.type == "cpu":
-        return int8_upsample2x2_ref(xq, kq, sw, bias, out_scale)
+        return upsample_op(xq, kq, sw, bias, out_scale, kq.shape[-1])
     if xq.device.type != "cuda":
         raise ValueError(f"no kernel for device {xq.device}")
     return int8_upsample2x2_packed(xq, pack_upsample(kq, sw, bias),

@@ -7,9 +7,9 @@ concat-free skip joins, the 1×1 fp32 head) in one launch. The CUDA kernel is
 ``plumekit_torch/csrc/unet_mega.cu``, a persistent cooperative kernel with one
 stage per double conv and a grid-wide barrier between stages; its source note
 gives the design. Weights stream from L2 and the activation pyramid lives in
-one device-memory scratch buffer that the wrapper keeps per model (planes
-whose readers are done give their room to later ones); nothing between the
-stages is computed by a PyTorch operator.
+one device-memory scratch buffer per forward (planes whose readers are done
+give their room to later ones); nothing between the stages is computed by a
+PyTorch operator.
 
 Numerics, mirrored exactly by the plain version :func:`mega_forward_ref`:
 activations in the compute dtype, fp32 accumulation; every conv's result is
@@ -23,6 +23,16 @@ tap's product to the compute dtype and adds the bias in that dtype.
 ``"float32"`` its fp32 body (FFMA on the CUDA cores, no rounding at all),
 one launch as well, as the JAX megakernel admits both. A CPU tensor takes
 the plain version; any other device launches the kernel or raises.
+
+The forward is the ``torch.library`` custom op ``plumekit::unet_mega``, so
+that ``torch.export`` and graph tools see it: its CPU implementation is the
+plain version on the folded weights (:func:`folded_list`), its CUDA one the
+kernel's launch on the packed blob, whose stage table comes as ints
+(:func:`stage_ints`: it depends on the architecture only, not on the
+weights' values), its fake one the logits' shape. The plan for a batch is
+computed from the stage table and the shapes, and the activation scratch
+comes from PyTorch's caching allocator on each call: nothing is keyed on a
+tensor's address.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch import Tensor
 
 from plumekit_torch.config.train import UNetConfig
 from plumekit_torch.models.kernels import conv_tiles
@@ -68,7 +79,7 @@ def mega_eligible(cfg: UNetConfig, h: int, w: int) -> bool:
     memory (:func:`conv_tiles.double_conv_tile`), so no tile size is
     refused; its device-memory scratch (about 7.5 bytes per input pixel and
     base feature at depth 4 in bf16: 290 MB for 128 tiles of 96² at base 32,
-    twice that in fp32) is kept per model and grown to the largest batch,
+    twice that in fp32) comes from the caching allocator on each forward,
     and a batch that does not fit raises torch's out-of-memory error."""
     d = cfg.depth
     return (cfg.norm == "batch"
@@ -172,13 +183,61 @@ class MegaWeights:
     #: per stage, the fields of the plan that do not depend on the batch
     #: or the tile shape
     stages: List[dict] = field(default_factory=list)
-    #: (B, h, w, planes reused) → (ctypes plan array, scratch elements,
-    #: the plan as an array)
-    plans: Dict[Tuple[int, int, int, bool], tuple] = field(
-        default_factory=dict)
-    #: the forwards' scratch on one stream, grown to the largest need
-    scratch: torch.Tensor | None = None
-    scratch_stream: int = 0
+
+    @functools.cached_property
+    def ints(self) -> Tuple[int, ...]:
+        """:attr:`stages` as the op takes them (:func:`stage_ints`)."""
+        return stage_ints(self.stages)
+
+
+def folded_list(folded: dict) -> List[torch.Tensor]:
+    """:func:`fold_weights`' output as one list: per block w1, s1, b1, w2,
+    s2, b2; per transposed conv w, b; the head's weight and bias."""
+    flat = [blk[k] for blk in folded["blocks"]
+            for k in ("w1", "s1", "b1", "w2", "s2", "b2")]
+    flat += [up[k] for up in folded["ups"] for k in ("w", "b")]
+    return flat + [folded["head_w"], folded["head_b"]]
+
+
+def folded_of(flat: List[torch.Tensor]) -> dict:
+    """The inverse of :func:`folded_list` (depth d: 14·d + 8 tensors)."""
+    depth = (len(flat) - 8) // 14
+    n = 6 * (2 * depth + 1)
+    blocks = [dict(zip(("w1", "s1", "b1", "w2", "s2", "b2"), flat[i:i + 6]))
+              for i in range(0, n, 6)]
+    ups = [{"w": flat[n + 2 * u], "b": flat[n + 2 * u + 1]}
+           for u in range(depth)]
+    return {"blocks": blocks, "ups": ups, "head_w": flat[-2],
+            "head_b": flat[-1]}
+
+
+#: the fields of a packed stage (:func:`_pack`, :func:`_pack_f32`), in the
+#: order of :func:`stage_ints`; a field a stage lacks is 0
+_STAGE_KEYS = ("kind", "path", "cin", "cmid", "cmid_p", "cout", "cout_p",
+               "c0", "c0p", "c1", "cin_p", "w1t", "w1", "s1", "b1", "w2t",
+               "w2", "s2", "b2", "up_cout", "up_cout_p", "up_kp", "upw",
+               "upb", "n_out", "head_w", "head_b")
+_PATHS = ("mma", "wgmma")
+
+
+def stage_ints(stages: List[dict]) -> Tuple[int, ...]:
+    """The stage table as a flat tuple of ints, ``len(_STAGE_KEYS)`` per
+    stage (the path by its index in ``_PATHS``)."""
+    return tuple(
+        _PATHS.index(st["path"]) if k == "path" and k in st
+        else int(st.get(k, 0)) for st in stages for k in _STAGE_KEYS)
+
+
+@functools.lru_cache(maxsize=16)
+def stages_of(ints: Tuple[int, ...]) -> List[dict]:
+    """The inverse of :func:`stage_ints`."""
+    n = len(_STAGE_KEYS)
+    stages = []
+    for i in range(0, len(ints), n):
+        st = dict(zip(_STAGE_KEYS, ints[i:i + n]))
+        st["path"] = _PATHS[st["path"]]
+        stages.append(st)
+    return stages
 
 
 def _pack(folded: dict, device) -> Tuple[torch.Tensor, List[dict]]:
@@ -510,7 +569,7 @@ _CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 def weights_of(model, dtype, device) -> MegaWeights:
     """The model's folded (and, on a card, packed) weights, cached on the
     model: not once per forward. ``cuda`` and ``cuda:<current>`` are one
-    device here, so that both find the same weights, plans and scratch."""
+    device here, so that both find the same weights."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -562,7 +621,8 @@ def mega_forward(weights: MegaWeights, x) -> torch.Tensor:
     dtype (bf16, or fp32 for the fp32 body) on the card, weights packed for
     that card → fp32 logits (B, h, w, out)."""
     _check(weights, x)
-    return launch_stages(weights, x)[0]
+    return unet_mega_op(x, [weights.blob], list(weights.ints),
+                        weights.stages[-1]["n_out"])
 
 
 def mega_forward_debug(weights: MegaWeights, x):
@@ -572,9 +632,76 @@ def mega_forward_debug(weights: MegaWeights, x):
     order of :func:`_plan` or :func:`_plan_f32`), so that each stage's
     input and output planes can be read back (:func:`stage_errors`)."""
     _check(weights, x)
-    logits, _blocks, scratch, plan = _launch(weights, x, None, None,
-                                             whole=True)
+    logits, _blocks, scratch, plan = _launch(weights.blob, weights.ints, x,
+                                             None, None, whole=True)
     return logits, scratch, plan
+
+
+# ------------------------------------------------------------- the op
+
+@torch.library.custom_op("plumekit::unet_mega", mutates_args=(),
+                         device_types="cpu")
+def unet_mega_op(x: Tensor, weights: List[Tensor], stages: List[int],
+                 n_out: int) -> Tensor:
+    """K7 as an op: x (B, h, w, Cin) → fp32 logits (B, h, w, ``n_out``).
+    CPU: :func:`mega_forward_ref` on ``weights`` = :func:`folded_list`
+    (``stages`` unused); CUDA: one launch on ``weights`` = [the packed
+    blob] and its stage table ``stages`` (:func:`stage_ints`)."""
+    return mega_forward_ref(folded_of(weights), x)
+
+
+@unet_mega_op.register_kernel("cuda")
+def _unet_mega_cuda(x, weights, stages, n_out):
+    if len(weights) != 1 or weights[0].dtype != torch.uint8:
+        raise ValueError("the kernel takes one packed uint8 blob")
+    table = stages_of(tuple(stages))
+    if x.shape[3] != table[0]["c0"] or table[-1]["n_out"] != n_out:
+        raise ValueError(f"input {tuple(x.shape)} and {n_out} outputs do not "
+                         "fit the stage table")
+    # the bf16 body's table pads every input (cin_p), the fp32 body's not
+    dtype = torch.float32 if table[0]["cin_p"] == 0 else torch.bfloat16
+    if x.dtype != dtype:
+        raise ValueError(f"the blob was packed for {dtype} input, got "
+                         f"{x.dtype}")
+    if not x.is_contiguous() or x.dim() != 4:
+        raise ValueError(f"the kernel takes a contiguous (B, h, w, C) tensor, "
+                         f"got {tuple(x.shape)}")
+    return _launch(weights[0], tuple(stages), x, None, None, whole=False)[0]
+
+
+@unet_mega_op.register_fake
+def _unet_mega_fake(x, weights, stages, n_out):
+    return x.new_empty((*x.shape[:3], n_out), dtype=torch.float32)
+
+
+def mega_tree(model, dtype, device):
+    """``(tree, stage ints)`` of the whole-forward op on ``device``: the
+    tree ``{"weights": [...]}`` holds :func:`folded_list` on the CPU and
+    the packed blob on a card (:func:`weights_of`, once per model and
+    device), the ints the blob's stage table (empty on the CPU)."""
+    weights = weights_of(model, dtype, device)
+    if torch.device(device).type == "cpu":
+        return {"weights": folded_list(weights.folded)}, ()
+    return {"weights": [weights.blob]}, weights.ints
+
+
+def make_mega_tree_apply(cfg: UNetConfig, ints: Tuple[int, ...] = ()):
+    """Returns ``apply(tree, x) -> logits``, the whole forward as one op on
+    a :func:`mega_tree` whose stage ints are ``ints``; x is NHWC at a shape
+    :func:`mega_eligible` takes."""
+    from plumekit_torch.models.unet import DTYPES
+
+    dtype = DTYPES[cfg.compute_dtype]
+
+    def apply(tree, x):
+        if not mega_eligible(cfg, x.shape[1], x.shape[2]) or \
+                x.shape[3] != cfg.in_channels:
+            raise ValueError(f"megakernel ineligible for input "
+                             f"{tuple(x.shape)} / config (see mega_eligible)")
+        return unet_mega_op(x.to(dtype).contiguous(), tree["weights"],
+                            list(ints), cfg.out_channels)
+
+    return apply
 
 
 #: the per-stage gate: K6's, |got - ref| <= 2^-6 + 2^-6 |ref| (two bf16
@@ -641,62 +768,55 @@ def launch_stages(weights: MegaWeights, x, n_stages: int | None = None,
     of a checked input; returns the logits (written only by the head stage)
     and, when ``stamps`` asks for per-block stamps (``pk_unet_mega_stamps``,
     bf16 only: uint64 (stages, blocks, 5) at most), the grid's block count,
-    else None. Every launch of the kernel comes through here and adds one
-    to :data:`LAUNCHES`; the per-stage timing experiment calls it directly."""
-    logits, blocks, _scratch, _plan_rows = _launch(weights, x, n_stages,
-                                                   stamps, whole=False)
+    else None. The per-stage timing experiment calls it directly; the
+    forwards go through :func:`unet_mega_op`."""
+    logits, blocks, _scratch, _plan_rows = _launch(
+        weights.blob, weights.ints, x, n_stages, stamps, whole=False)
     return logits, blocks
 
 
-def _scratch(weights: MegaWeights, elems: int, dtype, device,
-             stream: int) -> torch.Tensor:
-    """The forwards' scratch: one buffer per model for the forwards on one
-    stream, kept on ``weights`` and grown to the largest need (a forward
-    needs ``elems`` of it); another stream, dtype or device gets a buffer
-    of its own, which then becomes the kept one."""
-    cached = weights.scratch
-    if (cached is None or cached.dtype != dtype or cached.device != device
-            or weights.scratch_stream != stream or cached.numel() < elems):
-        weights.scratch = None            # let the old buffer go first
-        cached = torch.empty(elems, dtype=dtype, device=device)
-        weights.scratch, weights.scratch_stream = cached, stream
-    return cached
+@functools.lru_cache(maxsize=64)
+def _plan_of(ints: Tuple[int, ...], b: int, h: int, w: int, whole: bool,
+             f32: bool, blocks: int):
+    """(ctypes plan array, scratch elements, the plan as an array) of a
+    (b, h, w) batch on the stage table ``ints``, by value."""
+    stages = stages_of(ints)
+    if f32:
+        plan, elems = _plan_f32(stages, b, h, w, reuse=not whole)
+    else:
+        plan, elems = _plan(stages, b, h, w, reuse=not whole, blocks=blocks)
+    return ((ctypes.c_longlong * plan.size)(*plan.ravel().tolist()), elems,
+            plan)
 
 
-def _launch(weights: MegaWeights, x, n_stages, stamps, whole: bool):
+def _launch(blob, ints, x, n_stages, stamps, whole: bool):
+    """One launch of the kernel: every launch of it comes through here and
+    adds one to :data:`LAUNCHES`. The scratch is a fresh buffer of the
+    plan's size from the caching allocator."""
     b, h, w, _cin = x.shape
     f32 = x.dtype == torch.float32
     if stamps is not None and f32:
         raise ValueError("per-block stamps are for the bf16 kernel")
-    key = (b, h, w, whole)
-    if key not in weights.plans:
-        if f32:
-            plan, elems = _plan_f32(weights.stages, b, h, w, reuse=not whole)
-        else:
-            plan, elems = _plan(weights.stages, b, h, w, reuse=not whole,
-                                blocks=_sms(x.device.index or 0))
-        weights.plans[key] = (
-            (ctypes.c_longlong * plan.size)(*plan.ravel().tolist()), elems,
-            plan)
-    plan_arr, elems, plan = weights.plans[key]
+    plan_arr, elems, plan = _plan_of(tuple(ints), b, h, w, whole, f32,
+                                     _sms(x.device.index or 0))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    scratch = torch.empty(elems, dtype=x.dtype, device=x.device) if whole \
-        else _scratch(weights, elems, x.dtype, x.device, stream)
-    n_out = weights.stages[-1]["n_out"]
+    scratch = torch.empty(elems, dtype=x.dtype, device=x.device)
+    stages = stages_of(tuple(ints))
+    n_out = stages[-1]["n_out"]
     logits = torch.empty((b, h, w, n_out), dtype=torch.float32,
                          device=x.device)
     lib = _library()
-    n = len(weights.stages) if n_stages is None else n_stages
-    blocks = ctypes.c_int(0)
+    n = len(stages) if n_stages is None else n_stages
+    n_blocks = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         if stamps is not None:
             err = lib.pk_unet_mega_stamps(
-                x.data_ptr(), weights.blob.data_ptr(), scratch.data_ptr(),
+                x.data_ptr(), blob.data_ptr(), scratch.data_ptr(),
                 logits.data_ptr(), ctypes.addressof(plan_arr), n, b,
-                stamps.data_ptr(), ctypes.addressof(blocks), stream)
+                stamps.data_ptr(), ctypes.addressof(n_blocks), stream)
         else:
             entry = lib.pk_unet_mega_f32 if f32 else lib.pk_unet_mega
-            err = entry(x.data_ptr(), weights.blob.data_ptr(),
+            err = entry(x.data_ptr(), blob.data_ptr(),
                         scratch.data_ptr(), logits.data_ptr(),
                         ctypes.addressof(plan_arr), n, b, stream)
     if err != 0:
@@ -704,7 +824,7 @@ def _launch(weights: MegaWeights, x, n_stages, stamps, whole: bool):
                            + lib.pk_error_string(err).decode())
     global LAUNCHES
     LAUNCHES += 1
-    return (logits, blocks.value if stamps is not None else None, scratch,
+    return (logits, n_blocks.value if stamps is not None else None, scratch,
             plan)
 
 
@@ -734,8 +854,9 @@ def make_mega_apply(cfg: UNetConfig):
                 f"megakernel ineligible for shape {(h, w)} / config "
                 "(see mega_eligible); use the plain forward")
         if x.device.type == "cpu":
-            return mega_forward_ref(
-                weights_of(model, dtype, x.device).folded, x)
+            return unet_mega_op(
+                x, folded_list(weights_of(model, dtype, x.device).folded),
+                [], cfg.out_channels)
         return mega_forward(weights_of(model, dtype, x.device),
                             x.to(dtype).contiguous())
 

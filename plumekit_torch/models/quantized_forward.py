@@ -42,6 +42,14 @@ Usage::
     qvars = quantize_unet(model, cfg, calib)        # model: the port's UNet
     apply = make_quantized_apply(cfg)               # (qvars, tiles) -> logits
     infer = make_multi_granule_infer(apply, icfg)   # drop-in apply_fn
+
+The forward reads one tree of tensors, :func:`int8_tree` of the quantized
+variables: on the CPU the variables themselves, on the card each conv's and
+upsample's weights packed for Q1 and Q2 (``plumekit::int8_conv3x3`` and
+``plumekit::int8_upsample2x2``, one op each). The live forward builds the
+tree on every call from the kernel modules' packing caches; an exported
+program (:mod:`plumekit_torch.infer.export`) takes it as an input, packed
+once when the artifact is loaded.
 """
 
 from __future__ import annotations
@@ -94,19 +102,63 @@ def _max_pool2_q(xq):
     return xq.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
 
 
-def _qblock(xq, blk, skip=None, planes=None):
-    """Int8 DoubleConv, two Q1 launches: conv → dequant+BN+ReLU → requant at
+def _qblock(xq, blk, skip=None, planes=None, cout=None):
+    """Int8 DoubleConv, two Q1 ops: conv → dequant+BN+ReLU → requant at
     ``s_mid`` → conv → dequant+BN+ReLU → requant at ``s_out``, or fp32 where
     ``s_out`` is None (the last decoder block, which feeds the head). With
     ``skip`` the first conv reads ``concat([skip, xq])``; a list ``planes``
-    gets the int8 planes made."""
-    mq = int8_conv.int8_conv3x3(xq, blk["wq1"], blk["a1"], blk["b1"],
-                                out_scale=blk["s_mid"], skip=skip)
-    y = int8_conv.int8_conv3x3(mq, blk["wq2"], blk["a2"], blk["b2"],
-                               out_scale=blk["s_out"])
+    gets the int8 planes made. ``blk`` is one block of :func:`int8_tree`,
+    ``cout`` its output channels (read off the raw weight by default)."""
+    cout = blk["wq2"].shape[-1] if cout is None else cout
+    mq = int8_conv.conv_op(xq, blk["wq1"], blk["a1"], blk["b1"],
+                           blk["s_mid"], skip, cout)
+    y = int8_conv.conv_op(mq, blk["wq2"], blk["a2"], blk["b2"],
+                          blk["s_out"], None, cout)
     if planes is not None:
         planes += [mq] if blk["s_out"] is None else [mq, y]
     return y
+
+
+def _upsample(xq, up, cout):
+    return int8_upsample.upsample_op(xq, up["kq"], up["sw"], up["bias"],
+                                     up["s_up"], cout)
+
+
+def _pack_block(blk, with_skip: bool):
+    cin, cout = blk["wq1"].shape[2:]
+    first = int8_conv.pack_conv(blk["wq1"], blk["a1"], blk["b1"],
+                                cin - cout if with_skip else None)
+    second = int8_conv.pack_conv(blk["wq2"], blk["a2"], blk["b2"])
+    return {**blk, "wq1": first.wt, "a1": first.a, "b1": first.b,
+            "wq2": second.wt, "a2": second.a, "b2": second.b}
+
+
+def _pack_up(up):
+    packed = int8_upsample.pack_upsample(up["kq"], up["sw"], up["bias"])
+    return {**up, "kq": packed.wt, "sw": packed.a, "bias": packed.b}
+
+
+def int8_tree(qvars, cfg: UNetConfig, device=None) -> Dict[str, Any]:
+    """The tensors the int8 forward reads on ``device`` (the variables'
+    by default): on the CPU ``qvars`` as they are; on a card a copy whose
+    every 3×3 conv (``wq``, ``a``, ``b``) is packed for Q1 and every
+    transposed conv (``kq``, ``sw``, ``bias``) for Q2, under the same
+    keys. A decoder block's first conv reads ``[skip, up]``: its skip
+    channels are its input channels less its output channels."""
+    device = torch.device(qvars["s_in"].device if device is None
+                          else device)
+    if device.type != "cuda":
+        return qvars
+    blocks = qvars["blocks"]
+    if cfg.arch == "unetpp":
+        packed = {name: _pack_block(blk, not name.endswith("_0"))
+                  for name, blk in blocks.items()}
+        ups = {name: _pack_up(up) for name, up in qvars["ups"].items()}
+    else:
+        packed = [_pack_block(blk, idx > cfg.depth)
+                  for idx, blk in enumerate(blocks)]
+        ups = [_pack_up(up) for up in qvars["ups"]]
+    return {**qvars, "blocks": packed, "ups": ups}
 
 
 def _folded_block(block):
@@ -277,12 +329,11 @@ def quantize_unet(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
             "head": _head_vars(model.head)}
 
 
-def make_quantized_apply(cfg: UNetConfig):
-    """Returns ``apply(qvars, x, train=False, planes=None) -> logits (B, H,
-    W, out)``, the int8 twin of the U-Net's forward, drop-in as
-    ``make_multi_granule_infer``'s ``apply_fn``. Every 3×3 conv is Q1,
-    every transposed conv with its requant Q2; the only fp32 work is in
-    their epilogues and the 1×1 head. With a list
+def make_quantized_tree_apply(cfg: UNetConfig):
+    """Returns ``apply(tree, x, planes=None) -> logits (B, H, W, out)``,
+    the int8 twin of the U-Net's forward on an :func:`int8_tree`. Every
+    3×3 conv is Q1, every transposed conv with its requant Q2; the only
+    fp32 work is in their epilogues and the 1×1 head. With a list
     ``planes``, every int8 plane of the forward is appended to it in order
     (a debug form for comparing two devices). A UNet++ config takes
     :func:`_make_unetpp_apply`."""
@@ -290,31 +341,46 @@ def make_quantized_apply(cfg: UNetConfig):
     if cfg.arch == "unetpp":
         return _make_unetpp_apply(cfg)
     depth = cfg.depth
+    feats = [cfg.base_features * 2**i for i in range(depth + 1)]
+
+    def apply(tree, x, planes: Optional[list] = None):
+        def keep(t):
+            if planes is not None:
+                planes.append(t)
+            return t
+
+        xq = keep(_quant_act(x.float(), tree["s_in"]))
+        skips = []
+        for i in range(depth):
+            skips.append(_qblock(xq, tree["blocks"][i], planes=planes,
+                                 cout=feats[i]))
+            xq = keep(_max_pool2_q(skips[-1]))
+        xq = _qblock(xq, tree["blocks"][depth], planes=planes,
+                     cout=feats[depth])
+        for u, skip in enumerate(reversed(skips)):
+            level = depth - 1 - u
+            uq = keep(_upsample(xq, tree["ups"][u], feats[level]))
+            xq = _qblock(uq, tree["blocks"][depth + 1 + u], skip, planes,
+                         feats[level])
+        head = tree["head"]           # xq: the last block's fp32 output
+        return xq @ head["kernel"][0, 0] + head["bias"]
+
+    return apply
+
+
+def make_quantized_apply(cfg: UNetConfig):
+    """Returns ``apply(qvars, x, train=False, planes=None) -> logits``,
+    drop-in as ``make_multi_granule_infer``'s ``apply_fn``: the forward of
+    :func:`make_quantized_tree_apply` on :func:`int8_tree` of ``qvars`` on
+    ``x``'s device."""
+    tree_apply = make_quantized_tree_apply(cfg)
 
     @torch.no_grad()
     def apply(qvars, x, train: bool = False,
               planes: Optional[list] = None):
         if train:
             raise ValueError("int8 quantized forward is inference-only")
-
-        def keep(t):
-            if planes is not None:
-                planes.append(t)
-            return t
-
-        xq = keep(_quant_act(x.float(), qvars["s_in"]))
-        skips = []
-        for i in range(depth):
-            skips.append(_qblock(xq, qvars["blocks"][i], planes=planes))
-            xq = keep(_max_pool2_q(skips[-1]))
-        xq = _qblock(xq, qvars["blocks"][depth], planes=planes)
-        for u, skip in enumerate(reversed(skips)):
-            up = qvars["ups"][u]
-            uq = keep(int8_upsample.int8_upsample2x2(
-                xq, up["kq"], up["sw"], up["bias"], up["s_up"]))
-            xq = _qblock(uq, qvars["blocks"][depth + 1 + u], skip, planes)
-        head = qvars["head"]          # xq: the last block's fp32 output
-        return xq @ head["kernel"][0, 0] + head["bias"]
+        return tree_apply(int8_tree(qvars, cfg, x.device), x, planes)
 
     return apply
 
@@ -421,17 +487,13 @@ def _quantize_unetpp(model, cfg: UNetConfig, calib) -> Dict[str, Any]:
 
 
 def _make_unetpp_apply(cfg: UNetConfig):
-    """:func:`make_quantized_apply` of a UNet++ config: 2 Q1 launches per
+    """:func:`make_quantized_tree_apply` of a UNet++ config: 2 Q1 ops per
     node and one Q2 per upsample, ``(L + 1)(L + 2)`` and ``L(L + 1)/2`` at
     level L."""
     level = effective_level(cfg)
+    feats = [cfg.base_features * 2**i for i in range(level + 1)]
 
-    @torch.no_grad()
-    def apply(qvars, x, train: bool = False,
-              planes: Optional[list] = None):
-        if train:
-            raise ValueError("int8 quantized forward is inference-only")
-
+    def apply(tree, x, planes: Optional[list] = None):
         def keep(t):
             if planes is not None:
                 planes.append(t)
@@ -439,31 +501,30 @@ def _make_unetpp_apply(cfg: UNetConfig):
 
         gridq = {}
         top_fp = {}            # the fp32 top-row nodes the heads read
-        h = keep(_quant_act(x.float(), qvars["s_in"]))
+        h = keep(_quant_act(x.float(), tree["s_in"]))
         for i in range(level + 1):
             if i:
                 h = keep(_max_pool2_q(gridq[(i - 1, 0)]))
-            gridq[(i, 0)] = _qblock(h, qvars["blocks"][f"x{i}_0"],
-                                    planes=planes)
+            gridq[(i, 0)] = _qblock(h, tree["blocks"][f"x{i}_0"],
+                                    planes=planes, cout=feats[i])
         for i, j in decoder_nodes(level):
-            up = qvars["ups"][f"up{i}_{j}"]
-            uq = keep(int8_upsample.int8_upsample2x2(
-                gridq[(i + 1, j - 1)], up["kq"], up["sw"], up["bias"],
-                up["s_up"]))
-            blk = qvars["blocks"][f"x{i}_{j}"]
+            uq = keep(_upsample(gridq[(i + 1, j - 1)],
+                                tree["ups"][f"up{i}_{j}"], feats[i]))
+            blk = tree["blocks"][f"x{i}_{j}"]
             # the concat [X[i][0..j-1], up] as Q1's two sources
             skip = (gridq[(i, 0)] if j == 1 else torch.cat(
                 [gridq[(i, k)] for k in range(j)], dim=-1))
             if blk["s_out"] is None:                    # X[0][L]
-                top_fp[j] = _qblock(uq, blk, skip, planes)
+                top_fp[j] = _qblock(uq, blk, skip, planes, feats[i])
             elif i == 0 and cfg.deep_supervision:
                 # a side head reads the fp32 node, later concats its requant
-                top_fp[j] = _qblock(uq, {**blk, "s_out": None}, skip, planes)
+                top_fp[j] = _qblock(uq, {**blk, "s_out": None}, skip,
+                                    planes, feats[i])
                 gridq[(i, j)] = keep(_quant_act(top_fp[j], blk["s_out"]))
             else:
-                gridq[(i, j)] = _qblock(uq, blk, skip, planes)
-        outs = [top_fp[j] @ qvars["heads"][name]["kernel"][0, 0]
-                + qvars["heads"][name]["bias"]
+                gridq[(i, j)] = _qblock(uq, blk, skip, planes, feats[i])
+        outs = [top_fp[j] @ tree["heads"][name]["kernel"][0, 0]
+                + tree["heads"][name]["bias"]
                 for j, name in head_names(cfg, level).items()]
         return sum(outs) / len(outs) if cfg.deep_supervision else outs[0]
 

@@ -201,8 +201,7 @@ def test_predict_model_threshold_resolution(tmp_path):
                                           pred["probs"] > pred["threshold"])
 
 
-@pytest.mark.parametrize("flags", [
-    ["--exported", "art"], ["--mesh-devices", "2"], ["--plot"]])
+@pytest.mark.parametrize("flags", [["--mesh-devices", "2"], ["--plot"]])
 def test_unported_flag_exits_1_naming_its_roadmap_item(tmp_path, caplog,
                                                        flags):
     with caplog.at_level(logging.ERROR):

@@ -983,3 +983,137 @@ def test_int8_kernels_at_the_tuners_tiles(card, tile):
         assert int8_upsample.LAUNCHES == before + 1
         assert torch.equal(got, int8_upsample.int8_upsample2x2_ref(
             x, kq, sw, bias, scale)), case
+
+
+def _op_case(name, card):
+    """(op, its arguments on the card, the plain version's result on the
+    same tensors, whether the op must equal it bit for bit) at a shape of
+    the main path's forward (UNetConfig(), tile 288; K7 at its tile 96),
+    two tiles a batch."""
+    from plumekit_torch.experiments.int8_conv_times import (case_inputs,
+                                                            upsample_inputs)
+    from plumekit_torch.models.kernels import int8_conv, int8_upsample
+
+    shapes = block_shapes(UNetConfig(), 288)
+    if name in ("fused_conv3x3", "fused_double_conv3x3"):
+        cin, cmid, cout, h = shapes[1 if name == "fused_conv3x3" else 2]
+        x, w1, s1, b1, w2, s2, b2 = [
+            torch.from_numpy(a).to(card).to(torch.bfloat16) for a in
+            _he_scaled(double_conv_case(h, (2, h, h, cin), cmid, cout))]
+        if name == "fused_conv3x3":
+            packed = fused_conv.pack_single_conv(w1, s1, b1)
+            return (fused_conv.fused_conv3x3_op,
+                    (x, *packed.tensors, cmid),
+                    fused_conv.conv3x3_bn_relu_ref(x, w1, s1, b1), False)
+        packed = fused_conv.pack_double_conv(w1, s1, b1, w2, s2, b2)
+        return (fused_conv.fused_double_conv3x3_op,
+                (x, *packed.first.tensors, *packed.second.tensors, cmid,
+                 cout),
+                fused_conv.double_conv3x3_bn_relu_ref(x, w1, s1, b1, w2, s2,
+                                                      b2), False)
+    if name == "unet_mega":
+        model, x = mega_case(UNetConfig(), (2, 96, 96, 2), 11, card)
+        x = x.to(torch.bfloat16)
+        weights = unet_mega.weights_of(model, torch.bfloat16, card)
+        return (unet_mega.unet_mega_op,
+                (x, [weights.blob], list(weights.ints), 1),
+                unet_mega.mega_forward_ref(weights.folded, x), False)
+    rng = np.random.default_rng(12)
+    if name == "int8_conv3x3":
+        case = next(c for c in _int8_conv_cases() if c[0])  # with its skip
+        x, w, a, b, scale, skip = case_inputs(rng, case, 2, card)
+        packed = int8_conv.pack_conv(w, a, b, skip.shape[-1])
+        return (int8_conv.int8_conv3x3_op,
+                (x, packed.wt, packed.a, packed.b, scale, skip, packed.cout),
+                int8_conv.int8_conv3x3_ref(x, w, a, b, scale, skip), True)
+    x, kq, sw, bias, scale = upsample_inputs(rng, _upsample_cases()[1], 2,
+                                             card)
+    packed = int8_upsample.pack_upsample(kq, sw, bias)
+    return (int8_upsample.int8_upsample2x2_op,
+            (x, packed.wt, packed.a, packed.b, scale, packed.cout),
+            int8_upsample.int8_upsample2x2_ref(x, kq, sw, bias, scale), True)
+
+
+OP_COUNTERS = {"fused_conv3x3": (fused_conv, "SINGLE_LAUNCHES"),
+               "fused_double_conv3x3": (fused_conv, "LAUNCHES"),
+               "unet_mega": (unet_mega, "LAUNCHES")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_conv3x3", "fused_double_conv3x3",
+                                  "unet_mega", "int8_conv3x3",
+                                  "int8_upsample2x2"])
+def test_op_on_the_card_eager_and_exported(card, name):
+    """Each kernel's op on CUDA tensors, called eagerly and from a program
+    of ``torch.export``: one launch each, the two equal bit for bit, and
+    both against the plain version (the op's CPU implementation) on the
+    same tensors: Q1 and Q2 bit for bit, K5 and K6 within two bf16 steps,
+    K7 within 2% of the largest logit."""
+    from plumekit_torch.models.kernels import int8_conv, int8_upsample
+
+    op, args, ref, exact = _op_case(name, card)
+    module, counter = OP_COUNTERS.get(name, (
+        int8_conv if name == "int8_conv3x3" else int8_upsample, "LAUNCHES"))
+
+    def is_input(v):
+        return isinstance(v, torch.Tensor) or (
+            isinstance(v, list) and bool(v) and isinstance(v[0],
+                                                           torch.Tensor))
+
+    class Call(torch.nn.Module):
+        def forward(self, *inputs):
+            it = iter(inputs)
+            return op(*[next(it) if is_input(v) else v for v in args])
+
+    inputs = tuple(v for v in args if is_input(v))
+    program = torch.export.export(Call(), inputs, strict=False)
+    assert sum(str(n.target).startswith(f"plumekit.{name}")
+               for n in program.graph.nodes) == 1
+    before = getattr(module, counter)
+    eager = op(*args)
+    exported = program.module()(*inputs)
+    torch.cuda.synchronize()
+    assert getattr(module, counter) == before + 2
+    assert torch.equal(eager, exported)
+    assert eager.shape == ref.shape and eager.dtype == ref.dtype
+    if exact:
+        assert torch.equal(eager, ref)
+    elif name == "unet_mega":
+        err = (eager - ref).abs().max()
+        assert err <= LOGIT_RTOL * ref.abs().max()
+    else:
+        assert _within_two_bf16_steps(eager, ref)
+
+
+@pytest.mark.cuda
+def test_use_mega_artifact_exported_on_the_card_launches_k7(card, tmp_path):
+    """A tiny ``use_mega`` net exported for the card (``platforms=gpu``),
+    saved, loaded and served: one K7 launch per forward and nothing else,
+    its probabilities equal to the live program's bit for bit."""
+    from plumekit_torch.config import InferConfig
+    from plumekit_torch.infer import export
+    from plumekit_torch.infer.sliding import make_multi_granule_infer
+
+    cfg = UNetConfig(base_features=8, depth=2, use_mega=True)
+    model = build_model(cfg, torch.Generator().manual_seed(4)).to(card)
+    model.eval()
+    icfg = InferConfig(tile_size=64, overlap=8, batch_tiles=2)
+    programs, meta = export.export_sliding_infer(
+        model, cfg, icfg, (96, 96), granules=2, platforms=["gpu"])
+    assert meta["route"] == "mega"
+    art = str(tmp_path / "artifact")
+    export.save_exported(programs, meta, art)
+    fn, _meta = export.load_exported(art, card)
+    tree = export.serving_tree("mega", cfg, model, card)[0]
+    images = torch.rand((2, 96, 96, 2), generator=torch.Generator()
+                        .manual_seed(5)).to(card)
+    live = make_multi_granule_infer(lambda m, x: m(x), icfg)
+    with torch.inference_mode():
+        before = (unet_mega.LAUNCHES, fused_conv.LAUNCHES)
+        got = fn(tree, images)
+        torch.cuda.synchronize()
+        # 4 tiles a granule, 2 a batch: two forwards
+        assert (unet_mega.LAUNCHES, fused_conv.LAUNCHES) == (before[0] + 2,
+                                                             before[1])
+        want = live(model, images)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -313,25 +313,33 @@ def test_split_stages_of_the_flagship_at_96_and_288():
             _assert_live(plan, size, b, BF16_FIELDS, False)
 
 
-def test_scratch_is_kept_grown_and_sized_by_the_table():
-    """The forwards' scratch is one buffer per model and stream, as large
-    as the largest table it served: a smaller batch reuses it, a larger one
-    or another stream or dtype gets a new one; its size is the table's."""
-    model = _model(5, depth=2, base_features=8)
-    weights = unet_mega.MegaWeights(unet_mega.fold_weights(model,
-                                                           torch.bfloat16))
-    _blob, stages = unet_mega._pack(weights.folded, torch.device("cpu"))
-    cpu = torch.device("cpu")
-    sizes = {b: unet_mega._plan(stages, b, 32, 32, blocks=132)[1]
-             for b in (1, 4)}
-    assert sizes[4] > sizes[1]
-    big = unet_mega._scratch(weights, sizes[4], torch.bfloat16, cpu, 7)
-    assert big.numel() == sizes[4] and weights.scratch is big
-    assert unet_mega._scratch(weights, sizes[1], torch.bfloat16, cpu, 7) \
-        is big
-    other = unet_mega._scratch(weights, sizes[1], torch.bfloat16, cpu, 8)
-    assert other is not big and other.numel() == sizes[1]
-    f32 = unet_mega._scratch(weights, sizes[1], torch.float32, cpu, 8)
-    assert f32.dtype == torch.float32 and weights.scratch is f32
-    grown = unet_mega._scratch(weights, sizes[4], torch.float32, cpu, 8)
-    assert grown.numel() == sizes[4] and grown is not f32
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stage_table_round_trips_through_ints_and_plans_by_value(dtype):
+    """The op takes the stage table as ints: decoded, it gives every plan
+    the packed table gives, and the plan of a batch is looked up by the
+    table's value (two packings of two models share it), never by a
+    tensor's address."""
+    pack = unet_mega._pack if dtype == torch.bfloat16 else \
+        unet_mega._pack_f32
+    plan_fn = unet_mega._plan if dtype == torch.bfloat16 else \
+        unet_mega._plan_f32
+    tables = []
+    for seed in (5, 6):
+        model = _model(seed, depth=2, base_features=8)
+        weights = unet_mega.MegaWeights(unet_mega.fold_weights(model, dtype))
+        weights.blob, weights.stages = pack(weights.folded,
+                                            torch.device("cpu"))
+        tables.append(weights.ints)
+    assert tables[0] == tables[1]
+    stages = unet_mega.stages_of(tables[0])
+    for b in (1, 4):
+        kw = {"blocks": 132} if dtype == torch.bfloat16 else {}
+        want, size = plan_fn(weights.stages, b, 32, 32, **kw)
+        got, got_size = plan_fn(stages, b, 32, 32, **kw)
+        assert size == got_size and np.array_equal(got, want)
+        arr, elems, plan = unet_mega._plan_of(
+            tables[1], b, 32, 32, False, dtype == torch.float32, 132)
+        assert elems == size and np.array_equal(plan, want)
+        assert list(arr) == want.ravel().tolist()
+        assert unet_mega._plan_of(tables[0], b, 32, 32, False,
+                                  dtype == torch.float32, 132)[0] is arr

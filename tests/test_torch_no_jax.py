@@ -37,7 +37,7 @@ needed = {"plumekit_torch.models.kernels.unet_mega",
           "plumekit_torch.label.selector", "plumekit_torch.label.ranking",
           "plumekit_torch.train.curated", "plumekit_torch.train.evaluate",
           "plumekit_torch.train.distill", "plumekit_torch.infer.serve",
-          "plumekit_torch.infer.tune"}
+          "plumekit_torch.infer.tune", "plumekit_torch.infer.export"}
 banned = {"jax", "jaxlib", "flax", "orbax", "pandas", "plumekit",
           "matplotlib"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)

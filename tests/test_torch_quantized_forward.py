@@ -502,7 +502,7 @@ def test_unetpp_apply_matches_jax(pp_carried, case):
         jax.tree.map(jnp.asarray, c["jax"]), jnp.asarray(x)))
     apply = tq.make_quantized_apply(c["cfg"])
     calls = {"q1": 0, "q2": 0}
-    real_conv, real_up = int8_conv.int8_conv3x3, int8_upsample.int8_upsample2x2
+    real_conv, real_up = int8_conv.conv_op, int8_upsample.upsample_op
 
     def conv(*a, **k):
         calls["q1"] += 1
@@ -512,12 +512,11 @@ def test_unetpp_apply_matches_jax(pp_carried, case):
         calls["q2"] += 1
         return real_up(*a, **k)
 
-    int8_conv.int8_conv3x3, int8_upsample.int8_upsample2x2 = conv, up
+    int8_conv.conv_op, int8_upsample.upsample_op = conv, up
     try:
         got = apply(qvars_from_flax(c["jax"]), torch.from_numpy(x))
     finally:
-        int8_conv.int8_conv3x3, int8_upsample.int8_upsample2x2 = (real_conv,
-                                                                  real_up)
+        int8_conv.conv_op, int8_upsample.upsample_op = real_conv, real_up
     level = effective_level(c["cfg"])
     assert calls == {"q1": (level + 1) * (level + 2),
                      "q2": level * (level + 1) // 2}

@@ -358,8 +358,7 @@ def test_a_device_fault_is_no_granules_fault(tmp_path, monkeypatch, caplog,
         assert "no granule's fault" in caplog.text
 
 
-@pytest.mark.parametrize("flags", [
-    ["--exported", "art"], ["--mesh-devices", "2"], ["--plot"]])
+@pytest.mark.parametrize("flags", [["--mesh-devices", "2"], ["--plot"]])
 def test_serve_refuses_unported_flags(tmp_path, caplog, flags):
     root, _ckpt = _root(tmp_path)
     with caplog.at_level(logging.ERROR):
