@@ -1,7 +1,7 @@
 """Smoke run of plumekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
-``nvcc`` per source, all at once) and drives the port's eleven paths:
+``nvcc`` per source, all at once) and drives the port's twelve paths:
 
 * megakernel serving: K7 (the whole U-Net forward in one launch) against
   its plain PyTorch version at the flagship U-Net over 128 tiles of 96²,
@@ -93,6 +93,19 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   plain versions, split by phase; then ``build_features --detector basic``
   and ``--detector gaussian`` over four 1200² granules each, one of which
   must equal a ``--device cpu`` run;
+* VIIRS swaths (after the detectors): ``identify_viirs_arrays`` of a
+  synthetic IVAOT granule of 768 × 3200 (an 86 s M-band granule; its
+  geolocation through float32, as the GMTCO file stores it) resampled to
+  its 1803 × 4362 UTM grid, on the card (K2 must launch) against the CPU,
+  plume boxes equal and plume images bit for bit, timed by phase (the
+  kd-tree plan, host fire prep, K2, host post); K2 on that grid's opened
+  mask against its plain version, bit for bit, queued beside its bytes
+  bound; ``verify_real_granule --detector rg`` on the bench's 1200²
+  granule on the card (K1 and K3 must launch) and with ``--device cpu``,
+  equal summaries; and, where h5py is absent (the expected case),
+  ``resample_viirs`` refusing by name and writing nothing, else
+  ``make_dataset --viirs-aod-pairs 1``, ``resample_viirs`` and
+  ``identify_viirs`` against the same scene in memory;
 * training (no TPU kernel on the step; K1 and K3 label, K6 and K7 evaluate
   and serve): three steps of ``UNetConfig()`` widths at 8 × 128² on the card
   in fp32 (TF32 off) and bf16 against the CPU in fp32 and float64 from the
@@ -166,7 +179,9 @@ from __future__ import annotations
 import copy
 import csv
 import dataclasses
+import importlib.util
 import json
+import logging
 import math
 import os
 import shutil
@@ -226,7 +241,7 @@ from plumekit_torch.train.step import (  # noqa: E402
     make_train_step, step_generator)
 from plumekit_torch.infer import streaming, tta  # noqa: E402
 from plumekit_torch.infer import tune as tune_mod  # noqa: E402
-from plumekit_torch.io import prefetch  # noqa: E402
+from plumekit_torch.io import prefetch, viirs_aod  # noqa: E402
 from plumekit_torch.infer import export as export_mod  # noqa: E402
 from plumekit_torch.train.loop import train as train_loop  # noqa: E402
 
@@ -2293,6 +2308,184 @@ def detector_features_path(tmp, detector, scene_kw):
     return res
 
 
+# ------------------------------------ VIIRS swaths, the real-granule check
+VIIRS_LINES, VIIRS_SAMPLES = 768, 3200   # one 86 s IVAOT M-band granule
+
+
+def viirs_split(scene, device):
+    """``identify_viirs_arrays`` of one scene on ``device``, timed by
+    phase: the plan (kd-tree build and query, the resample, the grid's
+    coordinates), host fire prep, K2 (on the CPU its plain version), host
+    post-processing and the rest of the detector's device program."""
+    aod, lat, lon, date, fires = scene
+    clock, timed = phase_clock(("plan", "host_prep", "k2", "host_post"))
+    patches = {
+        (viirs_aod, "resample_viirs_aod"): timed(
+            "plan", viirs_aod.resample_viirs_aod),
+        (basic, "_prep_fires"): timed("host_prep", basic._prep_fires),
+        (basic, "multi_threshold_ccl"): timed(
+            "k2", ccl_sweep.multi_threshold_ccl),
+        (basic, "_to_host"): timed("host_post", basic._to_host),
+    }
+    with Patched(patches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = viirs_aod.identify_viirs_arrays(aod, lat, lon, date, fires,
+                                              device=device)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    ms = {k: v * 1e3 for k, v in clock.items()}
+    ms["device_rest"] = total * 1e3 - sum(ms.values())
+    ms["total"] = total * 1e3
+    return ms, out
+
+
+class LogCapture(logging.Handler):
+    """The messages a logger emits inside a ``with`` block."""
+
+    def __init__(self, name):
+        super().__init__()
+        self.logger, self.messages = logging.getLogger(name), []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+
+def viirs_files(tmp):
+    """The VIIRS file commands. Without h5py (the card's machine has
+    none): ``resample_viirs`` on a one-swath root must exit 1 naming h5py
+    and leave no ``.h5``. With it: ``make_dataset --viirs-aod-pairs 1``,
+    ``resample_viirs`` and ``identify_viirs`` on the card, whose mask must
+    equal ``identify_viirs_arrays`` of the same scene in memory."""
+    root = os.path.join(tmp, "viirs_root")
+    h5_dir = os.path.join(root, "raw", "reprojected_viirs", "h5")
+    if importlib.util.find_spec("h5py") is None:
+        run_cli("make_dataset", "--root", root, "--n-granules", "1",
+                "--size", "64", "--viirs-swaths", "1")
+        with LogCapture("plumekit_torch.cli") as log:
+            rc = cli.main(["resample_viirs", "--root", root])
+        named = any("requires h5py" in m for m in log.messages)
+        left = os.listdir(h5_dir) if os.path.isdir(h5_dir) else []
+        print(f"VIIRS files without h5py: resample_viirs exit {rc}, "
+              f"{log.messages}, .h5 left {left}", flush=True)
+        if rc != 1 or not named or left:
+            raise AssertionError("resample_viirs without h5py must exit 1 "
+                                 "naming h5py and write nothing")
+        return {"branch": "no_h5py", "exit": rc, "messages": log.messages}
+    stamp, aod, lat, lon, fires, _ = viirs_aod.make_synthetic_ivaot_scene(
+        seed=SEED)
+    want = viirs_aod.identify_viirs_arrays(
+        aod, *(np.asarray(v, np.float32).astype(np.float64)
+               for v in (lat, lon)), stamp.date, fires, device=DEV)
+    run_cli("make_dataset", "--root", root, "--n-granules", "1", "--size",
+            "64", "--seed", str(SEED), "--viirs-swaths", "1",
+            "--viirs-aod-pairs", "1")
+    run_cli("resample_viirs", "--root", root)
+    ccl_sweep.MASK_LAUNCHES = 0
+    secs = run_cli("identify_viirs", "--root", root)
+    launches = ccl_sweep.MASK_LAUNCHES
+    masks = os.path.join(root, "raw", "viirs", "masks")
+    [npz] = [f for f in os.listdir(masks) if f.endswith("_mask.npz")]
+    with np.load(os.path.join(masks, npz)) as z:
+        image, aod = z["plume_image"], z["aod"]
+    equal = (image.dtype == want[1].dtype and np.array_equal(image, want[1])
+             and np.array_equal(aod, np.nan_to_num(want[2], nan=-999.0)))
+    print(f"VIIRS files with h5py: make_dataset, resample_viirs, "
+          f"identify_viirs {secs:.2f} s, K2 launches {launches}, mask "
+          f"{'equal to' if equal else 'DIFFERS from'} the in-memory run",
+          flush=True)
+    if not (equal and launches):
+        raise AssertionError("identify_viirs' mask differs from "
+                             "identify_viirs_arrays' or launched no K2")
+    return {"branch": "h5py", "identify_viirs_s": secs, "k2": launches}
+
+
+def verify_path(tmp):
+    """``verify_real_granule --fires --detector rg`` on the bench's 1200²
+    ``.npz`` granule on the card (K1 and K3 must launch) and with
+    ``--device cpu``: both exit 0 with equal summaries."""
+    bench = make_scene(SyntheticSceneConfig(seed=SEED, **BENCH_SCENE))
+    gpath = os.path.join(tmp, bench.granule.name + ".npz")
+    fpath = os.path.join(tmp, "fires.csv")
+    save_granule(gpath, bench.granule)
+    write_fire_csv(fpath, bench.fires)
+    argv = ("verify_real_granule", gpath, "--fires", fpath, "--detector",
+            "rg")
+    ccl_sweep.LAUNCHES = label_counts.LAUNCHES = 0
+    card_s, card = run_cli_json(*argv)
+    launches = {"k1": ccl_sweep.LAUNCHES, "k3": label_counts.LAUNCHES}
+    cpu_s, cpu = run_cli_json(*argv, "--device", "cpu")
+    print(f"verify_real_granule rg {BENCH_SCENE['size']}^2: card {card_s:.2f}"
+          f" s, launches {launches}; --device cpu {cpu_s:.2f} s; summaries "
+          f"{'equal' if card == cpu else 'DIFFER'}", flush=True)
+    if card != cpu or not card["ok"]:
+        raise AssertionError(f"verify_real_granule: card {card}, cpu {cpu}")
+    if not (launches["k1"] and launches["k3"]):
+        raise AssertionError(f"verify_real_granule launched {launches}")
+    return {"summary": card, "card_s": card_s, "cpu_s": cpu_s,
+            "launches": launches}
+
+
+def viirs_phase(tmp):
+    """The VIIRS workflow at a real granule's size: ``identify_viirs_arrays``
+    of a synthetic 768 × 3200 IVAOT scene (geolocation through float32, as
+    the GMTCO file stores it) on the card, timed by phase, against the CPU
+    (plume boxes equal, plume images bit for bit); K2 on that UTM grid's
+    opened mask against its plain version, bit for bit, queued beside its
+    bytes bound; ``verify_real_granule`` (K1, K3); the file commands."""
+    t0 = time.perf_counter()
+    stamp, aod, lat, lon, fires, _ = viirs_aod.make_synthetic_ivaot_scene(
+        lines=VIIRS_LINES, samples=VIIRS_SAMPLES, seed=SEED)
+    lat, lon = (np.asarray(v, np.float32).astype(np.float64)
+                for v in (lat, lon))
+    scene = (aod, lat, lon, np.datetime64(stamp.date, "D"), fires)
+    ccl_sweep.MASK_LAUNCHES = 0
+    card_ms, card = viirs_split(scene, DEV)
+    k2_launches = ccl_sweep.MASK_LAUNCHES
+    cpu_ms, cpu = viirs_split(scene, torch.device("cpu"))
+    plumes, image, aod_r, rs = card
+    same = (plumes == cpu[0] and image.dtype == cpu[1].dtype
+            and np.array_equal(image, cpu[1])
+            and np.array_equal(aod_r, cpu[2], equal_nan=True))
+    grid = f"{rs.y_size}x{rs.x_size}"
+    print(f"identify_viirs_arrays {VIIRS_LINES}x{VIIRS_SAMPLES} swath -> "
+          f"{grid} UTM grid (zone {rs.zone}{'S' if rs.south else 'N'}, "
+          f"{float(rs.valid.mean()):.3f} valid), {len(plumes)} plume(s), "
+          f"{int((image > 0).sum())} px, K2 launches {k2_launches}; card ms "
+          + ", ".join(f"{k} {v:.1f}" for k, v in card_ms.items())
+          + "; cpu ms " + ", ".join(f"{k} {v:.1f}" for k, v in cpu_ms.items())
+          + f"; card {'equals' if same else 'DIFFERS from'} the CPU",
+          flush=True)
+    if not same:
+        raise AssertionError("identify_viirs_arrays: card and CPU differ")
+    if not (plumes and k2_launches):
+        raise AssertionError(f"identify_viirs_arrays found {plumes} with "
+                             f"{k2_launches} K2 launches")
+    plane = torch.from_numpy(np.nan_to_num(aod_r, nan=-999.0)).to(DEV)
+    limit = torch.tensor(BASIC.aod_min_limit, dtype=plane.dtype, device=DEV)
+    k2_row = check_masks(f"viirs_utm_{grid}", binary_opening_cross(
+        plane >= limit)[None].contiguous())
+    del plane
+    res = {"swath": [VIIRS_LINES, VIIRS_SAMPLES],
+           "grid": [rs.y_size, rs.x_size], "zone": rs.zone,
+           "south": rs.south, "valid_share": float(rs.valid.mean()),
+           "plumes": plumes, "plume_px": int((image > 0).sum()),
+           "card_ms": card_ms, "cpu_ms": cpu_ms,
+           "launches": {"k2": k2_launches}, "k2_row": k2_row,
+           "verify": verify_path(tmp),
+           "files": viirs_files(tmp)}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"VIIRS phase {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 # ------------------------------------------------------------- training
 # step parity: UNetConfig() widths, 8 tiles of 128² from seed 0, three
 # steps from the same weights on the card in fp32 (TF32 off) and bf16 and on
@@ -4110,6 +4303,12 @@ def main() -> int:
         gaussian_features = detector_features_path(tmp, "gaussian",
                                                    GAUSS_SCENE)
 
+    # VIIRS swaths at a real granule's size (K2 on its UTM grid) and the
+    # real-granule check (K1, K3)
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        viirs = viirs_phase(tmp)
+    torch.cuda.empty_cache()
+
     # training: step parity, timed steps, the quick-start chain (K1 and K3
     # label, K6 and K7 evaluate and serve)
     torch.cuda.empty_cache()
@@ -4205,13 +4404,22 @@ def main() -> int:
                   # train_model --weak-labels, labelling its granules,
                   # for the U-Net and for the UNet++
                   train_launches=chain["launches"]["k1"],
-                  unetpp_train_launches=pp_train["k1"]),
+                  unetpp_train_launches=pp_train["k1"],
+                  # verify_real_granule --detector rg on the 1200² granule
+                  verify_launches=viirs["verify"]["launches"]["k1"]),
         ccl_entry("multi_threshold_ccl",
                   "plumekit/ops/pallas/ccl_sweep.py:468", basic_mask,
                   basic_features["launches"]["k2"]
-                  + gaussian_features["launches"]["k2"], mask_rows,
+                  + gaussian_features["launches"]["k2"],
+                  mask_rows + [viirs["k2_row"]],
                   # evaluate_model --objects and the object sweep
-                  evaluate_launches=curation["k2_launches"]), {
+                  evaluate_launches=curation["k2_launches"],
+                  # identify_viirs_arrays on the 768 x 3200 granule, and
+                  # the kernel on that UTM grid's opened mask
+                  viirs_launches=viirs["launches"]["k2"],
+                  at_viirs_grid={k: viirs["k2_row"][k] for k in (
+                      "h", "w", "ms", "plain_ms", "bound_ms", "bound_by",
+                      "wrong_pixels")}), {
         "name": "fire_label_counts", "route": "cuda",
         "source": "plumekit_torch/csrc/label_counts.cu",
         "replaces": "plumekit/ops/pallas/label_counts.py:83",
@@ -4219,6 +4427,7 @@ def main() -> int:
         + gaussian_features["launches"]["k3"],
         "train_launches": chain["launches"]["k3"],
         "unetpp_train_launches": pp_train["k3"],
+        "verify_launches": viirs["verify"]["launches"]["k3"],
         "max_abs_err": max(r["max_abs_err"] for r in count_rows),
         "ms": bench_counts["ms"], "plain_ms": bench_counts["plain_ms"],
         "bound_ms": bench_counts["bound_ms"],
@@ -4401,6 +4610,7 @@ def main() -> int:
                    "detectors": detectors,
                    "build_features_basic": basic_features,
                    "build_features_gaussian": gaussian_features,
+                   "viirs": viirs,
                    "training": training, "curation": curation,
                    "streams": streams,
                    "unetpp": unetpp, "entry_points": entry,

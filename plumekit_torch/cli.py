@@ -1,5 +1,6 @@
 """Command-line entry points of the port: ``make_dataset``,
-``build_features``, ``identify``, ``select``, ``prepare_model_data``,
+``resample_viirs``, ``identify_viirs``, ``build_features``, ``identify``,
+``verify_real_granule``, ``select``, ``prepare_model_data``,
 ``train_model``, ``predict_model``, ``serve``, ``tune``,
 ``export_model`` and ``evaluate_model``.
 
@@ -21,7 +22,15 @@ Usage: ``plumekit-torch <command> --root R ...`` or
   plume count and, with ``--out``, writes its hull table;
 * ``make_dataset`` writes synthetic granules under
   ``raw/plume_identification/maiac`` and their fires to
-  ``raw/fires/fires.csv``, as ``plumekit make_dataset`` does;
+  ``raw/fires/fires.csv``, as ``plumekit make_dataset`` does, and with
+  ``--viirs-swaths`` / ``--viirs-aod-pairs`` VIIRS SDR swaths and
+  IVAOT/GMTCO h5 pairs with ``raw/fires/fires_viirs_aod.csv``;
+* ``resample_viirs`` reprojects the SDR swaths onto UTM grids
+  (``raw/reprojected_viirs/h5``) and ``identify_viirs`` resamples every
+  IVAOT/GMTCO pair and runs the basic detector on it (``raw/viirs/masks``),
+  as the reference notebook does; the files are h5, so both need h5py;
+* ``verify_real_granule FILE`` runs one granule through the real-data
+  contract register and prints its JSON summary;
 * ``select --decisions CSV`` splits every rg or gaussian hull table into
   kept (``dataframes/reduced/plume/hull``) and rejected
   (``dataframes/reduced/not_plume/hull``) plumes; without ``--decisions``
@@ -758,17 +767,16 @@ def cmd_serve(args) -> int:
 
 def cmd_make_dataset(args) -> int:
     """Write synthetic granules and a VIIRS-like fire CSV into the
-    reference's directory layout."""
+    reference's directory layout; ``--viirs-swaths N`` also writes N SDR
+    swaths (``raw/viirs/sdr``) and ``--viirs-aod-pairs N`` N IVAOT/GMTCO
+    h5 pairs (``raw/viirs/{aod,geo}``) with their fires in
+    ``raw/fires/fires_viirs_aod.csv``."""
     from plumekit_torch.io.granule import save_granule
     from plumekit_torch.io.synthetic import (SyntheticSceneConfig,
                                              make_scene, write_fire_csv)
 
-    for flag in ("viirs_swaths", "viirs_aod_pairs"):
-        if getattr(args, flag):
-            logger.error("--%s is not ported to plumekit_torch yet "
-                         "(ROADMAP.md, queue A: 'VIIRS swaths')",
-                         flag.replace("_", "-"))
-            return 1
+    if args.viirs_aod_pairs and not _h5py_present():
+        return 1
     paths = PathsConfig(root=args.root)
     maiac_dir = paths.ensure("maiac_dir")
     fires_dir = paths.ensure("fires_dir")
@@ -784,12 +792,182 @@ def cmd_make_dataset(args) -> int:
         save_granule(out, scene.granule)
         tables.append(scene.fires)
         logger.info("wrote %s (%d fires)", out, len(scene.fires["frp"]))
-    fires = {k: np.concatenate([t[k] for t in tables])
-             for k in ("latitude", "longitude", "frp", "acq_date")}
     fire_csv = os.path.join(fires_dir, "fires.csv")
-    write_fire_csv(fire_csv, fires)
-    logger.info("wrote %s (%d rows)", fire_csv, len(fires["frp"]))
+    write_fire_csv(fire_csv, _concat_fires(tables))
+    logger.info("wrote %s (%d rows)", fire_csv,
+                sum(len(t["frp"]) for t in tables))
+
+    if args.viirs_swaths:
+        from plumekit_torch.io.viirs import make_synthetic_swath, save_swath
+
+        sdr_dir = paths.ensure("viirs_sdr_dir")
+        for i in range(args.viirs_swaths):
+            swath = make_synthetic_swath(
+                seed=args.seed + i, name=f"viirs_sdr_{args.seed + i:04d}")
+            out = os.path.join(sdr_dir, swath.name + ".npz")
+            save_swath(out, swath)
+            logger.info("wrote %s %s", out, swath.shape)
+
+    if args.viirs_aod_pairs:
+        from plumekit_torch.io.viirs_aod import (make_synthetic_ivaot_scene,
+                                                 write_synthetic_pair)
+
+        aod_dir = paths.ensure("viirs_aod_dir")
+        geo_dir = paths.ensure("viirs_geo_dir")
+        pair_fires = []
+        for i in range(args.viirs_aod_pairs):
+            stamp, aod, vlat, vlon, vfires, _ = make_synthetic_ivaot_scene(
+                seed=args.seed + i)
+            ap, _ = write_synthetic_pair(aod_dir, geo_dir, stamp, aod,
+                                         vlat, vlon)
+            pair_fires.append(vfires)
+            logger.info("wrote %s + geo", os.path.basename(ap))
+        vcsv = os.path.join(fires_dir, "fires_viirs_aod.csv")
+        write_fire_csv(vcsv, _concat_fires(pair_fires))
+        logger.info("wrote %s (%d rows)", vcsv,
+                    sum(len(t["frp"]) for t in pair_fires))
     return 0
+
+
+def _concat_fires(tables):
+    """The CSV columns of several fire tables, row after row."""
+    return {k: np.concatenate([t[k] for t in tables])
+            for k in ("latitude", "longitude", "frp", "acq_date")}
+
+
+def _h5py_present() -> bool:
+    """True if h5py imports; else logs the named refusal (the machine with
+    the card has no h5py: its VIIRS path is the arrays entry,
+    ``io/viirs_aod.identify_viirs_arrays``)."""
+    from plumekit_torch.io.granule import _h5py
+
+    try:
+        _h5py()
+    except ImportError as e:
+        logger.error("%s", e)
+        return False
+    return True
+
+
+def cmd_resample_viirs(args) -> int:
+    """Reproject every SDR swath under ``raw/viirs/sdr`` onto its modal UTM
+    zone: ``raw/reprojected_viirs/h5/<base>.h5`` and, with
+    ``--quicklooks``, the blue and true-colour PNGs; an existing product is
+    skipped. Host work only (the plan and its gathers)."""
+    from plumekit_torch.io.viirs import (_plt, load_swath, reproject_swath,
+                                         write_quicklooks,
+                                         write_reprojected_h5)
+
+    if not _h5py_present():
+        return 1
+    if args.quicklooks:
+        try:
+            _plt()
+        except ImportError as e:
+            logger.error("%s", e)
+            return 1
+    paths = PathsConfig(root=args.root)
+    sdr_dir = paths.ensure("viirs_sdr_dir")
+    h5_dir = paths.ensure("viirs_sdr_reproj_h5_dir")
+    n_done = 0
+    for fname in sorted(os.listdir(sdr_dir)):
+        if not fname.endswith(".npz"):
+            continue
+        base = os.path.splitext(fname)[0]
+        out_h5 = os.path.join(h5_dir, base + ".h5")
+        if os.path.exists(out_h5):
+            logger.info("%s already reprojected, continuing...", base)
+            continue
+        swath = load_swath(os.path.join(sdr_dir, fname))
+        resampler, rasters = reproject_swath(
+            swath, pixel_size_m=args.pixel_size,
+            radius_of_influence_m=args.radius)
+        write_reprojected_h5(out_h5, resampler, rasters)
+        if args.quicklooks:
+            write_quicklooks(
+                base, rasters,
+                blue_dir=paths.ensure("viirs_sdr_reproj_blue_dir"),
+                tcc_dir=paths.ensure("viirs_sdr_reproj_tcc_dir"))
+        n_done += 1
+        logger.info("%s → %s (zone %d%s, %dx%d)", fname, out_h5,
+                    resampler.zone, "S" if resampler.south else "N",
+                    resampler.y_size, resampler.x_size)
+    logger.info("reprojected %d swaths", n_done)
+    return 0
+
+
+def cmd_identify_viirs(args) -> int:
+    """The reference notebook's workflow over every IVAOT/GMTCO pair under
+    ``raw/viirs/{aod,geo}``: resample to the UTM grid, the basic detector
+    on ``--device``, and ``raw/viirs/masks/<base>_mask.npz`` then
+    ``<base>_plumes.csv`` (the resume key) per granule."""
+    from plumekit_torch.io.fires import load_fire_csv
+    from plumekit_torch.io.tables import Table
+    from plumekit_torch.io.viirs_aod import identify_viirs_aod, pair_granules
+
+    if not _h5py_present():
+        return 1
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        logger.error("%s", e)
+        return 1
+    paths = PathsConfig(root=args.root)
+    aod_dir = paths.ensure("viirs_aod_dir")
+    geo_dir = paths.ensure("viirs_geo_dir")
+    masks_dir = paths.ensure("viirs_masks_dir")
+    fire_csv = args.fires or os.path.join(paths.ensure("fires_dir"),
+                                          "fires_viirs_aod.csv")
+    if not os.path.exists(fire_csv):
+        logger.error("no fire table at %s — run 'plumekit-torch make_dataset "
+                     "--viirs-aod-pairs' or point --fires at a VIIRS fire "
+                     "CSV", fire_csv)
+        return 1
+    fires = load_fire_csv(fire_csv)
+
+    pairs = pair_granules(aod_dir, geo_dir)
+    if not pairs:
+        logger.warning("no IVAOT/GMTCO pairs under %s / %s", aod_dir,
+                       geo_dir)
+        return 1
+    for pair in pairs:
+        base = os.path.splitext(os.path.basename(pair["aod"]))[0]
+        out_csv = os.path.join(masks_dir, base + "_plumes.csv")
+        if os.path.exists(out_csv):
+            logger.info("%s already identified, continuing...", base)
+            continue
+        plume_dict, plume_image, aod_r, _ = identify_viirs_aod(
+            pair["aod"], pair["geo"], fires, pixel_size_m=args.pixel_size,
+            device=device)
+        # the mask first, the bbox CSV last: resume keys on the CSV
+        np.savez_compressed(os.path.join(masks_dir, base + "_mask.npz"),
+                            plume_image=plume_image,
+                            aod=np.nan_to_num(aod_r, nan=-999.0))
+        Table(("plume_id", "min_r", "min_c", "max_r", "max_c"),
+              [(pid, b["min_r"], b["min_c"], b["max_r"], b["max_c"])
+               for pid, b in plume_dict.items()]).to_csv(out_csv)
+        logger.info("%s: %d plume(s) → %s", base, len(plume_dict), out_csv)
+    return 0
+
+
+def cmd_verify_real_granule(args) -> int:
+    """One granule file through the real-data contract register
+    (``io/verify.py``): prints the JSON summary as its last line and exits
+    0 only when every check that ran passed."""
+    from plumekit_torch.io.verify import verify_granule
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        logger.error("%s", e)
+        return 1
+    res = verify_granule(args.granule, fires_csv=args.fires,
+                         detector=args.detector,
+                         run_identify=not args.no_identify, device=device)
+    for c in res.checks:
+        logger.info("%-18s %-4s %s", c.name, c.status.upper(), c.detail)
+    print(json.dumps(res.summary()))
+    return 0 if res.ok else 1
 
 
 def cmd_train_model(args) -> int:
@@ -1372,10 +1550,39 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--plumes", type=int, default=4)
     d.add_argument("--seed", type=int, default=0)
     d.add_argument("--viirs-swaths", type=int, default=0,
-                   help="synthetic VIIRS SDR swaths" + unported)
+                   help="also write N synthetic VIIRS SDR swaths "
+                        "(raw/viirs/sdr)")
     d.add_argument("--viirs-aod-pairs", type=int, default=0,
-                   help="synthetic IVAOT/GMTCO h5 pairs" + unported)
+                   help="also write N synthetic IVAOT/GMTCO h5 pairs "
+                        "(raw/viirs/{aod,geo}; needs h5py)")
     d.set_defaults(fn=cmd_make_dataset)
+
+    rv = sub.add_parser("resample_viirs",
+                        help="reproject SDR swaths to UTM grids "
+                             "(raw/reprojected_viirs; needs h5py)")
+    rv.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),
+                    help="workspace root")
+    rv.add_argument("--pixel-size", type=float, default=750.0,
+                    help="UTM grid pixel size in meters")
+    rv.add_argument("--radius", type=float, default=10000.0,
+                    help="radius of influence in meters")
+    rv.add_argument("--quicklooks", action="store_true",
+                    help="also write blue/tcc PNGs (needs matplotlib)")
+    rv.set_defaults(fn=cmd_resample_viirs)
+
+    iv = sub.add_parser("identify_viirs",
+                        help="IVAOT/GMTCO AOD pairs → UTM resample → basic "
+                             "identify → plume masks (needs h5py)")
+    iv.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),
+                    help="workspace root")
+    iv.add_argument("--fires", default=None,
+                    help="fire CSV (default raw/fires/fires_viirs_aod.csv)")
+    iv.add_argument("--pixel-size", type=float, default=750.0,
+                    help="UTM grid pixel size in meters")
+    iv.add_argument("--device", default="cuda",
+                    help="torch device of the detector (default: cuda; the "
+                         "CPU runs the kernels' plain versions)")
+    iv.set_defaults(fn=cmd_identify_viirs)
 
     t = sub.add_parser("train_model", help="train the U-Net or UNet++")
     t.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),
@@ -1558,6 +1765,24 @@ def build_parser() -> argparse.ArgumentParser:
     idp.add_argument("--out", default=None,
                      help="CSV path for the hull table")
     idp.set_defaults(fn=cmd_identify)
+
+    vg = sub.add_parser(
+        "verify_real_granule",
+        help="one granule file through the real-data contract register: "
+             "decode, grid, values, UTM resample, a detector smoke run; "
+             "exit 0 iff every check that ran passed")
+    vg.add_argument("granule", help="granule file (.npz, .h5; .hdf fails "
+                                    "its decode check)")
+    vg.add_argument("--fires", default=None,
+                    help="fire CSV for the detector smoke run (without it "
+                         "the identify check is skipped)")
+    vg.add_argument("--detector", choices=["rg", "gaussian", "basic"],
+                    default="rg")
+    vg.add_argument("--no-identify", action="store_true",
+                    help="skip the detector smoke run even with --fires")
+    vg.add_argument("--device", default="cuda",
+                    help="torch device of the detector (default: cuda)")
+    vg.set_defaults(fn=cmd_verify_real_granule)
 
     s = sub.add_parser("select", help="plume curation (review/decisions)")
     s.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),

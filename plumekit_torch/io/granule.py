@@ -71,8 +71,9 @@ def _h5py():
     try:
         import h5py
     except ImportError as e:
-        raise ImportError("reading or writing .h5 granules requires h5py; "
-                          "use .npz granules instead") from e
+        raise ImportError("reading or writing .h5 files requires h5py, "
+                          "which is not installed (granules can be .npz "
+                          "instead)") from e
     return h5py
 
 

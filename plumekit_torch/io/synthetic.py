@@ -193,12 +193,13 @@ def make_fire_table(lat, lon, rows, cols, frps, date: str, rng=None
 
 def write_fire_csv(path: str, fires: FireTable) -> None:
     """Write ``latitude, longitude, frp, acq_date`` as ``make_dataset`` of
-    the JAX package does (floats at full precision)."""
+    the JAX package does, byte for byte (floats at full precision, lines
+    ended by a bare newline)."""
     import csv
 
     cols = ["latitude", "longitude", "frp", "acq_date"]
     with open(path, "w", newline="") as f:
-        w = csv.writer(f)
+        w = csv.writer(f, lineterminator="\n")
         w.writerow(cols)
         for row in zip(*(fires[c] for c in cols)):
             w.writerow([repr(float(v)) for v in row[:3]] + [str(row[3])])

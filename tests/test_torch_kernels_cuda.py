@@ -87,6 +87,32 @@ def test_ccl_mask_kernel_matches_plain_version(card, case, connectivity):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("limit", [0.2, 0.05])
+@pytest.mark.parametrize("lines,samples", [(96, 128), (384, 1600)])
+def test_ccl_mask_kernel_on_a_resampled_viirs_grid(card, lines, samples,
+                                                   limit):
+    """K2 on the basic detector's opened mask of a VIIRS swath resampled to
+    its UTM grid, the shape ``identify_viirs`` gives it: not square, no
+    multiple of 64, fill corners off the swath (at 0.05 the background
+    joins up)."""
+    from plumekit_torch.io import viirs_aod
+    from plumekit_torch.ops.morphology import binary_opening_cross
+
+    _, aod, lat, lon, _, _ = viirs_aod.make_synthetic_ivaot_scene(
+        lines=lines, samples=samples, seed=0, n_plumes=2)
+    _, aod_r, _, _ = viirs_aod.resample_viirs_aod(aod, lat, lon)
+    plane = torch.from_numpy(np.nan_to_num(aod_r, nan=-999.0)).to(card)
+    masks = binary_opening_cross(plane >= limit)[None].contiguous()
+    assert masks.any() and not masks.all()
+    before = ccl_sweep.MASK_LAUNCHES
+    got = ccl_sweep.multi_threshold_ccl(masks, 2, nested=False)
+    torch.cuda.synchronize()
+    assert ccl_sweep.MASK_LAUNCHES == before + 1
+    ref = ccl_sweep.multi_threshold_ccl_masks_ref(masks, 2)
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
 def test_kernel_matches_plain_version_on_the_card(card):
     """K6 at a ragged shape with an unaligned input width (``chip_smoke.py``
     covers every U-Net shape)."""

@@ -1,8 +1,8 @@
 """plumekit_torch imports neither JAX nor the JAX package: the machine with
-the card has no jax, flax, orbax, pandas or matplotlib (which the review
-export imports when it runs, not at import). Checked in a fresh
-interpreter, because this test process has JAX loaded
-(tests/conftest.py)."""
+the card has no jax, flax, orbax, pandas, matplotlib or h5py (which the
+review export, the quicklooks and the ``.h5`` readers and writers import
+when they run, not at import). Checked in a fresh interpreter, because this
+test process has JAX loaded (tests/conftest.py)."""
 
 import os
 import subprocess
@@ -37,9 +37,11 @@ needed = {"plumekit_torch.models.kernels.unet_mega",
           "plumekit_torch.label.selector", "plumekit_torch.label.ranking",
           "plumekit_torch.train.curated", "plumekit_torch.train.evaluate",
           "plumekit_torch.train.distill", "plumekit_torch.infer.serve",
-          "plumekit_torch.infer.tune", "plumekit_torch.infer.export"}
+          "plumekit_torch.infer.tune", "plumekit_torch.infer.export",
+          "plumekit_torch.geo.utm", "plumekit_torch.io.viirs",
+          "plumekit_torch.io.viirs_aod", "plumekit_torch.io.verify"}
 banned = {"jax", "jaxlib", "flax", "orbax", "pandas", "plumekit",
-          "matplotlib"}
+          "matplotlib", "h5py"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 missing = sorted(needed - set(names))
 print(len(names), "modules;", "loaded:", loaded, "missing:", missing)

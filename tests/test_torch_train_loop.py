@@ -7,6 +7,7 @@ carried-over parameters against ``make_train_step`` over the JAX
 import csv
 import logging
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -312,11 +313,24 @@ def test_unported_train_flags_exit_1_naming_their_item(flags, item, caplog,
 
 
 @pytest.mark.parametrize("flag", ["--viirs-swaths", "--viirs-aod-pairs"])
-def test_unported_make_dataset_flags_exit_1(flag, caplog, tmp_path):
-    with caplog.at_level(logging.ERROR):
-        assert cli.main(["make_dataset", "--root", str(tmp_path), flag,
-                         "1"]) == 1
-    assert "queue A: 'VIIRS swaths'" in caplog.text
+def test_unported_make_dataset_flags_exit_1(flag, caplog, tmp_path,
+                                            monkeypatch):
+    """The VIIRS flags, refused until the port had them, now exit 1 only
+    where the h5 pairs cannot be written: without h5py, before anything
+    is written (the swaths too, when they ride with the pairs)."""
+    argv = ["make_dataset", "--n-granules", "1", "--size", "64", flag, "1"]
+    if flag == "--viirs-swaths":
+        argv += ["--viirs-aod-pairs", "1"]
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "h5py", None)
+        with caplog.at_level(logging.ERROR):
+            assert cli.main([*argv, "--root", str(tmp_path / "a")]) == 1
+        assert "requires h5py" in caplog.text
+        assert not os.path.exists(tmp_path / "a")
+    pytest.importorskip("h5py")
+    assert cli.main([*argv, "--root", str(tmp_path / "b")]) == 0
+    sub = "sdr" if flag == "--viirs-swaths" else "aod"
+    assert os.listdir(tmp_path / "b" / "raw" / "viirs" / sub)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
