@@ -1,15 +1,16 @@
 """Smoke run of plumekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
-``nvcc`` per source, all at once) and drives the port's twelve paths:
+``nvcc`` per source, all at once) and drives the port's thirteen paths:
 
 * megakernel serving: K7 (the whole U-Net forward in one launch) against
   its plain PyTorch version at the flagship U-Net over 128 tiles of 96²,
   one tile and a 64 × 48 depth-3 net, and against the cuDNN forward; stage
   by stage (its debug form keeps every plane) against the plain version of
   each stage at 128 tiles of 96² and of 288²; its fp32 body against the
-  plain version in fp32; its per-stage times and busy shares beside K6 at
-  the same block shapes (``experiments/mega_stage_times.py``); then
+  plain version in fp32; its per-stage times and busy shares at 128 tiles
+  of 96² beside K6 at the same block shapes
+  (``experiments/mega_stage_times.py``); then
   the four 2048² granules served through ``predict_model --tile 96
   --overlap 32`` from a checkpoint that says ``use_mega`` (K7 must launch
   once per forward and K6 not at all) and from one that does not; K5 (one
@@ -162,7 +163,21 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   plain, ``--int8`` (masks flip under 1% against plain), ``--prune-level
   4`` (bit for bit the unpruned call), ``--prune-level 2`` and ``--int8
   --prune-level 2`` (Q1 12 and Q2 3 launches per forward), and
-  ``--fused``, which must exit 1.
+  ``--fused``, which must exit 1;
+* the mesh (``parallel_phase``, last): a 2-slot data mesh (two distinct
+  cards where there are two, else two replicas or ranks on ``cuda:0``):
+  ``make_batch_infer_sharded`` of the four 2048² granules at G = 2 a slot
+  for the plain, ``use_pallas`` (K6), ``use_mega`` (K7, tile 96) and int8
+  (Q1, Q2) forwards against the one-device program (the serving gate; K6
+  9, K7 1, Q1 18, Q2 4 launches per forward per replica), each slot's
+  share alone; ``make_sharded_infer`` of a 1024² raster on a (1, 2, 2)
+  grid against the unsharded forward inside the border's receptive field
+  and at the seams; ``batch_identify_sharded`` of three 1200² bench scenes
+  (padded to four) against the single-scene sweep (K1 and K3 once a
+  scene); two ranks' train steps (gloo on one card, NCCL on two) against
+  the one-process step in bf16 at 16 × 512² and in float64 compute at
+  16 × 256²; on one card, the device-count refusals of ``predict_model
+  --mesh-devices 2`` and ``train_model --data-parallel 2``.
 
 Every kernel's time stands beside its bound: the bytes it must move (each
 input read once, each output written once) over the card's memory rate,
@@ -244,6 +259,14 @@ from plumekit_torch.infer import tune as tune_mod  # noqa: E402
 from plumekit_torch.io import prefetch, viirs_aod  # noqa: E402
 from plumekit_torch.infer import export as export_mod  # noqa: E402
 from plumekit_torch.train.loop import train as train_loop  # noqa: E402
+from plumekit_torch.config import MeshConfig  # noqa: E402
+from plumekit_torch.experiments import data_parallel_steps  # noqa: E402
+from plumekit_torch.identify.batch import batch_identify_sharded  # noqa
+from plumekit_torch.identify.locate import fire_bucket  # noqa: E402
+from plumekit_torch.infer import (  # noqa: E402
+    choose_halo, make_batch_infer_sharded, make_sharded_infer)
+from plumekit_torch.models import receptive_field, replicate_model  # noqa
+from plumekit_torch.parallel import make_mesh, shard  # noqa: E402
 
 SEED = 0
 DEV = torch.device("cuda")
@@ -288,8 +311,8 @@ QUEUED = ccl_pass_times.QUEUED
 FEATURE_GRANULES = 4
 # at 8192² only this many plumes carry fires: locating a fire scans the
 # whole lat/lon grid on the host (about half a second each there, 80% of a
-# run: 64 took 37 s a run)
-SWATH_FIRES = 32
+# run: 64 took 37 s a run, 32 about 21 s)
+SWATH_FIRES = 16
 # K1 and K3 are integer results: kernel and plain version must be equal.
 # build_features on the card vs on the CPU: integer columns and masks
 # exact; the in-plume AOD mean and sd are float32 sums taken in another
@@ -645,8 +668,7 @@ def compare_served(got, want):
 
 
 def main_path(model, root, tmp):
-    """predict_model over 4 granules of 2048², fused then plain, twice each
-    in the order fused, plain, plain, fused."""
+    """predict_model over 4 granules of 2048², fused then plain."""
     n_tiles, forwards = serving_geometry(ICFG)
     mpix = GRANULES * GRANULE_PX**2 / 1e6
 
@@ -657,8 +679,6 @@ def main_path(model, root, tmp):
         raise AssertionError(f"K6 launched {launches} times for {forwards} "
                              "forwards of 9 blocks")
     plain_s, plain_preds = serve(root)
-    plain_s2, _ = serve(root)
-    fused_s2, _ = serve(root, "--fused")
 
     max_dp, share, confident_flips = compare_served(fused_preds, plain_preds)
 
@@ -676,9 +696,8 @@ def main_path(model, root, tmp):
         plain_fwd = time_ms(lambda: model(x), reps=5)
     res = {"granules": GRANULES, "granule_px": GRANULE_PX,
            "forwards": forwards, "k6_launches": launches,
-           "fused_s": [fused_s, fused_s2], "plain_s": [plain_s, plain_s2],
-           "fused_mpix_s": [mpix / fused_s, mpix / fused_s2],
-           "plain_mpix_s": [mpix / plain_s, mpix / plain_s2],
+           "fused_s": [fused_s], "plain_s": [plain_s],
+           "fused_mpix_s": [mpix / fused_s], "plain_mpix_s": [mpix / plain_s],
            "fused_forward_ms": fused_fwd, "plain_forward_ms": plain_fwd,
            "fused_forward_mpix_s": mpix / (forwards * fused_fwd / 1e3),
            "plain_forward_mpix_s": mpix / (forwards * plain_fwd / 1e3),
@@ -688,9 +707,9 @@ def main_path(model, root, tmp):
            "preds": {"plain": plain_preds, "use_pallas": fused_preds}}
     print(f"predict_model {GRANULES}x{GRANULE_PX}^2: K6 launches {launches} "
           f"({forwards} forwards x 9); whole call fused "
-          f"{res['fused_mpix_s'][0]:.2f}/{res['fused_mpix_s'][1]:.2f} MPix/s,"
-          f" plain {res['plain_mpix_s'][0]:.2f}/{res['plain_mpix_s'][1]:.2f} "
-          f"MPix/s; forwards alone fused {res['fused_forward_mpix_s']:.1f}, "
+          f"{res['fused_mpix_s'][0]:.2f} MPix/s, plain "
+          f"{res['plain_mpix_s'][0]:.2f} MPix/s; forwards alone fused "
+          f"{res['fused_forward_mpix_s']:.1f}, "
           f"plain {res['plain_forward_mpix_s']:.1f} MPix/s; max|dprobs| "
           f"{max_dp:.4g}, mask flips {share:.3e} ({confident_flips} with "
           f"|p_plain - 0.5| > {PROB_ATOL})", flush=True)
@@ -991,12 +1010,13 @@ def mega_ops(cfg, t):
 
 
 def mega_stage_table(model, rng, batch, kernel_rows):
-    """K7 stage by stage at the main path's batch of 96² and of 288² tiles
+    """K7 stage by stage at the main path's batch of 96² tiles
     (``experiments/mega_stage_times.py``: queued prefixes and per-block
-    stamps), beside K6 at the same block shape from ``check_kernel``."""
+    stamps; ``--tiles 96 288`` times 288² too), beside K6 at the same block
+    shape from ``check_kernel``."""
     weights = unet_mega.weights_of(model, torch.bfloat16, DEV)
     out = {}
-    for tile in (MEGA.tile_size, ICFG.tile_size):
+    for tile in (MEGA.tile_size,):
         x = mega_tiles(rng, batch, tile).to(torch.bfloat16).contiguous()
         stages = mega_stage_times.stage_split_of(weights, x, reps=3)
         k6 = [r for r in kernel_rows if r["set"] == str(tile)]
@@ -1017,8 +1037,7 @@ def mega_path(model, root, tmp, forward_ms):
     """The slice's path: ``predict_model --tile 96 --overlap 32
     --batch-granules 2`` over the 4 granules of 2048² from a checkpoint
     whose config says ``use_mega`` (every forward one launch of K7, K6
-    never) and from the same weights without the flag (cuDNN), in the order
-    mega, plain, plain, mega."""
+    never), then from the same weights without the flag (cuDNN)."""
     mega_ckpt = os.path.join(tmp, "mega_checkpoint")
     mega_cfg = dataclasses.replace(model.cfg, use_mega=True)
     save_model_config(mega_ckpt, mega_cfg)
@@ -1035,37 +1054,26 @@ def mega_path(model, root, tmp, forward_ms):
         raise AssertionError(f"megakernel serving launched {launches} for "
                              f"{forwards} forwards")
     plain_s, plain_preds = serve(root, *flags)
-    plain_s2, _ = serve(root, *flags)
-    mega_s2, _ = serve(root, *flags, "--checkpoint", mega_ckpt)
-    if unet_mega.LAUNCHES != 2 * forwards:
-        raise AssertionError("the plain serving runs launched K7")
+    if unet_mega.LAUNCHES != forwards:
+        raise AssertionError("the plain serving run launched K7")
     max_dp, share, confident_flips = compare_served(mega_preds, plain_preds)
-
-    split_dir = os.path.join(tmp, "mega_split")
-    os.makedirs(split_dir)
-    mega_model = build_model(mega_cfg).to(DEV).eval()
-    mega_model.load_state_dict(model.state_dict())
-    split = serving_split(root, mega_model, split_dir,
-                          lambda m, x: m(x), MEGA, "megakernel")
     res = {"granules": GRANULES, "granule_px": GRANULE_PX,
            "tile": MEGA.tile_size, "overlap": MEGA.overlap,
            "tiles_per_granule": n_tiles, "forwards": forwards,
            "launches": launches,
-           "mega_s": [mega_s, mega_s2], "plain_s": [plain_s, plain_s2],
-           "mega_mpix_s": [mpix / mega_s, mpix / mega_s2],
-           "plain_mpix_s": [mpix / plain_s, mpix / plain_s2],
+           "mega_s": [mega_s], "plain_s": [plain_s],
+           "mega_mpix_s": [mpix / mega_s], "plain_mpix_s": [mpix / plain_s],
            "forward_mpix_s": {k: mpix / (forwards * v / 1e3)
                               for k, v in forward_ms.items()},
            "max_abs_dprobs": max_dp, "mask_flip_share": share,
-           "confident_flips": confident_flips, "mega_split_s": split,
-           "checkpoint": mega_ckpt, "preds": mega_preds}
+           "confident_flips": confident_flips, "checkpoint": mega_ckpt,
+           "preds": mega_preds}
     print(f"predict_model --tile {MEGA.tile_size} --overlap {MEGA.overlap} "
           f"{GRANULES}x{GRANULE_PX}^2: K7 launches {launches['k7']} "
           f"({forwards} forwards of {BATCH_GRANULES * MEGA.batch_tiles} tiles),"
           f" K6 launches {launches['k6']}; whole call use_mega "
-          f"{res['mega_mpix_s'][0]:.2f}/{res['mega_mpix_s'][1]:.2f} MPix/s, "
-          f"plain {res['plain_mpix_s'][0]:.2f}/{res['plain_mpix_s'][1]:.2f} "
-          "MPix/s; forwards alone "
+          f"{res['mega_mpix_s'][0]:.2f} MPix/s, plain "
+          f"{res['plain_mpix_s'][0]:.2f} MPix/s; forwards alone "
           + ", ".join(f"{k} {v:.1f}" for k, v in res["forward_mpix_s"].items())
           + f" MPix/s; max|dprobs| {max_dp:.4g}, mask flips {share:.3e} "
           f"({confident_flips} with |p_plain - 0.5| > {PROB_ATOL})",
@@ -1248,7 +1256,7 @@ def check_int8_forward(model, rng):
 def int8_path(root, cfg):
     """The slice's path: ``predict_model --int8`` over the 4 granules of
     2048² (calibration on the first, every 3×3 conv of every forward one
-    launch of Q1, every upsample one of Q2), twice; ``cfg`` is the served
+    launch of Q1, every upsample one of Q2); ``cfg`` is the served
     checkpoint's."""
     n_tiles, forwards = serving_geometry(ICFG)
     mpix = GRANULES * GRANULE_PX**2 / 1e6
@@ -1269,7 +1277,6 @@ def int8_path(root, cfg):
         int8_s, int8_preds = serve(root, "--int8")
         launches = int8_conv.LAUNCHES
         q2_launches = int8_upsample.LAUNCHES
-        int8_s2, _ = serve(root, "--int8")
     finally:
         cli._int8_quantize_from_paths = real
     per_forward = 2 * (2 * cfg.depth + 1)
@@ -1281,13 +1288,11 @@ def int8_path(root, cfg):
     res = {"granules": GRANULES, "granule_px": GRANULE_PX,
            "forwards": forwards, "q1_launches": launches,
            "q2_launches": q2_launches,
-           "int8_s": [int8_s, int8_s2],
-           "int8_mpix_s": [mpix / int8_s, mpix / int8_s2],
+           "int8_s": [int8_s], "int8_mpix_s": [mpix / int8_s],
            "calibration_s": calib_s, "preds": int8_preds}
     print(f"predict_model --int8 {GRANULES}x{GRANULE_PX}^2: Q1 launches "
           f"{launches} ({forwards} forwards x {per_forward}), Q2 launches "
-          f"{q2_launches}; whole call "
-          f"{res['int8_mpix_s'][0]:.2f}/{res['int8_mpix_s'][1]:.2f} MPix/s, "
+          f"{q2_launches}; whole call {res['int8_mpix_s'][0]:.2f} MPix/s, "
           "calibration " + "/".join(f"{s:.2f}" for s in calib_s) + " s",
           flush=True)
     return res
@@ -4212,6 +4217,363 @@ def export_phase(model, root, tmp, live):
     return out
 
 
+# ------------------------------------ multi-card serving and training (A.19)
+
+MESH_SLOTS = 2                        # replicas, or cards where there are 2
+MESH_SPATIAL_PX = 1024                # the raster of the (1, 2, 2) grid
+MESH_SCENES = 3                       # bench scenes over 2 slots: pads to 4
+# the spatially sharded raster against the unsharded forward, inside the
+# true border's receptive field: the serving gate (PROB_ATOL, no confident
+# flip); the seams are the bands of this half-width about y, x = 512
+SEAM_BAND = 8
+# data-parallel steps against the one-process step
+# (experiments/data_parallel_steps.py): in bf16 at 16 x 512², the loss, the
+# IoU and the running buffers of the steps whose forwards see the same
+# weights; in float64 compute at 16 x 256², where rounding cannot reach a
+# gradient's sign, the buffers of every step and the parameters too. In
+# bf16 Adam turns the rounding of near-zero gradients into steps of about
+# lr of either sign (the training phase's finding), and the later forwards
+# part with them: those distances are recorded, not gated
+DP_LOSS_RTOL = DP_IOU_RTOL = DP_STATS_RTOL = 1e-3
+DP_PARAM_LR_SHARE = 0.1
+MESH_FORWARDS = (("plain", {}, ICFG, None),
+                 ("use_pallas", {"use_pallas": True}, ICFG, "k6"),
+                 ("use_mega", {"use_mega": True}, MEGA, "k7"),
+                 ("int8", {}, ICFG, "q"))
+
+
+def mesh_devices(n):
+    """(devices, how): n distinct cards where the machine has them, else n
+    replicas on cuda:0, the rehearsal of an n-card mesh on one card."""
+    if torch.cuda.device_count() >= n:
+        return ([torch.device("cuda", i) for i in range(n)],
+                f"{n} distinct cards")
+    return [torch.device("cuda", 0)] * n, f"{n} replicas on cuda:0"
+
+
+def mesh_counts():
+    return {"k6": fused_conv.LAUNCHES, "k7": unet_mega.LAUNCHES,
+            "q1": int8_conv.LAUNCHES, "q2": int8_upsample.LAUNCHES,
+            "k1": ccl_sweep.LAUNCHES, "k3": label_counts.LAUNCHES}
+
+
+def reset_mesh_counts():
+    fused_conv.LAUNCHES = unet_mega.LAUNCHES = 0
+    int8_conv.LAUNCHES = int8_upsample.LAUNCHES = 0
+    ccl_sweep.LAUNCHES = label_counts.LAUNCHES = 0
+
+
+def timed_call(fn):
+    """(result, ms) of one call between two synchronises."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_serving(model, rng, devices):
+    """``make_batch_infer_sharded`` over a 2-slot data mesh on 4 granules
+    of 2048² (G = 2 a slot), for the plain, ``use_pallas`` (K6),
+    ``use_mega`` (K7 at tile 96) and int8 (Q1, Q2) forwards, each slot with
+    its own replica built from the state dict: served against the
+    one-device program on the same granules (the serving gate), the
+    launches per forward per replica, the sharded call's time, each
+    replica's share alone and the one-device call's."""
+    mesh = make_mesh(MeshConfig(data=MESH_SLOTS), devices)
+    images = np.stack([np.stack([a, np.zeros_like(a)], -1)
+                       for a in synthetic_channels(rng, GRANULES)])
+    # the CLI's calibration: a 3 x 3 grid of tiles of the first granule
+    t = ICFG.tile_size
+    starts = [int(v) for v in np.linspace(0, GRANULE_PX - t, 3)]
+    calib = np.stack([images[0, y:y + t, x:x + t]
+                      for y in starts for x in starts])
+    whole = torch.from_numpy(images).to(DEV)
+    per_slot = GRANULES // MESH_SLOTS
+    rows = {}
+    for label, flags, icfg, counter in MESH_FORWARDS:
+        if label == "int8":
+            apply_fn = make_quantized_apply(model.cfg)
+            variables = quantize_unet(model, model.cfg, calib)
+            replicas = [qvars_to(variables, d) for d in devices]
+        else:
+            apply_fn = cli._module_forward
+            variables = build_model(dataclasses.replace(model.cfg, **flags))
+            variables.load_state_dict(model.state_dict())
+            variables = variables.to(DEV).eval()
+            replicas = replicate_model(variables, devices)
+        sharded = make_batch_infer_sharded(apply_fn, mesh, icfg)
+        local = make_multi_granule_infer(apply_fn, icfg)
+        parts = shard(images, devices)
+        with torch.inference_mode():
+            sharded(replicas, parts)                  # packs each replica
+            reset_mesh_counts()
+            (probs, _), ms = timed_call(lambda: sharded(replicas, parts))
+            launches = mesh_counts()
+            slot_ms = [timed_call(lambda i=i: local(replicas[i],
+                                                    parts[i]))[1]
+                       for i in range(MESH_SLOTS)]
+            (want, _), one_ms = timed_call(lambda: local(variables, whole))
+        n_tiles, per_group, _ = geometry_forwards(tune_mod.Geometry(
+            icfg.tile_size, icfg.overlap, icfg.batch_tiles, per_slot))
+        forwards = MESH_SLOTS * per_group
+        got = {i: p for i, p in enumerate(probs.float().cpu().numpy())}
+        ref = {i: p for i, p in enumerate(want.float().cpu().numpy())}
+        max_dp, flip_share, confident = compare_served(got, ref)
+        per_forward = {k: launches[k] / forwards
+                       for k in ("k6", "k7", "q1", "q2")}
+        # one K6 a block, K7 a forward, Q1 a conv, Q2 an upsample: 9, 1,
+        # 18 and 4 at UNetConfig()
+        blocks = 2 * model.cfg.depth + 1
+        expect = {"k6": blocks if counter == "k6" else 0,
+                  "k7": 1 if counter == "k7" else 0,
+                  "q1": 2 * blocks if counter == "q" else 0,
+                  "q2": model.cfg.depth if counter == "q" else 0}
+        rows[label] = {"forwards": forwards, "tiles_per_granule": n_tiles,
+                       "launches": launches, "per_forward": per_forward,
+                       "max_abs_dprobs": max_dp, "mask_flip_share":
+                       flip_share, "confident_flips": confident,
+                       "sharded_ms": ms, "slot_ms": slot_ms,
+                       "one_device_ms": one_ms}
+        print(f"mesh serving {label} ({GRANULES} x {GRANULE_PX}^2, tile "
+              f"{icfg.tile_size}/{icfg.overlap}, {MESH_SLOTS} slots x G = "
+              f"{per_slot}): {forwards} forwards, launches {launches}; "
+              f"sharded {ms:.1f} ms, slots alone "
+              f"{', '.join(f'{t:.1f}' for t in slot_ms)} ms, one device "
+              f"{one_ms:.1f} ms; against one device max|dp| {max_dp:.4g}, "
+              f"flips {flip_share:.3e} ({confident} confident)", flush=True)
+        if max_dp > PROB_ATOL or confident:
+            raise AssertionError(f"mesh serving {label}: off the one-device "
+                                 f"program: {rows[label]}")
+        if per_forward != {k: float(v) for k, v in expect.items()}:
+            raise AssertionError(f"mesh serving {label}: launches per "
+                                 f"forward per replica {per_forward}, want "
+                                 f"{expect}")
+        del replicas, variables, probs, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_spatial(model, rng):
+    """``make_sharded_infer`` on a (1, 2, 2) grid (four cards where there
+    are four, else four slots of cuda:0) on a 1024² raster at full width:
+    inside the true border's receptive field against the unsharded
+    forward, and in the bands about the seams."""
+    devices, how = mesh_devices(4)
+    mesh = make_mesh(MeshConfig(data=1, y=2, x=2), devices)
+    plane = synthetic_channels(rng, 1)[0][:MESH_SPATIAL_PX,
+                                          :MESH_SPATIAL_PX]
+    image = np.stack([plane, np.zeros_like(plane)], -1)
+    r = receptive_field(model.cfg.depth)
+    halo = choose_halo(r, MESH_SPATIAL_PX // 2, model.cfg.depth)
+    infer = make_sharded_infer(cli._module_forward, mesh, halo)
+    replicas = replicate_model(model, devices)
+    with torch.inference_mode():
+        infer(replicas, image)
+        (probs, _), ms = timed_call(lambda: infer(replicas, image))
+        x = torch.from_numpy(image)[None].to(DEV)
+        direct, direct_ms = timed_call(
+            lambda: torch.sigmoid(model(x)[0, ..., 0].float()))
+    p, d = probs.cpu().numpy(), direct.cpu().numpy()
+    inner = (slice(r, -r), slice(r, -r))
+    mid = MESH_SPATIAL_PX // 2
+    seams = np.zeros(p.shape, bool)
+    seams[mid - SEAM_BAND:mid + SEAM_BAND] = True
+    seams[:, mid - SEAM_BAND:mid + SEAM_BAND] = True
+    inside = np.zeros(p.shape, bool)
+    inside[inner] = True
+    max_dp, _, confident = compare_served({0: p[inner]}, {0: d[inner]})
+    seam_dp = float(np.abs(p - d)[seams & inside].max())
+    res = {"devices": how, "halo": halo, "receptive_field": r,
+           "max_abs_dprobs_interior": max_dp, "confident_flips": confident,
+           "max_abs_dprobs_seams": seam_dp, "sharded_ms": ms,
+           "direct_ms": direct_ms}
+    print(f"spatial sharding {MESH_SPATIAL_PX}^2 on a (1, 2, 2) grid "
+          f"({how}), halo {halo}: interior max|dp| {max_dp:.4g} "
+          f"({confident} confident flips), seams max|dp| {seam_dp:.4g}; "
+          f"sharded {ms:.1f} ms, unsharded {direct_ms:.1f} ms", flush=True)
+    if not (np.isfinite(p).all() and max_dp <= PROB_ATOL and not confident
+            and seam_dp <= PROB_ATOL):
+        raise AssertionError(f"spatial sharding off the unsharded forward: "
+                             f"{res}")
+    return res
+
+
+def mesh_identify(devices):
+    """``batch_identify_sharded`` over a 2-slot mesh on 3 bench scenes
+    (padded to 4): every output equal to the single-scene sweep on the card
+    (the in-plume AOD sums within FEATURE_RTOL), K1 and K3 once a scene."""
+    scenes = [make_scene(SyntheticSceneConfig(seed=SEED + i, **BENCH_SCENE))
+              for i in range(MESH_SCENES)]
+    preps = [rg._prep_fires(s.granule.lat, s.granule.lon,
+                            s.fires["date_time"][0], s.fires, RG,
+                            capacity=RG.max_fires) for s in scenes]
+    shared = fire_bucket(max(int(p[2].sum()) for p in preps), RG.max_fires)
+    aods = np.stack([s.granule.first_layer() for s in scenes])
+    fires = [np.stack([p[k][:shared] for p in preps]) for k in range(3)]
+    mesh = make_mesh(MeshConfig(data=MESH_SLOTS), devices)
+    statics = rg._statics(RG)
+    batch_identify_sharded(aods[:1], statics, RG.thresholds,
+                           *(f[:1] for f in fires), mesh)   # warm-up
+    reset_mesh_counts()
+    got, ms = timed_call(lambda: batch_identify_sharded(
+        aods, statics, RG.thresholds, *fires, mesh))
+    launches = mesh_counts()
+    padded = MESH_SCENES + (-MESH_SCENES) % MESH_SLOTS
+    sweep = pipeline.make_sweep_identifier(statics)
+    th = torch.from_numpy(THRESHOLDS).to(DEV)
+    worst = 0.0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for i in range(MESH_SCENES):
+            a = torch.from_numpy(aods[i]).to(DEV)
+            ref = sweep(a, a, torch.zeros(a.shape, dtype=torch.bool,
+                                          device=DEV), th,
+                        *(torch.from_numpy(f[i]).to(DEV) for f in fires))
+            for k, v in ref.items():
+                want = v.cpu().numpy()
+                if k in ("aod_mean", "aod_sd"):
+                    err = float(np.abs(got[k][i] - want).max(initial=0.0)
+                                / max(float(np.abs(want).max(initial=0.0)),
+                                      1e-30))
+                    worst = max(worst, err)
+                    if err > FEATURE_RTOL:
+                        raise AssertionError(f"batch identify scene {i}: "
+                                             f"{k} off by {err}")
+                elif not np.array_equal(got[k][i], want):
+                    raise AssertionError(f"batch identify scene {i}: {k} "
+                                         "differs from the sweep")
+    torch.cuda.synchronize()
+    serial_ms = (time.perf_counter() - t0) * 1e3
+    res = {"scenes": MESH_SCENES, "padded": padded, "fires": shared,
+           "launches": launches, "accepted": int(got["accepted"].sum()),
+           "batch_ms": ms, "serial_check_ms": serial_ms,
+           "max_rel_aod_stat_diff": worst}
+    print(f"batch identify {MESH_SCENES} x 1200^2 over {MESH_SLOTS} slots "
+          f"(F = {shared}): {res['accepted']} plumes, K1 {launches['k1']}, "
+          f"K3 {launches['k3']} launches ({padded} scenes with the pad), "
+          f"{ms:.1f} ms; equal to the single-scene sweeps (AOD statistics "
+          f"within {worst:.3g})", flush=True)
+    if launches["k1"] != padded or launches["k3"] != padded:
+        raise AssertionError(f"batch identify launches {launches}, want K1 "
+                             f"and K3 {padded} each")
+    return res
+
+
+def mesh_training(devices):
+    """Two ranks (``parallel/launch.launch``: gloo on one card, NCCL on two)
+    against the one-process step, in bf16 at 16 x 512² and in float64
+    compute at 16 x 256², both in one launch
+    (experiments/data_parallel_steps.py). Gated: every step's loss and IoU;
+    the running buffers after the steps whose forwards see the initial
+    weights (the first runs at lr 0), and in float64 after every step; the
+    parameters in float64; equal parameters and buffers on every rank."""
+    cards = len({d.index for d in devices}) == len(devices)
+    backend = "nccl" if cards else "gloo"
+    torch.cuda.empty_cache()
+    # what the ranks share the card and the host with: this process's
+    # reserved card memory and the host's load as they start
+    reserved_gb = torch.cuda.memory_reserved() / 1e9
+    load = os.getloadavg()[0]
+    out = data_parallel_steps.run(devices, backend=backend)
+    out.update(backend=backend, parent_reserved_gb=reserved_gb,
+               host_load_1min=load)
+    for label in data_parallel_steps.CASES:
+        case = out[label]
+        pairs = list(zip(case["dp_metrics"], case["one_metrics"]))
+        case["loss_rel_err"] = max(abs(a[0] - b[0]) / abs(b[0])
+                                   for a, b in pairs)
+        case["iou_rel_err"] = max(abs(a[1] - b[1]) / max(abs(b[1]), 1e-30)
+                                  for a, b in pairs)
+        gated = case["rel_dbuffers"] if label == "float64" else \
+            case["rel_dbuffers"][:2]
+        print(f"data-parallel steps {label} ({backend}, {out['ranks']} "
+              f"ranks on {', '.join(out['devices'])}, {case['batch']} x "
+              f"{case['tile']}^2): losses {[a[0] for a, _ in pairs]} / one "
+              f"process {[b[0] for _, b in pairs]}, ious "
+              f"{[a[1] for a, _ in pairs]} / {[b[1] for _, b in pairs]}; "
+              f"rel err loss {case['loss_rel_err']:.3g}, iou "
+              f"{case['iou_rel_err']:.3g}; running buffers per step "
+              f"{[f'{d:.3g}' for d in case['rel_dbuffers']]}; max|dparam| "
+              f"{case['max_abs_dparam']:.3g} "
+              f"({case['max_abs_dparam_over_lr']:.3g} lr); rank step ms "
+              f"{case['dp_step_ms']}, one process {case['one_step_ms']}; "
+              f"equal on every rank {case['same_on_every_rank']}",
+              flush=True)
+        ok = (case["same_on_every_rank"]
+              and case["loss_rel_err"] <= DP_LOSS_RTOL
+              and case["iou_rel_err"] <= DP_IOU_RTOL
+              and max(gated) <= DP_STATS_RTOL)
+        if label == "float64":
+            ok = ok and case["max_abs_dparam_over_lr"] <= DP_PARAM_LR_SHARE
+        if not ok:
+            raise AssertionError(f"data-parallel steps {label} off the "
+                                 f"one-process step: {case}")
+    print(f"data-parallel launch (both cases) {out['launch_s']:.1f} s; "
+          f"this process held {reserved_gb:.2f} GB of the card and the "
+          f"host's 1-minute load was {load:.2f} as the ranks started",
+          flush=True)
+    return out
+
+
+def mesh_cli_refusals(tmp):
+    """On one card: ``predict_model --mesh-devices 2`` and ``train_model
+    --data-parallel 2`` exit 1 with the JAX CLI's device-count messages and
+    write nothing."""
+    root = os.path.join(tmp, "refusals")
+    os.makedirs(root)
+    msgs = []
+    handler = logging.Handler()
+    handler.emit = lambda record: msgs.append(record.getMessage())
+    handler.setLevel(logging.ERROR)
+    cli_logger = logging.getLogger("plumekit_torch.cli")
+    cli_logger.addHandler(handler)
+    try:
+        rc_predict = cli.main(["predict_model", "--root", root,
+                               "--mesh-devices", "2"])
+        rc_train = cli.main(["train_model", "--root", root,
+                             "--data-parallel", "2"])
+    finally:
+        cli_logger.removeHandler(handler)
+    want = ["--mesh-devices 2 requested but only 1 device(s) visible (gpu)",
+            "mesh needs 2 devices, have 1"]
+    written = sorted(os.listdir(root))
+    print(f"CLI on one card: predict_model --mesh-devices 2 exit "
+          f"{rc_predict}, train_model --data-parallel 2 exit {rc_train}: "
+          f"{msgs}; written {written}", flush=True)
+    if (rc_predict, rc_train) != (1, 1) or msgs != want or written:
+        raise AssertionError(f"mesh refusals: {rc_predict}, {rc_train}, "
+                             f"{msgs}, {written}")
+    return {"messages": msgs}
+
+
+def parallel_phase(rng, tmp):
+    """Multi-card serving, batch identify and data-parallel training (the
+    mesh paths, ROADMAP A.19) on the card's mesh: two distinct cards where
+    there are two, else two replicas (or ranks) on cuda:0."""
+    t0 = time.perf_counter()
+    devices, how = mesh_devices(MESH_SLOTS)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()
+    print(f"parallel phase: {torch.cuda.device_count()} visible card(s) "
+          f"({'; '.join(smi)}); the mesh is {how}", flush=True)
+    model = seeded_unet(torch.Generator().manual_seed(SEED))
+    res = {"devices": how, "visible_cards": torch.cuda.device_count(),
+           "serving": mesh_serving(model, rng, devices),
+           "spatial": mesh_spatial(model, rng)}
+    del model
+    torch.cuda.empty_cache()
+    res["identify"] = mesh_identify(devices)
+    res["training"] = mesh_training(devices)
+    if torch.cuda.device_count() < MESH_SLOTS:
+        res["cli"] = mesh_cli_refusals(tmp)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"parallel phase {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -4330,6 +4692,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
         unetpp = unetpp_phase(rng, tmp)
     pp_q1, pp_q2 = unetpp["q1_rows"], unetpp["q2_rows"]
+    # multi-card serving, batch identify and data-parallel training on the
+    # card's mesh (two replicas or ranks on cuda:0 with one card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        parallel = parallel_phase(rng, tmp)
+    mesh_launches = {
+        k: sum(r["launches"][k] for r in parallel["serving"].values())
+        for k in ("k6", "k7", "q1", "q2")}
+    mesh_launches.update({k: parallel["identify"]["launches"][k]
+                          for k in ("k1", "k3")})
     pp_fwd, pp_served = unetpp["forward"], unetpp["serving"]
     pp_train = unetpp["training"]["launches"]
     tta_launches = {k: streams["tta"][label]["launches"][k] for k, label in
@@ -4584,6 +4956,14 @@ def main() -> int:
             k["exported_graph_nodes"] = exported[label]["graph_ops"][
                 {"k6": "fused_double_conv3x3", "k7": "unet_mega",
                  "q1": "int8_conv3x3", "q2": "int8_upsample2x2"}[key]]
+    # the mesh paths: launches of the sharded serving calls (both replicas)
+    # and of batch identify over the 2-slot mesh
+    mesh_key = {"fused_double_conv3x3_bn_relu": "k6", "mega_forward": "k7",
+                "int8_conv3x3": "q1", "int8_upsample2x2": "q2",
+                "multi_threshold_ccl_fused": "k1", "fire_label_counts": "k3"}
+    for k in kernels:
+        if k["name"] in mesh_key:
+            k["mesh_launches"] = mesh_launches[mesh_key[k["name"]]]
     copy_rate = measured_copy_rate()
     for k in kernels:
         k["bound_at_copy_rate_ms"] = k["bound_ms"] * (
@@ -4614,6 +4994,7 @@ def main() -> int:
                    "training": training, "curation": curation,
                    "streams": streams,
                    "unetpp": unetpp, "entry_points": entry,
+                   "parallel": parallel,
                    "exported": exported,
                    "copy_rate_gb_per_s": copy_rate / 1e9,
                    "seconds": time.perf_counter() - t_start,

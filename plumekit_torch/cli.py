@@ -100,15 +100,7 @@ THRESHOLD_BASENAME = "threshold.json"
 #: serving flags of the JAX CLI that this port does not serve yet, with the
 #: ROADMAP.md item (queue A) that ports each
 UNPORTED_FLAGS = {
-    "mesh_devices": "multi-card serving",
     "plot": "prediction quicklooks",
-}
-
-#: training flags of the JAX CLI that this port does not take yet, with
-#: the ROADMAP.md item (queue A) that ports each; a flag counts as given
-#: when its value differs from the parser's default
-UNPORTED_TRAIN_FLAGS = {
-    "data_parallel": "multi-card serving",
 }
 
 #: granules the int8 calibration looks at for one with signal
@@ -251,8 +243,10 @@ class _Serving:
     """What ``predict_model`` and ``serve`` run: the program, the depth the
     decode pads to, the granules per program (a fixed group when
     ``infer_is_batched``), whether it is the int8 forward and the tile its
-    calibration uses, and ``variables_of``, which makes the program's
-    variables of the model (of its int8 variables under ``use_int8``)."""
+    calibration uses, ``variables_of``, which makes the program's
+    variables of the model (of its int8 variables under ``use_int8``), and
+    under ``--mesh-devices`` the mesh slots' devices, which the stream
+    stages each granule onto."""
 
     infer: Callable
     depth: int
@@ -261,6 +255,7 @@ class _Serving:
     use_int8: bool
     calib_tile: int
     variables_of: Callable = lambda variables: variables  # noqa: E731
+    devices: Optional[List[torch.device]] = None
 
 
 def _build_serving(args, unet_cfg, threshold: float, device) -> _Serving:
@@ -305,10 +300,63 @@ def _build_serving(args, unet_cfg, threshold: float, device) -> _Serving:
         apply_fn = make_tta_apply(apply_fn)
     icfg = InferConfig(tile_size=args.tile, overlap=args.overlap,
                        batch_tiles=args.batch_tiles, threshold=threshold)
+    if args.mesh_devices:
+        return _mesh_serving(args, unet_cfg, apply_fn, icfg, device)
     return _Serving(make_multi_granule_infer(apply_fn, icfg,
                                              channels=unet_cfg.in_channels),
                     unet_cfg.depth, args.batch_granules, False, args.int8,
                     args.tile)
+
+
+def _mesh_serving(args, unet_cfg, apply_fn, icfg, device) -> _Serving:
+    """``--mesh-devices D``, with the JAX CLI's refusals: each group of
+    D·``--batch-granules`` granules split over D devices
+    (``infer.sliding.make_batch_infer_sharded``), every device with its own
+    replica of the model (or of the int8 variables) built from the
+    checkpoint's. On the card the D devices are D distinct cards, and -1
+    means every visible one; on the CPU they are D replicas of the CPU (the
+    rehearsal), and -1 means one device."""
+    from plumekit_torch.config.train import MeshConfig
+    from plumekit_torch.infer import make_batch_infer_sharded
+    from plumekit_torch.parallel.mesh import make_mesh, visible_devices
+
+    if args.fused:
+        raise _CliError("--fused and --mesh-devices are not supported "
+                        "together (the fused Pallas forward is a "
+                        "single-chip path)")
+    cards = visible_devices() if device.type == "cuda" else None
+    mesh_n = args.mesh_devices
+    if mesh_n == -1:
+        mesh_n = len(cards) if cards is not None else 1
+    if mesh_n < 2:
+        raise _CliError(
+            f"--mesh-devices needs at least 2 devices (got {mesh_n}); "
+            "omit the flag for single-device serving")
+    if cards is not None and len(cards) < mesh_n:
+        raise _CliError(
+            f"--mesh-devices {mesh_n} requested but only {len(cards)} "
+            f"device(s) visible (gpu)")
+    mesh = make_mesh(MeshConfig(data=mesh_n),
+                     cards if cards is not None else [device] * mesh_n)
+    infer = make_batch_infer_sharded(apply_fn, mesh, icfg,
+                                     channels=unet_cfg.in_channels)
+    group = mesh_n * max(1, args.batch_granules)
+    logger.info("serving on a %d-device mesh (%s), %d granules per "
+                "dispatched program (%d per device)", mesh_n,
+                "gpu" if cards is not None else "cpu", group,
+                group // mesh_n)
+
+    def replicas(variables):
+        if args.int8:
+            from plumekit_torch.models.quantized_forward import qvars_to
+
+            return [qvars_to(variables, d) for d in infer.devices]
+        from plumekit_torch.models import replicate_model
+
+        return replicate_model(variables, infer.devices)
+
+    return _Serving(infer, unet_cfg.depth, group, True, args.int8, args.tile,
+                    replicas, infer.devices)
 
 
 def _exported_serving(args, unet_cfg, device) -> _Serving:
@@ -514,7 +562,8 @@ def cmd_predict_model(args) -> int:
                 device, quantize=args.quantize,
                 batch_granules=serving.batch_granules, predecoded=predecoded,
                 quantize_output=args.quantize_output,
-                infer_is_batched=serving.infer_is_batched):
+                infer_is_batched=serving.infer_is_batched,
+                devices=serving.devices):
             _write_prediction(out_dir, name, probs, threshold=threshold)
     return 0
 
@@ -666,7 +715,8 @@ def cmd_serve(args) -> int:
                     batch_granules=serving.batch_granules,
                     predecoded=predecoded,
                     quantize_output=args.quantize_output,
-                    infer_is_batched=serving.infer_is_batched):
+                    infer_is_batched=serving.infer_is_batched,
+                    devices=serving.devices):
                 gpath = next(path_iter)    # the stream keeps the order
                 stem = os.path.splitext(os.path.basename(gpath))[0]
                 if stem != name:
@@ -976,18 +1026,20 @@ def cmd_train_model(args) -> int:
     from plumekit_torch.config.train import DataConfig, TrainConfig
     from plumekit_torch.train.loop import train
 
-    defaults = build_parser().parse_args(["train_model"])
-    for flag, item in UNPORTED_TRAIN_FLAGS.items():
-        if getattr(args, flag) != getattr(defaults, flag):
-            logger.error("--%s is not ported to plumekit_torch yet "
-                         "(ROADMAP.md, queue A: '%s')",
-                         flag.replace("_", "-"), item)
-            return 1
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         logger.error("%s", e)
         return 1
+    devices = None
+    if args.data_parallel > 1:
+        from plumekit_torch.parallel.launch import data_parallel_devices
+
+        try:
+            devices = data_parallel_devices(args.data_parallel, device)
+        except ValueError as e:
+            logger.error("%s", e)
+            return 1
     curated_dir = None
     if args.curated:
         curated_dir = PathsConfig(root=args.root).resolve("model_data_dir")
@@ -1008,7 +1060,7 @@ def cmd_train_model(args) -> int:
                     distill_calibrate, path)
     elif args.distill_calibrate is not None:
         distill_calibrate = float(args.distill_calibrate)
-    history = train(
+    kwargs = dict(
         unet_cfg=UNetConfig(arch=args.arch,
                             deep_supervision=args.deep_supervision),
         train_cfg=TrainConfig(
@@ -1024,9 +1076,30 @@ def cmd_train_model(args) -> int:
             distill_tta=args.distill_tta,
             distill_calibrate=distill_calibrate),
         data_cfg=DataConfig(granule_size=args.granule_size),
-        weak_labels=args.weak_labels, device=device, curated_dir=curated_dir)
+        weak_labels=args.weak_labels, curated_dir=curated_dir)
+    if devices is None:
+        history = train(device=device, **kwargs)
+    else:
+        from plumekit_torch.config.train import MeshConfig
+        from plumekit_torch.parallel.launch import launch
+
+        logger.info("training on %d ranks (%s)", len(devices),
+                    ", ".join(str(d) for d in devices))
+        history = launch(train_rank, devices, args=(
+            dict(kwargs, mesh_cfg=MeshConfig(data=len(devices))),))
     logger.info("final eval IoU %.3f", history["eval_iou"][-1])
     return 0
+
+
+def train_rank(rank: int, device, kwargs: dict) -> dict:
+    """One rank of ``train_model --data-parallel``: the training loop on
+    ``device`` as a rank of the launched process group; rank 0 alone
+    logs."""
+    from plumekit_torch.train.loop import train
+
+    if rank:
+        get_logger("plumekit_torch").setLevel("WARNING")
+    return train(device=device, **kwargs)
 
 
 def cmd_build_features(args) -> int:
@@ -1528,7 +1601,13 @@ def _add_serving_args(p: argparse.ArgumentParser) -> None:
                    help="serve a deep-supervised UNet++ checkpoint pruned "
                         "at fusion level L (1..depth)")
     p.add_argument("--mesh-devices", type=int, default=0, metavar="D",
-                   help="multi-card serving" + unported)
+                   help="serve each granule group over a D-device mesh: "
+                        "every device runs its --batch-granules granules' "
+                        "tile grids with its own replica of the model; "
+                        "groups are D × --batch-granules granules. D = -1 "
+                        "uses every visible card (with --device cpu, D "
+                        "replicas on the CPU rehearse the mesh, and -1 is "
+                        "one device). Incompatible with --exported/--fused")
     p.add_argument("--tuned", nargs="?", const="auto", default=None,
                    metavar="JSON",
                    help="serve the geometry measured by `tune` (bare flag "
@@ -1540,7 +1619,6 @@ def _add_serving_args(p: argparse.ArgumentParser) -> None:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="plumekit-torch")
     sub = p.add_subparsers(dest="command", required=True)
-    unported = " (not ported yet: exits 1)"
 
     d = sub.add_parser("make_dataset", help="generate granules + fire CSV")
     d.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT", "data"),
@@ -1604,7 +1682,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="keep the whole training set in the device's "
                         "memory and draw and augment tiles there")
     t.add_argument("--data-parallel", type=int, default=1,
-                   help="data-parallel cards" + unported + " above 1")
+                   help="train on N ranks, one process per card (NCCL), "
+                        "the batch split over them; with --device cpu, N "
+                        "ranks on the CPU (gloo)")
     t.add_argument("--curated", action="store_true",
                    help="train on the curated samples of <root>'s "
                         "model_data_dir (run prepare_model_data first)")

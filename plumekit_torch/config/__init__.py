@@ -2,7 +2,7 @@
 
 from plumekit_torch.config.paths import PathsConfig
 from plumekit_torch.config.train import (DataConfig, InferConfig,
-                                         TrainConfig, UNetConfig)
+                                         MeshConfig, TrainConfig, UNetConfig)
 
-__all__ = ["DataConfig", "InferConfig", "PathsConfig", "TrainConfig",
-           "UNetConfig"]
+__all__ = ["DataConfig", "InferConfig", "MeshConfig", "PathsConfig",
+           "TrainConfig", "UNetConfig"]

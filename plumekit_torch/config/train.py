@@ -1,13 +1,11 @@
 """The model, training, data and serving configs of
 ``plumekit/config/train.py``: the same fields and defaults, so a
-``model_config.json`` and a training call read the same in both packages.
-``MeshConfig`` is not here: data-parallel training is not ported yet
-(ROADMAP.md, queue A: 'multi-card serving')."""
+``model_config.json`` and a training call read the same in both packages."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -93,6 +91,25 @@ class DataConfig:
     n_train_granules: int = 8
     n_eval_granules: int = 2
     seed: int = 1234
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh axes (``plumekit_torch.parallel.mesh``): ``data`` for
+    batch sharding, ``y``/``x`` for spatial sharding of the raster plane
+    with halo exchange."""
+
+    data: int = 1
+    y: int = 1
+    x: int = 1
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.data, self.y, self.x)
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.y * self.x
 
 
 @dataclass(frozen=True)

@@ -467,20 +467,14 @@ int levels_per_block(int T, long long tiles, long long slots) {
     return (int)((T + groups - 1) / groups);
 }
 
-// allow both tile passes of a front end `smem` bytes of shared memory
-template <bool MASKS>
+// allow a tile pass `smem` bytes of shared memory. The attribute belongs
+// to the current device, and a process may launch on several cards, so it
+// is set on every launch, as fused_conv.cu sets its own
+template <bool MASKS, bool FINAL>
 cudaError_t set_smem(size_t smem) {
-    static bool done = false;
-    if (done) return cudaSuccess;
-    cudaError_t err = cudaFuncSetAttribute(
-        ccl_tiles<MASKS, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(
-            ccl_tiles<MASKS, true>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    done = err == cudaSuccess;
-    return err;
+    return cudaFuncSetAttribute(ccl_tiles<MASKS, FINAL>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
 }
 
 template <bool MASKS, bool FINAL>
@@ -488,7 +482,7 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t s,
                          const float* aod, const float* th,
                          const unsigned char* masks, int* out, int T, int H,
                          int W, int conn8, int lpb) {
-    const cudaError_t err = set_smem<MASKS>(smem);
+    const cudaError_t err = set_smem<MASKS, FINAL>(smem);
     if (err != cudaSuccess) return err;
     ccl_tiles<MASKS, FINAL><<<grid, THREADS, smem, s>>>(
         aod, th, masks, out, T, H, W, conn8, lpb);
@@ -514,7 +508,8 @@ int run_passes(const float* aod, const float* th, const unsigned char* masks,
         int dev = 0, sms = 132, per_sm = 1;
         if (cudaGetDevice(&dev) == cudaSuccess)
             cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        const cudaError_t err = set_smem<MASKS>(smem);
+        // the occupancy query reads the raised attribute
+        const cudaError_t err = set_smem<MASKS, true>(smem);
         if (err != cudaSuccess) return (int)err;
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             &per_sm, ccl_tiles<MASKS, true>, THREADS, smem);

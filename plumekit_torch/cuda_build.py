@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -28,6 +29,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: what each build printed and how long it took, by source name
 BUILD_LOG: dict = {}
 _LOADED: dict = {}
+#: held while sources build and load: the devices of a mesh launch from
+#: threads of their own, and the first launch of each may find its
+#: library missing
+_BUILD_LOCK = threading.Lock()
+#: held by every wrapper while it adds to its module's launch count, which
+#: the threads of a mesh's devices share
+LAUNCH_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -56,7 +64,11 @@ def _lib_path(source: str) -> Path:
 def load_libraries(sources: Iterable[str]) -> Dict[str, ctypes.CDLL]:
     """Compile each ``csrc/<source>`` whose hash has no library yet, one
     ``nvcc`` per source, all started together, then load every library."""
-    sources = list(sources)
+    with _BUILD_LOCK:
+        return _load_libraries(list(sources))
+
+
+def _load_libraries(sources) -> Dict[str, ctypes.CDLL]:
     builds = []
     for source in sources:
         if source in _LOADED:

@@ -227,6 +227,51 @@ def make_sliding_infer(
     return infer
 
 
+def make_batch_infer_sharded(
+    apply_fn: Callable,
+    mesh,
+    cfg: InferConfig = InferConfig(),
+    channels: int = 2,
+    axis: str = "data",
+):
+    """Build ``infer(replicas, images (D·G, H, W, C)) -> (probs, masks)``:
+    the granule group split D ways over the mesh's ``axis``, each device
+    running :func:`make_multi_granule_infer` on its G granules with its own
+    replica of the variables (``replicas[i]`` on the axis's i-th device,
+    every tensor the forward reads, packed weights included, on that
+    device). Granules are independent, so no device reads another's data.
+
+    ``images`` is a tensor whose leading dim divides by D (split straight
+    onto the devices, :func:`plumekit_torch.parallel.mesh.shard`) or the D
+    per-device parts themselves, as the stream stages them. Each device's
+    share runs on a host thread of its own
+    (:func:`plumekit_torch.parallel.mesh.run_per_device`): the sliding
+    program reads its geometry from the host partway, so one thread would
+    hold the other devices idle. The outputs are gathered, in slot order,
+    on the first device."""
+    from plumekit_torch.parallel.mesh import gather, run_per_device, shard
+
+    devices = mesh.axis_devices(axis)
+    local = make_multi_granule_infer(apply_fn, cfg, channels)
+
+    def infer(replicas, images):
+        if len(replicas) != len(devices):
+            raise ValueError(f"{len(replicas)} replicas for {len(devices)} "
+                             f"devices on {axis!r}")
+        parts = (list(images) if isinstance(images, (list, tuple))
+                 else shard(images, devices))
+        for part, device in zip(parts, devices):
+            if part.device != torch.device(device):
+                raise ValueError(f"a part on {part.device} for a slot on "
+                                 f"{device}")
+        outs = run_per_device(local, devices, replicas, parts)
+        return (gather([p for p, _ in outs], devices[0]),
+                gather([m for _, m in outs], devices[0]))
+
+    infer.devices = devices
+    return infer
+
+
 def pad_to_multiple(image: np.ndarray, multiple: int
                     ) -> Tuple[np.ndarray, Tuple[int, int]]:
     """Edge-pad H/W up to a multiple (the U-Net needs 2**depth

@@ -17,7 +17,7 @@ by repeating its last granule, and the duplicates' outputs are dropped.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Iterator, Optional, Tuple
+from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -100,6 +100,7 @@ def stream_inference(
     predecoded: Optional[dict] = None,
     quantize_output: bool = False,
     infer_is_batched: bool = False,
+    devices: Optional[Sequence] = None,
 ) -> Iterator[Tuple[str, np.ndarray]]:
     """Run ``infer_fn(variables, images (G, H, W, C)) -> (probs, masks)``
     over the granules of ``paths``; yields (granule name, float32 probs
@@ -112,20 +113,41 @@ def stream_inference(
     in :func:`granule_channel_stream`. ``infer_is_batched`` says that
     ``infer_fn`` takes exactly ``batch_granules`` granules (an exported
     multi-granule program): a ragged tail group is padded by repeating its
-    last granule, and the duplicates' outputs are dropped."""
+    last granule, and the duplicates' outputs are dropped.
+
+    ``devices`` (with ``infer_is_batched``) are the D slots of a mesh's
+    data axis (:func:`plumekit_torch.infer.sliding.make_batch_infer_sharded`):
+    granule k of a group is staged straight onto the device of slot
+    ``k // (batch_granules / D)``, and ``infer_fn`` takes the group as its D
+    per-device parts. Only a ragged tail's padding is copied from one
+    device to another."""
     if infer_is_batched and batch_granules < 2:
         raise ValueError(
             "infer_is_batched requires batch_granules >= 2 (the program's "
             "leading granule dim); a single-granule program takes plain "
             "(H, W, C) images — pass infer_is_batched=False")
+    if devices is not None and (not infer_is_batched
+                                or batch_granules % len(devices)):
+        raise ValueError(
+            f"a group of {batch_granules} granules does not split over "
+            f"{len(devices)} devices (devices need infer_is_batched)")
     if decode_workers is None:
         decode_workers = default_decode_workers()
-    device = torch.device(device)
-    put = make_device_put(device)
+    slots = [torch.device(device)] if devices is None else \
+        [torch.device(d) for d in devices]
+    puts = {d: make_device_put(d) for d in set(slots)}
+    per_slot = max(1, batch_granules // len(slots))
+    # the stager walks the groups as the consumer below forms them
+    position = {"shape": None, "k": 0}
 
     def stage(item):
         name, channels, hw = item
-        return put((name, host_payload(channels, quantize), hw))
+        if position["shape"] != channels.shape \
+                or position["k"] == batch_granules:
+            position["shape"], position["k"] = channels.shape, 0
+        slot = slots[position["k"] // per_slot]
+        position["k"] += 1
+        return puts[slot]((name, host_payload(channels, quantize), hw))
 
     stream = device_prefetch(
         granule_channel_stream(paths, depth, fire_locator,
@@ -133,17 +155,25 @@ def stream_inference(
                                predecoded=predecoded),
         buffer_size=buffer_size, device_put=stage)
 
+    def images(group, device=None):
+        stacked = [torch.stack([t if device is None else t.to(device)
+                                for t in parts])
+                   for parts in zip(*(payload for _, payload, _ in group))]
+        if quantize:
+            q, lo, scale = stacked
+            return dequantize(q, lo[:, None, None, :],
+                              scale[:, None, None, :])
+        return stacked[0]
+
     def flush(group):
         n = len(group)
         if infer_is_batched and n < batch_granules:
             group = group + [group[-1]] * (batch_granules - n)
-        stacked = [torch.stack(parts) for parts in
-                   zip(*(payload for _, payload, _ in group))]
-        if quantize:
-            q, lo, scale = stacked
-            x = dequantize(q, lo[:, None, None, :], scale[:, None, None, :])
+        if devices is None:
+            x = images(group)
         else:
-            x = stacked[0]
+            x = [images(group[i * per_slot:(i + 1) * per_slot], slot)
+                 for i, slot in enumerate(slots)]
         probs, _masks = infer_fn(variables, x)
         if quantize_output:
             probs = quantize_probs_uint8(probs)

@@ -11,7 +11,7 @@ from plumekit_torch.models.unet import DoubleConv, UNet, receptive_field
 from plumekit_torch.models.unetpp import UNetPP, effective_level
 
 __all__ = ["DoubleConv", "UNet", "UNetPP", "build_model", "effective_level",
-           "init_weights", "receptive_field"]
+           "init_weights", "receptive_field", "replicate_model"]
 
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
@@ -55,3 +55,21 @@ def build_model(cfg: UNetConfig, generator: Optional[torch.Generator] = None
     if generator is not None:
         init_weights(model, generator)
     return model
+
+
+def replicate_model(model: torch.nn.Module, devices) -> list:
+    """One replica of ``model`` per entry of ``devices``: each built from
+    ``model.cfg`` on the meta device (no random draw), then given storage
+    on its device and ``model``'s state dict. A replica shares no tensor
+    with ``model`` or with another replica, so the caches that the fused,
+    megakernel and int8 forwards key on a model or a weight tensor (its
+    packed weights) are its own and on its device."""
+    state = model.state_dict()
+    replicas = []
+    for device in devices:
+        with torch.device("meta"):
+            replica = build_model(model.cfg)
+        replica.to_empty(device=device)
+        replica.load_state_dict(state)
+        replicas.append(replica.train(model.training))
+    return replicas

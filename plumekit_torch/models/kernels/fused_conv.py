@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from plumekit_torch.cuda_build import LAUNCH_LOCK
 from plumekit_torch.models.kernels import conv_tiles
 
 #: launches of the double-conv kernel (K6) since import (or since a caller
@@ -210,7 +211,8 @@ def _launch_single(x, packed: PackedConv):
     if err != 0:
         raise RuntimeError("fused conv kernel launch failed: "
                            + lib.pk_error_string(err).decode())
-    SINGLE_LAUNCHES += 1
+    with LAUNCH_LOCK:
+        SINGLE_LAUNCHES += 1
     return out
 
 
@@ -240,7 +242,8 @@ def _launch_double(x, packed: PackedDoubleConv):
     if err != 0:
         raise RuntimeError("fused double-conv kernel launch failed: "
                            + lib.pk_error_string(err).decode())
-    LAUNCHES += 1
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
     return out
 
 

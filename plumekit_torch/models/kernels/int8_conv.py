@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch import Tensor
 from torch.utils.weak import WeakIdKeyDictionary
 
+from plumekit_torch.cuda_build import LAUNCH_LOCK
 from plumekit_torch.models.kernels.conv_tiles import round_up
 from plumekit_torch.models.kernels.fused_conv import tensor_version
 
@@ -420,7 +421,8 @@ def _launch(xq, packed: PackedInt8Conv, out_scale=None, skip=None,
     if err != 0:
         raise RuntimeError("int8 conv kernel launch failed: "
                            + lib.pk_error_string(err).decode())
-    LAUNCHES += 1
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
     return out
 
 

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import Tensor
 from torch.utils.weak import WeakIdKeyDictionary
 
+from plumekit_torch.cuda_build import LAUNCH_LOCK
 from plumekit_torch.models.kernels import int8_conv
 from plumekit_torch.models.kernels.fused_conv import tensor_version
 from plumekit_torch.models.kernels.int8_conv import KC, Shape, round_up
@@ -206,7 +207,8 @@ def _launch(xq, packed: PackedUpsample, out_scale):
     if err != 0:
         raise RuntimeError("int8 upsample kernel launch failed: "
                            + lib.pk_error_string(err).decode())
-    LAUNCHES += 1
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
     return out
 
 

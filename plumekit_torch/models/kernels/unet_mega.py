@@ -47,6 +47,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from plumekit_torch.cuda_build import LAUNCH_LOCK
 from plumekit_torch.config.train import UNetConfig
 from plumekit_torch.models.kernels import conv_tiles
 from plumekit_torch.models.kernels.conv_tiles import pack_vector, round_up
@@ -823,7 +824,8 @@ def _launch(blob, ints, x, n_stages, stamps, whole: bool):
         raise RuntimeError("whole-forward kernel launch failed: "
                            + lib.pk_error_string(err).decode())
     global LAUNCHES
-    LAUNCHES += 1
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
     return (logits, n_blocks.value if stamps is not None else None, scratch,
             plan)
 

@@ -392,7 +392,7 @@ def qvars_to(qvars, device) -> Dict[str, Any]:
             return {k: move(v) for k, v in t.items()}
         if isinstance(t, list):
             return [move(v) for v in t]
-        return None if t is None else t.to(device)
+        return None if t is None else t.to(device, copy=True)
 
     return move(qvars)
 

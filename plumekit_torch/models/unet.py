@@ -70,6 +70,9 @@ def _batch_norm(x, norm: nn.BatchNorm2d, training: bool):
         return F.batch_norm(xf, norm.running_mean.to(xf.dtype),
                             norm.running_var.to(xf.dtype), weight, bias,
                             False, 0.0, norm.eps).to(x.dtype)
+    group = getattr(norm, "stats_group", None)
+    if group is not None:
+        return _global_batch_norm(xf, norm, weight, bias, group).to(x.dtype)
     # copies: autograd keeps the tensors the call moved
     mean, var = (t.to(xf.dtype, copy=True) for t in (norm.running_mean,
                                                      norm.running_var))
@@ -85,6 +88,32 @@ def _batch_norm(x, norm: nn.BatchNorm2d, training: bool):
         norm.running_var.copy_(var - (var - BN_MOMENTUM * norm.running_var)
                                / n)
     return y.to(x.dtype)
+
+
+def _global_batch_norm(xf, norm: nn.BatchNorm2d, weight, bias, group):
+    """Train-mode batch norm of this rank's share of a batch sharded over
+    the ranks of ``group`` (``parallel/data_parallel.set_batch_stats_group``)
+    with the statistics of the global batch, as flax takes them under JAX's
+    data mesh: per-channel sums, sums of squares and counts reduced over the
+    ranks (differentiably), flax's biased variance E[x²] − E[x]² (clamped
+    at 0), and the running buffers moved as flax moves them."""
+    from plumekit_torch.parallel.data_parallel import all_reduce_sum
+
+    c = xf.shape[1]
+    sums = all_reduce_sum(torch.cat([
+        xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+        xf.new_full((1,), xf.numel() // c)]), group)
+    n = sums[-1]
+    mean = sums[:c] / n
+    var = torch.clamp_min(sums[c:2 * c] / n - mean * mean, 0.0)
+    mul = torch.rsqrt(var + norm.eps) * weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]
+    with torch.no_grad():
+        norm.running_mean.copy_(BN_MOMENTUM * norm.running_mean
+                                + (1 - BN_MOMENTUM) * mean)
+        norm.running_var.copy_(BN_MOMENTUM * norm.running_var
+                               + (1 - BN_MOMENTUM) * var)
+    return y
 
 
 class DoubleConv(nn.Module):

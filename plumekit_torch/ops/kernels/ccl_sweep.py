@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from plumekit_torch.cuda_build import LAUNCH_LOCK
 from plumekit_torch.ops.ccl import connected_components
 from plumekit_torch.ops.morphology import binary_opening_cross
 
@@ -118,7 +119,8 @@ def multi_threshold_ccl_fused(aod: torch.Tensor, thresholds: torch.Tensor,
     if err != 0:
         raise RuntimeError("CCL sweep kernel launch failed: "
                            + lib.pk_ccl_error_string(err).decode())
-    LAUNCHES += 1
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
     return out
 
 
@@ -161,7 +163,8 @@ def multi_threshold_ccl(opened: torch.Tensor, connectivity: int = 2,
     if err != 0:
         raise RuntimeError("CCL mask-stack kernel launch failed: "
                            + lib.pk_ccl_error_string(err).decode())
-    MASK_LAUNCHES += 1
+    with LAUNCH_LOCK:
+        MASK_LAUNCHES += 1
     return out
 
 

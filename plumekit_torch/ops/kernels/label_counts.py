@@ -19,6 +19,8 @@ import ctypes
 
 import torch
 
+from plumekit_torch.cuda_build import LAUNCH_LOCK
+
 #: launches of the CUDA kernel since import (or since a caller reset it)
 LAUNCHES = 0
 
@@ -88,5 +90,6 @@ def fire_label_counts(labels: torch.Tensor, labs: torch.Tensor
     if err != 0:
         raise RuntimeError("label-count kernel launch failed: "
                            + lib.pk_label_counts_error_string(err).decode())
-    LAUNCHES += 1
+    with LAUNCH_LOCK:
+        LAUNCHES += 1
     return out

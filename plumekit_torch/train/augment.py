@@ -9,6 +9,8 @@ different codes; :func:`apply_d4` is the JAX ``_apply_d4`` for given codes.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 
@@ -24,12 +26,18 @@ def apply_d4(xs: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return where(4, xs.transpose(1, 2), xs)
 
 
-def augment_batch(generator: torch.Generator, xs, ys):
+def augment_batch(generator: torch.Generator, xs, ys,
+                  shard: Tuple[int, int] = (0, 1)):
     """Random D4 transform per sample, identically applied to inputs and
     labels. xs: (B, T, T, C); ys: (B, T, T, 1); ``generator`` on their
-    device."""
-    codes = torch.randint(0, 8, (xs.shape[0],), generator=generator,
-                          device=generator.device)
+    device. Under data parallelism ``xs`` is part ``rank`` of a global
+    batch of ``ranks`` equal parts (``shard = (rank, ranks)``): the codes
+    are drawn for the global batch, as the one-process step draws them,
+    and this part's are kept."""
+    rank, ranks = shard
+    b = xs.shape[0]
+    codes = torch.randint(0, 8, (b * ranks,), generator=generator,
+                          device=generator.device)[rank * b:(rank + 1) * b]
     return apply_d4(xs, codes), apply_d4(ys, codes)
 
 

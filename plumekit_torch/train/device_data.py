@@ -193,18 +193,29 @@ def draw_tile_batch(ds: DeviceDataset, generator: torch.Generator,
 
 def make_device_multi_step(dice_weight: float = 0.5, augment: bool = True,
                            label_smooth: float = 0.0, seed: int = 0,
-                           tile: int = 512, batch_size: int = 16):
+                           tile: int = 512, batch_size: int = 16,
+                           group=None):
     """Returns ``multi(state, data, steps) -> (state, last_metrics)``: one
     optimizer step per global step index in ``steps``, each drawing and
     augmenting its batch on the device from :func:`step_generator` of
-    (seed, step): the draws first, then the augmentation codes."""
-    step = make_train_step(dice_weight, augment, label_smooth)
+    (seed, step): the draws first, then the augmentation codes. With
+    ``group`` (data parallelism, ``data`` replicated on every rank) each
+    rank draws the values of the global batch of ``batch_size`` and
+    gathers the tiles of its own part."""
+    step = make_train_step(dice_weight, augment, label_smooth, group=group)
+    part = slice(None)
+    if group is not None:
+        from plumekit_torch.parallel.data_parallel import rank_slice
+
+        part = rank_slice(batch_size, group)
 
     def multi(state, data: DeviceDataset, steps):
         metrics = None
         for s in steps:
             generator = step_generator(seed, int(s), data.channels.device)
-            xs, ys = draw_tile_batch(data, generator, batch_size, tile)
+            draws = draw_values(data, generator, batch_size)
+            xs, ys = tiles_from_draws(
+                data, Draws(*(v[part] for v in draws)), tile)
             state, metrics = step(state, xs, ys, generator)
         return state, metrics
 

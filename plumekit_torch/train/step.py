@@ -15,6 +15,7 @@ PyTorch. The eval step runs the eval-mode forward, which takes them.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -46,29 +47,50 @@ def _dequant_batch(batch):
 
 
 def make_train_step(dice_weight: float = 0.5, augment: bool = True,
-                    label_smooth: float = 0.0, dequant: bool = False):
+                    label_smooth: float = 0.0, dequant: bool = False,
+                    group=None):
     """Returns ``step(state, xs, ys, generator) -> (state, metrics)``;
     ``state`` is updated in place. xs: (B, T, T, C), ys: (B, T, T, 1) on
     the model's device; ``generator`` draws the augmentation codes
     (:func:`step_generator`; unused without augmentation). With
     ``dequant`` the step is ``step(state, (q, lo, scale, y8), generator)``
-    and decodes the batch before augmenting it."""
+    and decodes the batch before augmenting it.
+
+    With ``group`` (a ``torch.distributed`` process group) the step is the
+    data-parallel one: each rank passes its part of the global batch, in
+    rank order, and a replica of the same parameters; batch norm, the loss
+    and the IoU take the global batch's sums, the augmentation codes are
+    drawn for the global batch, and the gradients are averaged over the
+    ranks before AdamW (``parallel/data_parallel.py``), so the step equals
+    the one-process step on the global batch."""
+    reduce, shard = None, (0, 1)
+    if group is not None:
+        from plumekit_torch.parallel import data_parallel as dp
+
+        reduce = functools.partial(dp.all_reduce_sum, group=group)
+        shard = dp.world(group)
+
     def core(state: TrainState, xs, ys,
              generator: Optional[torch.Generator]):
         if augment:
-            xs, ys = augment_batch(generator, xs, ys)
+            xs, ys = augment_batch(generator, xs, ys, shard)
         state.model.train()
+        if group is not None:
+            dp.set_batch_stats_group(state.model, group)
         logits = state.model(xs)
         loss = dice_bce_loss(logits, ys, dice_weight,
-                             label_smooth=label_smooth)
+                             label_smooth=label_smooth, reduce=reduce)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            dp.average_gradients(state.model, group)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
         with torch.no_grad():
             metrics = {"loss": loss.detach(),
-                       "iou": iou(torch.sigmoid(logits) > 0.5, ys > 0.5)}
+                       "iou": iou(torch.sigmoid(logits) > 0.5, ys > 0.5,
+                                  reduce=reduce)}
         return state, metrics
 
     if not dequant:
@@ -82,13 +104,16 @@ def make_train_step(dice_weight: float = 0.5, augment: bool = True,
 
 def make_multi_train_step(dice_weight: float = 0.5, augment: bool = True,
                           label_smooth: float = 0.0, seed: int = 0,
-                          dequant: bool = False):
+                          dequant: bool = False, group=None):
     """Returns ``multi(state, chunk, steps) -> (state, last_metrics)``: one
     step per global step index in ``steps`` over the chunk's batches, each
     with the augmentation codes of :func:`step_generator` of (seed, step).
     ``chunk`` holds (K, B, ...) tensors: ``(xs, ys)``, or with ``dequant``
-    ``(q, lo, scale, y8)``, each batch decoded as its step begins."""
-    step = make_train_step(dice_weight, augment, label_smooth, dequant)
+    ``(q, lo, scale, y8)``, each batch decoded as its step begins. With
+    ``group``, this rank's parts of the global batches (see
+    :func:`make_train_step`)."""
+    step = make_train_step(dice_weight, augment, label_smooth, dequant,
+                           group)
 
     def multi(state: TrainState, chunk, steps):
         metrics = None
@@ -105,9 +130,17 @@ def make_multi_train_step(dice_weight: float = 0.5, augment: bool = True,
     return multi
 
 
-def make_eval_step(dice_weight: float = 0.5):
+def make_eval_step(dice_weight: float = 0.5, group=None):
     """``dice_weight`` must match the training objective, so that the eval
-    loss compares with the train loss."""
+    loss compares with the train loss. With ``group`` each rank passes its
+    part of the global batch and every rank gets the global batch's loss
+    and IoU, the same on every rank."""
+    reduce = None
+    if group is not None:
+        from plumekit_torch.parallel.data_parallel import all_reduce_sum
+
+        reduce = functools.partial(all_reduce_sum, group=group)
+
     def eval_step(state: TrainState, xs, ys) -> Dict[str, torch.Tensor]:
         model = state.model
         was_training = model.training
@@ -116,8 +149,10 @@ def make_eval_step(dice_weight: float = 0.5):
             with torch.no_grad():
                 logits = model(xs)
                 return {"loss": dice_bce_loss(logits, ys,
-                                              dice_weight=dice_weight),
-                        "iou": iou(torch.sigmoid(logits) > 0.5, ys > 0.5)}
+                                              dice_weight=dice_weight,
+                                              reduce=reduce),
+                        "iou": iou(torch.sigmoid(logits) > 0.5, ys > 0.5,
+                                   reduce=reduce)}
         finally:
             model.train(was_training)
 

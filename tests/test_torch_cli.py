@@ -201,7 +201,7 @@ def test_predict_model_threshold_resolution(tmp_path):
                                           pred["probs"] > pred["threshold"])
 
 
-@pytest.mark.parametrize("flags", [["--mesh-devices", "2"], ["--plot"]])
+@pytest.mark.parametrize("flags", [["--plot"]])
 def test_unported_flag_exits_1_naming_its_roadmap_item(tmp_path, caplog,
                                                        flags):
     with caplog.at_level(logging.ERROR):
@@ -209,6 +209,127 @@ def test_unported_flag_exits_1_naming_its_roadmap_item(tmp_path, caplog,
                        "--device", "cpu"] + flags)
     assert rc == 1
     assert "not ported" in caplog.text and "ROADMAP.md" in caplog.text
+
+
+def _save_jax_initial_weights(ckpt, kw=KW):
+    """The JAX trainer's PRNGKey(0) initial weights (what ``plumekit
+    predict_model`` serves with no checkpoint) as the port's weights.pt."""
+    state = create_state(jax.random.PRNGKey(0), JaxUNetConfig(**kw),
+                         TrainConfig())
+    model = build_model(UNetConfig(**kw))
+    model.load_state_dict(from_flax(jax.tree.map(np.asarray, {
+        "params": state.params, "batch_stats": state.batch_stats})))
+    save_weights(ckpt, model)
+
+
+def _mesh_roots(tmp_path, n=5):
+    """Three copies of one root of ``n`` 64² granules (the mesh run, the
+    one-device run, the JAX CLI's run)."""
+    import shutil
+
+    root, ckpt = _root(tmp_path)
+    maiac = os.path.join(root, "raw", "plume_identification", "maiac")
+    for i in range(2, n):
+        torch_granule.save_granule(os.path.join(maiac, f"g{i}.npz"),
+                                   _granule(i + 1, f"g{i}"))
+    _save_jax_initial_weights(ckpt)
+    copies = [str(tmp_path / name) for name in ("one", "jax")]
+    for c in copies:
+        shutil.copytree(root, c)
+    return [root] + copies
+
+
+@pytest.mark.parametrize("flags", [[], ["--int8"]], ids=["plain", "int8"])
+def test_predict_model_on_a_cpu_mesh_writes_the_one_device_files(tmp_path,
+                                                                 flags):
+    """``--mesh-devices 2 --batch-granules 1`` on the CPU (two replicas,
+    groups of two, the fifth granule a ragged tail padded by repeating it):
+    the one-device call's prediction files (probs within 1e-5, masks
+    equal) and, for the plain forward, the JAX CLI's ``--mesh-devices 2``
+    on its virtual CPU devices within the predict parity tolerance."""
+    mesh_root, one_root, jax_root = _mesh_roots(tmp_path)
+    argv = ["predict_model", "--device", "cpu", "--batch-granules", "1"] \
+        + SERVE + flags
+    assert cli.main(argv + ["--root", mesh_root, "--mesh-devices", "2"]) == 0
+    assert cli.main(argv + ["--root", one_root]) == 0
+    got, one = _predictions(mesh_root), _predictions(one_root)
+    assert sorted(got) == sorted(one) == [f"g{i}_pred.npz" for i in range(5)]
+    for f in got:
+        np.testing.assert_allclose(got[f]["probs"], one[f]["probs"],
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(got[f]["mask"], one[f]["mask"])
+    if flags:
+        return
+    assert jax_main(["predict_model", "--root", jax_root, "--mesh-devices",
+                     "2", "--batch-granules", "1"] + SERVE) == 0
+    want = _predictions(jax_root)
+    assert sorted(want) == sorted(got)
+    for f in got:
+        p, q = got[f]["probs"], want[f]["probs"]
+        np.testing.assert_allclose(p, q, atol=PROB_TOL, rtol=0)
+        sure = np.abs(q - 0.5) > PROB_TOL
+        np.testing.assert_array_equal(got[f]["mask"][sure],
+                                      want[f]["mask"][sure])
+
+
+def _errors(caplog, main, argv):
+    caplog.clear()
+    with caplog.at_level(logging.ERROR):
+        assert main(argv) == 1
+    return [r.getMessage() for r in caplog.records
+            if r.levelno >= logging.ERROR]
+
+
+def _pretend_cards(monkeypatch, n):
+    """The port sees ``n`` cards (nothing runs on them: the model stays on
+    the CPU)."""
+    from plumekit_torch.parallel import mesh as mesh_mod
+
+    restore = cli._restore_model
+    monkeypatch.setattr(cli, "resolve_device",
+                        lambda name: torch.device("cuda"))
+    monkeypatch.setattr(cli, "_restore_model",
+                        lambda args, device: restore(args, "cpu"))
+    monkeypatch.setattr(mesh_mod, "visible_devices", lambda: [
+        torch.device("cuda", i) for i in range(n)])
+
+
+@pytest.mark.parametrize("command", ["predict_model", "serve"])
+@pytest.mark.parametrize("flags", [["--mesh-devices", "2", "--fused"],
+                                   ["--mesh-devices", "1"],
+                                   ["--mesh-devices", "9"]],
+                         ids=["fused", "one_device", "too_many"])
+def test_mesh_refusals_give_the_jax_clis_messages(tmp_path, caplog,
+                                                  monkeypatch, command,
+                                                  flags):
+    """The JAX CLI on its 8 virtual CPU devices and the port on the CPU
+    (for too many devices, the port seeing 8 cards: on the CPU any count of
+    replicas serves), before anything is written."""
+    root, _ckpt = _root(tmp_path)
+    extra = ["--once", "--settle", "0"] if command == "serve" else []
+    want = _errors(caplog, jax_main, [command, "--root", root] + extra
+                   + SERVE + flags)
+    if flags[1] == "9":
+        _pretend_cards(monkeypatch, 8)
+        want = [m.replace("(cpu)", "(gpu)") for m in want]
+    got = _errors(caplog, cli.main, [command, "--root", root, "--device",
+                                     "cpu"] + extra + SERVE + flags)
+    assert got == want
+    assert not os.path.exists(os.path.join(root, "processed"))
+
+
+def test_mesh_devices_minus_one_is_every_card_and_one_cpu(tmp_path, caplog,
+                                                          monkeypatch):
+    root, _ckpt = _root(tmp_path)
+    argv = ["predict_model", "--root", root, "--device", "cpu",
+            "--mesh-devices", "-1"] + SERVE
+    assert _errors(caplog, cli.main, argv) == [
+        "--mesh-devices needs at least 2 devices (got 1); omit the flag for "
+        "single-device serving"]
+    _pretend_cards(monkeypatch, 1)
+    assert _errors(caplog, cli.main, argv) == [
+        "--mesh-devices needs at least 2 devices (got 1); omit the flag for "
+        "single-device serving"]
 
 
 def test_orbax_checkpoint_without_weights_exits_1(tmp_path, caplog):

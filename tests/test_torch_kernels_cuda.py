@@ -56,6 +56,27 @@ def card():
 
 
 @pytest.mark.cuda
+def test_ccl_kernels_on_a_second_card_after_the_first(card):
+    """K1 and K2 on cuda:1 after they ran on cuda:0: their tile passes
+    need more than 48 KB of shared memory, which each device grants only
+    after its own attribute call. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    field, ths = CASES[sorted(CASES)[0]]()
+    for device in ("cuda:0", "cuda:1"):
+        aod = torch.from_numpy(field).to(device)
+        th = torch.from_numpy(ths).to(device)
+        got = ccl_sweep.multi_threshold_ccl_fused(aod, th, 2)
+        masks = aod[None] >= th[:, None, None]
+        got_masks = ccl_sweep.multi_threshold_ccl(masks, 2)
+        torch.cuda.synchronize(device)
+        assert got.device == aod.device
+        assert torch.equal(got, ccl_sweep.multi_threshold_ccl_ref(aod, th, 2))
+        assert torch.equal(got_masks, ccl_sweep.multi_threshold_ccl_masks_ref(
+            masks, 2))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("connectivity", [1, 2])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_ccl_kernel_matches_plain_version(card, case, connectivity):

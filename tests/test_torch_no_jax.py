@@ -39,7 +39,12 @@ needed = {"plumekit_torch.models.kernels.unet_mega",
           "plumekit_torch.train.distill", "plumekit_torch.infer.serve",
           "plumekit_torch.infer.tune", "plumekit_torch.infer.export",
           "plumekit_torch.geo.utm", "plumekit_torch.io.viirs",
-          "plumekit_torch.io.viirs_aod", "plumekit_torch.io.verify"}
+          "plumekit_torch.io.viirs_aod", "plumekit_torch.io.verify",
+          "plumekit_torch.parallel", "plumekit_torch.parallel.mesh",
+          "plumekit_torch.parallel.halo",
+          "plumekit_torch.parallel.data_parallel",
+          "plumekit_torch.parallel.launch", "plumekit_torch.infer.sharded",
+          "plumekit_torch.identify.batch"}
 banned = {"jax", "jaxlib", "flax", "orbax", "pandas", "plumekit",
           "matplotlib", "h5py"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)

@@ -358,7 +358,40 @@ def test_a_device_fault_is_no_granules_fault(tmp_path, monkeypatch, caplog,
         assert "no granule's fault" in caplog.text
 
 
-@pytest.mark.parametrize("flags", [["--mesh-devices", "2"], ["--plot"]])
+def test_serve_once_on_a_cpu_mesh_writes_the_one_device_files(tmp_path):
+    """``serve --once --mesh-devices 2 --batch-granules 2`` on the CPU (two
+    replicas, groups of four, a ragged tail of one): the one-device
+    ``serve --once``'s prediction files and worklog (probs within 1e-5,
+    masks equal), and the JAX CLI's ``--mesh-devices 2`` on its virtual CPU
+    devices within the predict parity tolerance."""
+    from test_torch_cli import _mesh_roots
+
+    mesh_root, one_root, jax_root = _mesh_roots(tmp_path)
+    argv = ["serve"] + ONCE + ["--batch-granules", "2"]
+    assert cli.main(argv + ["--root", mesh_root, "--mesh-devices", "2"]) == 0
+    assert cli.main(argv + ["--root", one_root]) == 0
+    assert jax_main(["serve", "--root", jax_root, "--once", "--settle", "0",
+                     "--mesh-devices", "2", "--batch-granules", "2"]
+                    + SERVE) == 0
+    names = [f"g{i}_pred.npz" for i in range(5)]
+    assert _outs(mesh_root) == _outs(one_root) == _outs(jax_root) == names
+    assert _log(mesh_root, "served_granules.txt") \
+        == _log(one_root, "served_granules.txt") \
+        == _log(jax_root, "served_granules.txt")
+    got, one, want = (_predictions(r) for r in (mesh_root, one_root,
+                                                jax_root))
+    for f in names:
+        np.testing.assert_allclose(got[f]["probs"], one[f]["probs"],
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(got[f]["mask"], one[f]["mask"])
+        q = want[f]["probs"]
+        np.testing.assert_allclose(got[f]["probs"], q, atol=PROB_TOL, rtol=0)
+        sure = np.abs(q - 0.5) > PROB_TOL
+        np.testing.assert_array_equal(got[f]["mask"][sure],
+                                      want[f]["mask"][sure])
+
+
+@pytest.mark.parametrize("flags", [["--plot"]])
 def test_serve_refuses_unported_flags(tmp_path, caplog, flags):
     root, _ckpt = _root(tmp_path)
     with caplog.at_level(logging.ERROR):

@@ -27,6 +27,7 @@ from plumekit_torch import cli
 from plumekit_torch.config import DataConfig, TrainConfig, UNetConfig
 from plumekit_torch.convert import from_flax
 from plumekit_torch.io.granule import load_granule
+from plumekit_torch.models import UNet
 from plumekit_torch.train import checkpoint as ckpt
 from plumekit_torch.train.loop import chunk_schedule, train
 from plumekit_torch.train.state import create_state
@@ -301,15 +302,61 @@ def test_quick_start_chain_on_the_cpu(tmp_path, caplog):
         assert np.isfinite(d["probs"]).all()
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--data-parallel", "2"], "multi-card serving"),
-])
-def test_unported_train_flags_exit_1_naming_their_item(flags, item, caplog,
-                                                       tmp_path):
+def test_train_model_data_parallel_on_the_cpu(tmp_path, monkeypatch):
+    """``train_model --device cpu --data-parallel 2``: two gloo ranks, each
+    with half of every batch; rank 0 alone writes, so the checkpoint
+    directory is the one-process call's, and the weights and running
+    buffers equal its within the step tolerances. A
+    small float64 config stands in for ``UNetConfig()`` (the ranks receive
+    the config the command built), as in ``tests/test_torch_train_dp.py``."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(cli, "UNetConfig", lambda **kw: UNetConfig(
+        **{**SMALL, "compute_dtype": "float64", **kw}))
+    argv = ["train_model", "--device", "cpu", "--granule-size", "64",
+            "--tile", "32", "--batch-size", "4", "--steps", "3"]
+    dp, one = str(tmp_path / "dp"), str(tmp_path / "one")
+    assert cli.main(argv + ["--root", dp, "--data-parallel", "2"]) == 0
+    assert cli.main(argv + ["--root", one]) == 0
+    dirs = [os.path.join(r, "models", "checkpoints") for r in (dp, one)]
+    assert sorted(os.listdir(dirs[0])) == sorted(os.listdir(dirs[1])) == [
+        "model_config.json", "step_00000003.pt", "weights.pt"]
+    assert sorted(os.listdir(os.path.join(dp, "models"))) \
+        == sorted(os.listdir(os.path.join(one, "models")))
+    models = []
+    for d in dirs:
+        net = UNet(cli.UNetConfig())
+        assert ckpt.load_weights(d, net)
+        models.append(net.state_dict())
+    for name, want in models[1].items():
+        got = models[0][name]
+        if name.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                       rtol=STAT_TOL, atol=STAT_TOL,
+                                       err_msg=name)
+        elif not name.endswith("num_batches_tracked"):
+            assert (got - want).abs().max() <= PARAM_ATOL, name
+
+
+def test_train_model_data_parallel_refuses_more_ranks_than_cards(
+        tmp_path, caplog, monkeypatch):
+    """More ranks than visible cards: the JAX CLI's mesh error (its 8
+    virtual CPU devices; the port seeing 8 cards), exit 1, nothing
+    written."""
+    from plumekit_torch.parallel import mesh as mesh_mod
+
+    with pytest.raises(ValueError) as want:
+        jax_main(["train_model", "--root", str(tmp_path / "jax"),
+                  "--data-parallel", "9"])
+    monkeypatch.setattr(cli, "resolve_device",
+                        lambda name: torch.device("cuda"))
+    monkeypatch.setattr(mesh_mod, "visible_devices", lambda: [
+        torch.device("cuda", i) for i in range(8)])
     with caplog.at_level(logging.ERROR):
-        assert cli.main(["train_model", "--root", str(tmp_path),
-                         "--device", "cpu", *flags]) == 1
-    assert f"queue A: '{item}'" in caplog.text
+        assert cli.main(["train_model", "--root", str(tmp_path / "port"),
+                         "--data-parallel", "9"]) == 1
+    assert [r.getMessage() for r in caplog.records
+            if r.levelno >= logging.ERROR] == [str(want.value)]
+    assert not os.path.exists(tmp_path / "port")
 
 
 @pytest.mark.parametrize("flag", ["--viirs-swaths", "--viirs-aod-pairs"])
