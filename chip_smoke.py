@@ -1,7 +1,9 @@
 """Smoke run of plumekit_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
-``nvcc`` per source, all at once) and drives the port's thirteen paths:
+``nvcc`` per source, all at once), and the host library of
+``plumekit_torch/native`` with ``g++``, and drives the port's fourteen
+paths:
 
 * megakernel serving: K7 (the whole U-Net forward in one launch) against
   its plain PyTorch version at the flagship U-Net over 128 tiles of 96²,
@@ -164,6 +166,17 @@ Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
   4`` (bit for bit the unpruned call), ``--prune-level 2`` and ``--int8
   --prune-level 2`` (Q1 12 and Q2 3 launches per forward), and
   ``--fused``, which must exit 1;
+* the host modules (after the streams and the curation phase): the
+  native codecs against numpy, bit for bit, on the four 2048² serving
+  granules (uint16) and a 512² mask (uint8), each timed per granule, and
+  the streams' ``--quantize`` calls on them; ``StageTimes`` around one K6
+  forward of 128 × 288² (at least its CUDA-event time) and
+  ``profile_trace`` of one, whose trace must hold its 9 K6 kernels; ``checked``
+  around a K6 forward of 8 tiles (a NaN pixel raises naming the op);
+  ``report`` on the training chain's root (its Training, Predictions,
+  Evaluation and Serving calibration sections); ``build_features
+  --plot`` (without matplotlib: exit 1 before any launch); ``entry()``
+  against ``entry(device="cpu")`` on a seeded batch;
 * the mesh (``parallel_phase``, last): a 2-slot data mesh (two distinct
   cards where there are two, else two replicas or ranks on ``cuda:0``):
   ``make_batch_infer_sharded`` of the four 2048² granules at G = 2 a slot
@@ -267,6 +280,14 @@ from plumekit_torch.infer import (  # noqa: E402
     choose_halo, make_batch_infer_sharded, make_sharded_infer)
 from plumekit_torch.models import receptive_field, replicate_model  # noqa
 from plumekit_torch.parallel import make_mesh, shard  # noqa: E402
+from plumekit_torch import native  # noqa: E402
+from plumekit_torch.entry import entry as port_entry  # noqa: E402
+from plumekit_torch.native import build as native_build  # noqa: E402
+from plumekit_torch.ops import quant  # noqa: E402
+from plumekit_torch.utils import (  # noqa: E402
+    StageTimes, checked, profile_trace)
+from plumekit_torch.utils import timers  # noqa: E402
+from plumekit_torch.viz import matplotlib_present  # noqa: E402
 
 SEED = 0
 DEV = torch.device("cuda")
@@ -4574,6 +4595,303 @@ def parallel_phase(rng, tmp):
     return res
 
 
+# ------------------------------------------------- the host modules (PR 18)
+
+CODEC_REPEATS = 5                     # codec timings: median of 5 per granule
+MASK_PX = 512                         # the uint8 mask codec's plane
+TIMER_TILES = 128                     # the K6 forward under StageTimes
+CHECKED_TILES = 8                     # the K6 forward under checked
+PLOT_PX = 256                         # build_features --plot's small root
+REPORT_SECTIONS = ("## Training", "## Predictions", "## Evaluation",
+                   "## Serving calibration")
+FIGURE_LINE = "* ![training curves](figures/training.png)"
+# entry()'s bf16 logits on the card against the CPU's: the repo's bound
+# for a bf16 forward against its reference (tests/test_torch_unet.py)
+ENTRY_TOL = 5e-2
+
+
+def native_library():
+    """Build (g++) and load the host library; fails where it is
+    unavailable, so that every codec reading below is the library's."""
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native host library did not build "
+                             "(plumekit_torch/native, g++)")
+    res = {"build_s": native_build.BUILD_SECONDS,
+           "load_s": time.perf_counter() - t0,
+           "library": os.path.basename(native_build.lib_path())}
+    built = ("g++ build {:.2f} s".format(res["build_s"])
+             if res["build_s"] is not None else "already built")
+    print(f"native host library {res['library']}: {built}, available",
+          flush=True)
+    return res
+
+
+def host_median_ms(fn, reps=CODEC_REPEATS):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def codec_check(root, depth, streams_serving):
+    """The native codecs against the numpy ones, bit for bit: uint16 on the
+    four serving granules' channels (what ``--quantize`` encodes), the
+    uint8 mask codec on a 512² soft mask; host ms per granule, median of
+    5; and the whole ``predict_model --quantize`` calls that the streams
+    phase made, now on the native codec."""
+    t0 = time.perf_counter()
+    maiac = os.path.join(root, "raw", "plume_identification", "maiac")
+    res = {"granules": []}
+    for f in sorted(os.listdir(maiac)):
+        _name, ch, _hw = decode_granule_channels(os.path.join(maiac, f),
+                                                 depth)
+        got = native.quantize_uint16(ch)
+        want = quant.quantize_uint16_numpy(ch)
+        for g, w, what in zip(got, want, ("q", "lo", "scale")):
+            if g.dtype != w.dtype or not np.array_equal(g, w):
+                raise AssertionError(f"native uint16 codec {what} differs "
+                                     f"from numpy on {f}")
+        res["granules"].append({
+            "granule": f, "shape": list(ch.shape),
+            "native_ms": host_median_ms(lambda: native.quantize_uint16(ch)),
+            "numpy_ms": host_median_ms(
+                lambda: quant.quantize_uint16_numpy(ch))})
+    mask = np.random.default_rng(SEED + 18).random(
+        (MASK_PX, MASK_PX)).astype(np.float32)
+    mask[0, :3] = (-0.5, 1.5, 0.5)
+    got = native.quantize_mask_uint8(mask)
+    want = np.rint(np.clip(mask, 0.0, 1.0) * 255.0).astype(np.uint8)
+    if not np.array_equal(got, want):
+        raise AssertionError("native uint8 mask codec differs from numpy")
+    res["mask"] = {
+        "px": MASK_PX,
+        "native_ms": host_median_ms(lambda: native.quantize_mask_uint8(mask)),
+        "numpy_ms": host_median_ms(lambda: np.rint(
+            np.clip(mask, 0.0, 1.0) * 255.0).astype(np.uint8))}
+    for g in res["granules"]:
+        print(f"codec uint16 {g['granule']} {tuple(g['shape'])}: native "
+              f"{g['native_ms']:.3f} ms, numpy {g['numpy_ms']:.3f} ms; bit "
+              "for bit", flush=True)
+    print(f"codec uint8 mask {MASK_PX}^2: native "
+          f"{res['mask']['native_ms']:.3f} ms, numpy "
+          f"{res['mask']['numpy_ms']:.3f} ms; bit for bit", flush=True)
+    res["stream_quantize_mpix_s"] = {
+        k: streams_serving["quantized"][k]["call_mpix_s"]
+        for k in ("quantize", "both")}
+    res["stream_plain_mpix_s"] = \
+        streams_serving["forwards"]["plain"]["call_mpix_s"]
+    print("streams on the native codec: predict_model --quantize "
+          f"{res['stream_quantize_mpix_s']['quantize']:.3f} MPix/s, "
+          "--quantize --quantize-output "
+          f"{res['stream_quantize_mpix_s']['both']:.3f}, plain "
+          f"{res['stream_plain_mpix_s']:.3f} (whole calls, "
+          f"{GRANULES}x{GRANULE_PX}^2)", flush=True)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def timers_and_guard(tmp):
+    """``StageTimes`` around one K6 forward of 128 × 288² against CUDA
+    events of the same forward; ``profile_trace`` of one forward, whose
+    trace must hold its 9 K6 kernels; ``checked`` around a K6 forward of 8
+    tiles: a clean input passes (equal to the unguarded forward), one NaN
+    pixel raises naming the op."""
+    model = seeded_unet(torch.Generator().manual_seed(SEED))
+    apply_fn = make_fused_apply(model.cfg)
+    x = torch.rand((TIMER_TILES, ICFG.tile_size, ICFG.tile_size,
+                    model.cfg.in_channels),
+                   generator=torch.Generator().manual_seed(SEED + 18)).to(DEV)
+    res = {}
+    with torch.inference_mode():
+        apply_fn(model, x)                               # packs the blocks
+        torch.cuda.synchronize()
+        st = StageTimes()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        before = fused_conv.LAUNCHES
+        with st.stage("k6_forward") as handle:
+            a.record()
+            y = apply_fn(model, x)
+            b.record()
+            handle.sync(y)
+        b.synchronize()
+        res["stage_ms"] = 1e3 * st.totals["k6_forward"]
+        res["event_ms"] = a.elapsed_time(b)
+        res["k6_launches"] = fused_conv.LAUNCHES - before
+        # one launch per double-conv block: 9 at depth 4
+        blocks = 2 * model.cfg.depth + 1
+        if res["stage_ms"] < res["event_ms"] or res["k6_launches"] != blocks:
+            raise AssertionError(f"StageTimes: {res}")
+        print(f"StageTimes K6 forward {TIMER_TILES}x{ICFG.tile_size}^2: "
+              f"stage {res['stage_ms']:.3f} ms >= CUDA events "
+              f"{res['event_ms']:.3f} ms; K6 {res['k6_launches']} launches",
+              flush=True)
+
+        # the gate reads this process's own trace, late in the script,
+        # where a session loses the records of its first tens of kernels
+        # (profile_trace opens with empty kernels for that)
+        with profile_trace(os.path.join(tmp, "trace_here")) as trace:
+            apply_fn(model, x)
+            torch.cuda.synchronize()
+        res["trace"] = trace_kernels(trace.path)
+        res["trace"]["card_events"] = trace.card_events
+        res["trace"]["warmup_kernels"] = timers._warmup_kernels()
+        # every K6 launch of the forward is in the trace, one per block
+        if res["trace"]["k6_kernels"] != blocks:
+            raise AssertionError(f"profile_trace in this process: "
+                                 f"{res['trace']['k6_kernels']} of {blocks} "
+                                 f"K6 kernels: {res['trace']}")
+        print(f"profile_trace in this process: {res['trace']['events']} "
+              f"events, {res['trace']['kernels']} kernels, "
+              f"{res['trace']['bytes']} bytes, {res['trace']['k6_kernels']} K6 "
+              f"kernels (warm-up about {res['trace']['warmup_kernels']}); K6 "
+              f"symbols {res['trace']['k6_symbols']}", flush=True)
+
+        small = x[:CHECKED_TILES].contiguous()
+        guarded = checked(lambda t: apply_fn(model, t))
+        clean = guarded(small)
+        plain = apply_fn(model, small)
+        if not torch.equal(clean, plain):
+            raise AssertionError("checked: the guarded K6 forward differs "
+                                 "from the unguarded one")
+        bad = small.clone()
+        bad[-1, small.shape[1] // 3, small.shape[2] // 2, 0] = float("nan")
+        try:
+            guarded(bad)
+        except FloatingPointError as e:
+            res["checked_error"] = str(e)
+        else:
+            raise AssertionError("checked: a NaN pixel raised nothing")
+        print(f"checked K6 forward {CHECKED_TILES} tiles: clean input "
+              f"passes, NaN pixel raises: {res['checked_error']}",
+              flush=True)
+    del model, x, y
+    torch.cuda.empty_cache()
+    return res
+
+
+def trace_kernels(path):
+    """Events, kernels and K6's kernel symbols of a Chrome trace (the
+    card's kernels only, not the op's host events, which carry the op's
+    name too)."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {"path": path, "bytes": os.path.getsize(path),
+            "events": len(events), "kernels": len(kernels),
+            "k6_symbols": sorted({e["name"] for e in kernels
+                                  if "fused_double_conv" in e["name"]}),
+            "k6_kernels": sum("fused_double_conv" in e["name"]
+                              for e in kernels)}
+
+
+class _Messages(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def plot_branch(tmp):
+    """``build_features --plot`` on a small root: without matplotlib (the
+    expected case) it must exit 1 naming matplotlib before any device work
+    (no launch, no file); with it, it must write the PNGs."""
+    root = os.path.join(tmp, "plot_root")
+    run_cli("make_dataset", "--root", root, "--n-granules", "1", "--size",
+            str(PLOT_PX), "--plumes", "2", "--seed", str(SEED))
+    plots = os.path.join(root, "raw", "plume_identification", "plots")
+    aod_dir = os.path.join(root, "raw", "plume_identification",
+                           "dataframes", "full", "aod")
+    present = matplotlib_present()
+    launches = (ccl_sweep.LAUNCHES, label_counts.LAUNCHES)
+    messages = _Messages()
+    logging.getLogger("plumekit_torch.cli").addHandler(messages)
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["build_features", "--root", root, "--plot"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        logging.getLogger("plumekit_torch.cli").removeHandler(messages)
+    pngs = sorted(os.listdir(plots)) if os.path.isdir(plots) else []
+    res = {"matplotlib": present, "rc": rc, "seconds": secs, "pngs": pngs,
+           "launches": [a - b for a, b in zip(
+               (ccl_sweep.LAUNCHES, label_counts.LAUNCHES), launches)],
+           "messages": messages.lines}
+    if present:
+        rows = sum(len(open(os.path.join(aod_dir, f)).read().splitlines()) - 1
+                   for f in os.listdir(aod_dir))
+        if rc != 0 or (rows and not pngs):
+            raise AssertionError(f"build_features --plot: {res}")
+        branch = f"matplotlib present: {len(pngs)} PNGs written"
+    else:
+        if (rc != 1 or pngs or any(res["launches"])
+                or os.path.exists(aod_dir)
+                or not any("matplotlib" in m for m in messages.lines)):
+            raise AssertionError(f"build_features --plot without "
+                                 f"matplotlib: {res}")
+        branch = ("matplotlib absent: exit 1 before any device work ("
+                  f"{messages.lines[-1]})")
+    print(f"build_features --plot: {branch}", flush=True)
+    return res
+
+
+def host_phase(tmp, codec):
+    """The modules of PR 18 on the card's machine, after the curation
+    phase, on the training chain's root: the timers and the NaN guard
+    around K6, ``report``, ``build_features --plot`` and ``entry()``;
+    ``codec`` is the native codec's check, made beside the serving
+    root."""
+    t0 = time.perf_counter()
+    res = {"codec": codec, "timers": timers_and_guard(tmp)}
+
+    root = os.path.join(tmp, "train_root")
+    t1 = time.perf_counter()
+    rc = cli.main(["report", "--root", root])
+    secs = time.perf_counter() - t1
+    with open(os.path.join(root, "reports", "report.md")) as f:
+        text = f.read()
+    missing = [s for s in REPORT_SECTIONS if s not in text.split("\n")]
+    res["report"] = {"rc": rc, "seconds": secs, "missing": missing,
+                     "figure": FIGURE_LINE in text,
+                     "lines": len(text.split("\n"))}
+    if rc != 0 or missing:
+        raise AssertionError(f"report: {res['report']}")
+    print(f"report --root: {secs:.3f} s, {res['report']['lines']} lines, "
+          f"sections {', '.join(s[3:] for s in REPORT_SECTIONS)} present; "
+          f"figure drawn: {res['report']['figure']}", flush=True)
+
+    res["plot"] = plot_branch(tmp)
+
+    # entry() on the card against entry(device="cpu"), the same seeded
+    # weights, on a seeded batch of the example's shape
+    fn, args = port_entry()
+    cpu_fn, (cpu_model, _zeros) = port_entry(device="cpu")
+    x = torch.rand(tuple(args[1].shape),
+                   generator=torch.Generator().manual_seed(SEED + 18))
+    with torch.inference_mode():
+        out = fn(args[0], x.to(DEV))
+        ref = cpu_fn(cpu_model, x)
+    diff = float((out.float().cpu() - ref.float()).abs().max())
+    res["entry"] = {"shape": list(out.shape), "dtype": str(out.dtype),
+                    "max_abs_diff_cpu": diff}
+    if (tuple(out.shape) != (*args[1].shape[:3], 1)
+            or not torch.isfinite(out).all() or diff > ENTRY_TOL):
+        raise AssertionError(f"entry(): {res['entry']}")
+    print(f"entry(): fn(*args) {tuple(out.shape)} {out.dtype}, max|diff| "
+          f"{diff:.3g} against entry(device='cpu') on the same batch "
+          f"(tolerance {ENTRY_TOL})", flush=True)
+    del fn, args, out, ref, cpu_model
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0 + codec["seconds"]
+    print(f"host modules phase {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -4602,6 +4920,7 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "Performance Loss" in line):
                 print(line[:240])
+    native_lib = native_library()
 
     # megakernel serving (K7), then K5 and P1, then serving with K6
     batch = BATCH_GRANULES * ICFG.batch_tiles
@@ -4633,6 +4952,8 @@ def main() -> int:
                    "tta": stream_tta(model, root,
                                      mega_served["checkpoint"])}
         streams_s = time.perf_counter() - t_streams
+        # the native codecs against numpy on the serving granules
+        codec = codec_check(root, model.cfg.depth, streams["serving"])
         # the serving entry points: K6, K7, Q1, Q2 at the tuner's tiles,
         # tune of four forwards, predict_model --tuned, serve (its own
         # random stream, so that the later phases draw what they drew)
@@ -4679,6 +5000,10 @@ def main() -> int:
         # curation and evaluation on the chain's root (K2, K6, K7)
         torch.cuda.empty_cache()
         curation = curation_phase(tmp)
+        # the host modules: timers and the NaN guard around K6, report on
+        # the chain's root, build_features --plot, entry()
+        torch.cuda.empty_cache()
+        host = host_phase(tmp, codec)
     chain = training["chain"]
     # the streams' training side, after the step times it reads
     t_streams = time.perf_counter()
@@ -4996,6 +5321,7 @@ def main() -> int:
                    "unetpp": unetpp, "entry_points": entry,
                    "parallel": parallel,
                    "exported": exported,
+                   "native": native_lib, "host_modules": host,
                    "copy_rate_gb_per_s": copy_rate / 1e9,
                    "seconds": time.perf_counter() - t_start,
                    "kernels": kernels},

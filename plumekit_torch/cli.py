@@ -2,7 +2,7 @@
 ``resample_viirs``, ``identify_viirs``, ``build_features``, ``identify``,
 ``verify_real_granule``, ``select``, ``prepare_model_data``,
 ``train_model``, ``predict_model``, ``serve``, ``tune``,
-``export_model`` and ``evaluate_model``.
+``export_model``, ``evaluate_model`` and ``report``.
 
 Usage: ``plumekit-torch <command> --root R ...`` or
 ``python -m plumekit_torch.cli <command> ...``. ``build_features`` and
@@ -73,7 +73,13 @@ Usage: ``plumekit-torch <command> --root R ...`` or
   counts with ``--objects`` (connected components through the K2 kernel on
   the card), a threshold sweep with ``--sweep-threshold`` and, with
   ``--write-threshold``, ``<root>/models/threshold.json``, which
-  ``predict_model`` and ``--distill-calibrate`` read.
+  ``predict_model`` and ``--distill-calibrate`` read;
+* ``report`` writes ``<root>/reports/report.md`` over the stages that have
+  run (the training figure where matplotlib is installed).
+
+``--plot`` on ``build_features``, ``predict_model`` and ``serve`` also
+writes annotated PNGs; it needs matplotlib, and exits 1 where it is absent
+before any granule is decoded.
 
 The device is the card unless ``--device`` says otherwise.
 """
@@ -96,12 +102,6 @@ from plumekit_torch.utils import get_logger
 
 #: calibrated serving threshold artifact under <root>/models/
 THRESHOLD_BASENAME = "threshold.json"
-
-#: serving flags of the JAX CLI that this port does not serve yet, with the
-#: ROADMAP.md item (queue A) that ports each
-UNPORTED_FLAGS = {
-    "plot": "prediction quicklooks",
-}
 
 #: granules the int8 calibration looks at for one with signal
 INT8_CALIBRATION_CANDIDATES = 4
@@ -153,9 +153,9 @@ def _restore_model(args, device):
     elif has_orbax_steps(ckpt_dir):
         raise _CliError(
             f"{ckpt_dir} holds orbax step_* checkpoints of the JAX trainer, "
-            "which plumekit_torch does not read yet (ROADMAP.md, queue A: "
-            "'orbax checkpoint import'); convert them with "
-            "plumekit_torch.convert.from_flax")
+            "which plumekit_torch does not read; convert them where "
+            "plumekit is installed with `python tools/orbax_to_torch.py "
+            f"{ckpt_dir} OUT_DIR` and pass --checkpoint OUT_DIR")
     else:
         logger.warning("no weights found in %s — using untrained weights",
                        ckpt_dir)
@@ -168,10 +168,10 @@ def _module_forward(model, x):
     return model(x)
 
 
-def _refuse_unported(args) -> bool:
-    """Log and return True when a serving flag of the JAX CLI that the port
-    does not serve yet is given, or a flag that an exported program cannot
-    honour beside ``--exported`` (the JAX CLI's refusals and messages)."""
+def _refused(args) -> bool:
+    """Log and return True when a flag cannot be served: one that an
+    exported program cannot honour beside ``--exported`` (the JAX CLI's
+    refusals and messages), or ``--plot`` where matplotlib is absent."""
     if args.exported:
         for flag, message in (
                 ("tuned", "--tuned and --exported are mutually exclusive: "
@@ -188,12 +188,18 @@ def _refuse_unported(args) -> bool:
             if getattr(args, flag):
                 logger.error("%s", message)
                 return True
-    for flag, item in UNPORTED_FLAGS.items():
-        if getattr(args, flag):
-            logger.error("--%s is not ported to plumekit_torch yet "
-                         "(ROADMAP.md, queue A: '%s')",
-                         flag.replace("_", "-"), item)
-            return True
+    return _plot_refused(args)
+
+
+def _plot_refused(args) -> bool:
+    """``--plot`` where matplotlib is absent: log and return True, before
+    any granule is decoded or any device work."""
+    from plumekit_torch.viz import matplotlib_present
+
+    if args.plot and not matplotlib_present():
+        logger.error("--plot writes PNGs and needs matplotlib, which is not "
+                     "installed; drop --plot, or install matplotlib")
+        return True
     return False
 
 
@@ -501,9 +507,11 @@ def _sweep_stale_tmps(out_dir) -> None:
                 pass
 
 
-def _write_prediction(out_dir, name, probs, threshold=0.5):
+def _write_prediction(out_dir, name, probs, plot=False, granule_path=None,
+                      threshold=0.5):
     """Atomically write ``<name>_pred.npz`` with the mask thresholded here,
-    from the fp32 probs."""
+    from the fp32 probs, and with ``plot`` the quicklook
+    ``<name>_pred.png`` of the granule's first layer (nulls as 0)."""
     out = os.path.join(out_dir, name + "_pred.npz")
     tmp = os.path.join(out_dir, f".{name}_pred.tmp{os.getpid()}.npz")
     mask = probs > threshold
@@ -512,6 +520,13 @@ def _write_prediction(out_dir, name, probs, threshold=0.5):
     os.replace(tmp, out)
     logger.info("%s: %.1f%% plume pixels (threshold %.2f)", out,
                 100.0 * float(mask.mean()), threshold)
+    if plot and granule_path is not None:
+        from plumekit_torch.io.granule import NULL_VALUE, load_granule
+        from plumekit_torch.viz import plot_prediction
+
+        aod = load_granule(granule_path).first_layer().copy()
+        aod[aod == NULL_VALUE] = 0.0
+        plot_prediction(aod, probs, os.path.join(out_dir, name + "_pred.png"))
     return out
 
 
@@ -520,7 +535,7 @@ def cmd_predict_model(args) -> int:
     from plumekit_torch.infer.streaming import stream_inference
     from plumekit_torch.io.granule import GRANULE_EXTENSIONS
 
-    if _refuse_unported(args):
+    if _refused(args):
         return 1
     paths = PathsConfig(root=args.root)
     threshold = _resolve_threshold(args)
@@ -564,7 +579,11 @@ def cmd_predict_model(args) -> int:
                 quantize_output=args.quantize_output,
                 infer_is_batched=serving.infer_is_batched,
                 devices=serving.devices):
-            _write_prediction(out_dir, name, probs, threshold=threshold)
+            gp = next((p for p in granule_paths
+                       if os.path.splitext(os.path.basename(p))[0] == name),
+                      None) if args.plot else None
+            _write_prediction(out_dir, name, probs, plot=args.plot,
+                              granule_path=gp, threshold=threshold)
     return 0
 
 
@@ -652,7 +671,7 @@ def cmd_serve(args) -> int:
     from plumekit_torch.io.granule import GRANULE_EXTENSIONS
     from plumekit_torch.train.checkpoint import WorkLog
 
-    if _refuse_unported(args):
+    if _refused(args):
         return 1
     paths = PathsConfig(root=args.root)
     try:
@@ -723,7 +742,8 @@ def cmd_serve(args) -> int:
                     logger.warning("serve: granule name %r differs from file "
                                    "stem %r — worklog keys by filename",
                                    name, stem)
-                _write_prediction(out_dir, name, probs, threshold=threshold)
+                _write_prediction(out_dir, name, probs, plot=args.plot,
+                                  granule_path=gpath, threshold=threshold)
                 worklog.mark(os.path.basename(gpath))
                 served_acc.append(os.path.basename(gpath))
                 if stop.is_set():
@@ -904,15 +924,16 @@ def cmd_resample_viirs(args) -> int:
     zone: ``raw/reprojected_viirs/h5/<base>.h5`` and, with
     ``--quicklooks``, the blue and true-colour PNGs; an existing product is
     skipped. Host work only (the plan and its gathers)."""
-    from plumekit_torch.io.viirs import (_plt, load_swath, reproject_swath,
+    from plumekit_torch.io.viirs import (load_swath, reproject_swath,
                                          write_quicklooks,
                                          write_reprojected_h5)
+    from plumekit_torch.viz.plots import _plt
 
     if not _h5py_present():
         return 1
     if args.quicklooks:
         try:
-            _plt()
+            _plt("--quicklooks")
         except ImportError as e:
             logger.error("%s", e)
             return 1
@@ -1117,6 +1138,7 @@ def cmd_build_features(args) -> int:
     from plumekit_torch.io import prefetch
     from plumekit_torch.io.granule import GRANULE_EXTENSIONS, load_granule
     from plumekit_torch.train.checkpoint import WorkLog
+    from plumekit_torch.viz import plot_identify_bboxes, plot_identify_hulls
 
     if args.batch_scenes < 1:
         logger.error("--batch-scenes must be >= 1, got %d", args.batch_scenes)
@@ -1124,9 +1146,7 @@ def cmd_build_features(args) -> int:
     if args.batch_scenes > 1 and args.detector != "rg":
         logger.error("--batch-scenes applies to the rg detector only")
         return 1
-    if args.plot:
-        logger.error("--plot is not ported to plumekit_torch yet (ROADMAP.md,"
-                     " queue A: 'prediction quicklooks')")
+    if _plot_refused(args):
         return 1
     try:
         device = resolve_device(args.device)
@@ -1181,7 +1201,11 @@ def cmd_build_features(args) -> int:
         n_done += 1
         logger.info("%s: %d plumes", base, len(set(hull_table.column("id"))))
 
-    def write_rg(fname, aod_table, hull_table, out):
+    def plot_path(fname):
+        return os.path.join(paths.ensure("plot_dir"),
+                            os.path.splitext(fname)[0] + "_plot.png")
+
+    def write_rg(fname, granule, aod_table, hull_table, out):
         base = os.path.splitext(fname)[0]
         aod_table.to_csv(os.path.join(aod_dir, base + "_aod.csv"))
         if not args.no_masks:
@@ -1191,6 +1215,9 @@ def cmd_build_features(args) -> int:
                     os.path.join(paths.ensure("plume_mask_dir"),
                                  base + "_masks.npz"),
                     **{str(pid): m for pid, m in masks.items()})
+        if args.plot and len(aod_table):
+            plot_identify_bboxes(granule.first_layer(), aod_table,
+                                 plot_path(fname))
         finish(fname, hull_table)
 
     if args.batch_scenes > 1:
@@ -1203,8 +1230,8 @@ def cmd_build_features(args) -> int:
             results = rg_mod.identify_batch(
                 [(g.first_layer(), g.lat, g.lon, d) for _, g, d in buf],
                 fires, RGIdentifyConfig(), device=device)
-            for (fname, _g, _d), result in zip(buf, results):
-                write_rg(fname, *result)
+            for (fname, g, _d), result in zip(buf, results):
+                write_rg(fname, g, *result)
             buf.clear()
 
         for fname, granule, date in stream:
@@ -1219,18 +1246,25 @@ def cmd_build_features(args) -> int:
 
     for fname, granule, date in stream:
         if args.detector == "rg":
-            write_rg(fname, *rg_mod.identify(
+            write_rg(fname, granule, *rg_mod.identify(
                 granule.first_layer(), granule.lat, granule.lon, date, fires,
                 RGIdentifyConfig(), device=device))
         elif args.detector == "basic":
             # the api zeroes negative AOD and lays out the bbox rows
-            finish(fname, api_identify(granule, fires, date,
-                                       BasicIdentifyConfig(),
-                                       device=device).aod_stats)
+            table = api_identify(granule, fires, date, BasicIdentifyConfig(),
+                                 device=device).aod_stats
+            if args.plot and len(table):
+                aod = granule.first_layer().copy()
+                aod[aod < 0] = 0.0
+                plot_identify_bboxes(aod, table, plot_path(fname))
+            finish(fname, table)
         else:
-            finish(fname, gaussian_mod.identify_granule(
-                granule, fires, date, GaussianIdentifyConfig(),
-                device=device))
+            table = gaussian_mod.identify_granule(
+                granule, fires, date, GaussianIdentifyConfig(), device=device)
+            if args.plot and len(table):
+                plot_identify_hulls(granule.first_layer(), table,
+                                    plot_path(fname))
+            finish(fname, table)
     logger.info("processed %d granules", n_done)
     return 0
 
@@ -1285,8 +1319,7 @@ def cmd_select(args) -> int:
         except ImportError:
             logger.error("select without --decisions writes PNG review "
                          "batches and needs matplotlib, which is not "
-                         "installed (ROADMAP.md, queue A: 'Curation'); pass "
-                         "--decisions to apply decisions")
+                         "installed; pass --decisions to apply decisions")
             return 1
     paths = PathsConfig(root=args.root)
     hull_dir = paths.ensure("hull_df_dir")
@@ -1328,6 +1361,16 @@ def cmd_select(args) -> int:
             logger.info("%s: %d plumes staged for review in %s%s", base,
                         len(manifest), out_dir,
                         " (model-ranked)" if scores is not None else "")
+    return 0
+
+
+def cmd_report(args) -> int:
+    """Campaign summary under ``<root>/reports/`` (``plumekit report``):
+    prints the path of ``report.md``. The training figure is drawn where
+    matplotlib is installed."""
+    from plumekit_torch.viz.report import build_report
+
+    print(build_report(args.root, out_dir=args.out))
     return 0
 
 
@@ -1578,9 +1621,9 @@ def _add_serving_args(p: argparse.ArgumentParser) -> None:
                         "(1 = per granule)")
     p.add_argument("--batch-tiles", type=int, default=64,
                    help="tiles per forward and granule")
-    unported = " (not ported yet: exits 1)"
-    p.add_argument("--plot", action="store_true", help="quicklook PNG"
-                   + unported)
+    p.add_argument("--plot", action="store_true",
+                   help="also write <name>_pred.png, the AOD | probability | "
+                        "mask quicklook (needs matplotlib)")
     p.add_argument("--int8", action="store_true",
                    help="int8 post-training-quantized forward, calibrated on "
                         "the first granule with signal; every 3x3 conv "
@@ -1832,7 +1875,8 @@ def build_parser() -> argparse.ArgumentParser:
     bf.add_argument("--batch-scenes", type=int, default=1,
                     help="same-shape scenes per identify group (rg only)")
     bf.add_argument("--plot", action="store_true",
-                    help="annotated scene PNGs (not ported yet: exits 1)")
+                    help="write annotated scene PNGs under raw/"
+                         "plume_identification/plots (needs matplotlib)")
     bf.set_defaults(fn=cmd_build_features)
 
     idp = sub.add_parser("identify", help="identify plumes in one granule")
@@ -1942,6 +1986,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="report CSV (default <root>/processed/"
                          "evaluation.csv)")
     ev.set_defaults(fn=cmd_evaluate_model)
+
+    rp = sub.add_parser("report",
+                        help="campaign summary markdown + figures under "
+                             "<root>/reports/")
+    rp.add_argument("--root", default=os.environ.get("PLUMEKIT_ROOT",
+                                                     "data"),
+                    help="workspace root")
+    rp.add_argument("--out", default=None,
+                    help="report dir (default <root>/reports)")
+    rp.set_defaults(fn=cmd_report)
     return p
 
 

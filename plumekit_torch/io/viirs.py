@@ -140,23 +140,13 @@ def write_reprojected_h5(path: str, resampler: UTMResampler,
         f.attrs["fill_value"] = FILL_VALUE
 
 
-def _plt():
-    try:
-        import matplotlib
-    except ImportError as e:
-        raise ImportError("--quicklooks needs matplotlib; it is not "
-                          "installed") from e
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    return plt
-
-
 def write_quicklooks(base: str, rasters: Dict[str, np.ndarray],
                      blue_dir: str, tcc_dir: str) -> None:
     """The blue-channel and true-colour PNGs of the reference's
     ``reprojected_viirs/{blue,tcc}`` directories."""
-    plt = _plt()
+    from plumekit_torch.viz.plots import _plt
+
+    plt = _plt("--quicklooks")
 
     def norm(a):
         v = np.where(a == FILL_VALUE, np.nan, a)

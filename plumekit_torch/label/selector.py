@@ -1,7 +1,8 @@
 """Plume curation of ``plumekit/label/selector.py`` on the port's row
 tables: review every plume of a hull table (crop, in-hull AOD, the
-auto-reject verdict), split the table by decisions, or write a review
-batch (PNG crops and a manifest) for humans to fill in.
+auto-reject verdict), split the table by decisions, write a review batch
+(PNG crops and a manifest) for humans to fill in, or review plume by plume
+at the keyboard.
 
 The pandas steps of the JAX functions are spelled out here: the duplicate
 pass (a groupby mean in pandas' compensated sum, rounding to 3 places, the
@@ -236,7 +237,38 @@ def export_review_batch(plumes: Table, granule: Granule, out_dir: str,
     return manifest
 
 
+def interactive_review(plumes: Table, granule: Granule,
+                       scores: Optional[Table] = None) -> Tuple[Table, Table]:
+    """The reference's blocking review (``plume_selector.py:118-134``): one
+    figure per plume (crop with its hull, histogram); key '1' keeps, '0'
+    rejects, closing the window without a key rejects. ``scores`` presents
+    the plumes most-suspect-first (:func:`apply_decisions`). Needs
+    matplotlib with an interactive backend, imported here."""
+    import matplotlib.pyplot as plt
+
+    def decide(r: PlumeReview) -> bool:
+        decision = {}
+
+        def press(event):
+            if event.key in ("0", "1"):
+                decision["keep"] = event.key == "1"
+                plt.close()
+
+        fig, (ax0, ax1) = plt.subplots(1, 2, figsize=(12, 5))
+        fig.canvas.mpl_connect("key_press_event", press)
+        vmax = float(r.in_plume_aod.max()) if r.in_plume_aod.size else 1.0
+        im = ax0.imshow(r.crop, vmin=0, vmax=max(vmax, 1e-3))
+        plt.colorbar(ax=ax0, mappable=im)
+        ax0.plot(r.hull_x, r.hull_y, "r--", lw=2)
+        ax1.hist(r.in_plume_aod, bins=HIST_BINS)
+        plt.show()
+        return decision.get("keep", False)
+
+    return apply_decisions(plumes, granule, decide, scores=scores)
+
+
 __all__ = ["BUFFER_PX", "HIST_BINS", "MANIFEST_COLUMNS", "PlumeReview",
            "apply_decisions", "auto_reject", "export_review_batch",
-           "find_plume_aod", "group_mean", "order_reviews",
-           "remove_duplicated_plumes", "review_plumes", "subset_plume"]
+           "find_plume_aod", "group_mean", "interactive_review",
+           "order_reviews", "remove_duplicated_plumes", "review_plumes",
+           "subset_plume"]

@@ -16,6 +16,7 @@ of the K1/K4 kernel (:mod:`plumekit_torch.ops.kernels.ccl_sweep`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: background value in returned label images
@@ -37,10 +38,18 @@ def _neighbour_min(lbl2d: torch.Tensor, sentinel: int, connectivity: int):
     return best
 
 
-def connected_components(mask: torch.Tensor, connectivity: int = 2):
+def connected_components(mask: torch.Tensor, connectivity: int = 2,
+                         init_labels: torch.Tensor = None):
     """Label a (H, W) boolean mask: 8-connected for ``connectivity=2``
     (skimage's 2-D default, used throughout the reference), 4-connected
-    for 1. Returns (H, W) int32 labels under the contract above."""
+    for 1. Returns (H, W) int32 labels under the contract above.
+
+    ``init_labels`` warm-starts the loop from labels in this format of a
+    subset of ``mask`` (a tighter threshold's): a pixel whose init label
+    names a pixel of its own component starts from it, so the loop pays
+    only for the bridges the looser mask adds. The result is the cold
+    labelling's. A start is never above the pixel's own id, so the
+    pointers stay a forest."""
     if mask.dim() != 2 or mask.dtype != torch.bool:
         raise ValueError(f"want a (H, W) bool mask, got {tuple(mask.shape)} "
                          f"{mask.dtype}")
@@ -52,7 +61,13 @@ def connected_components(mask: torch.Tensor, connectivity: int = 2):
     # labels are int64 (torch indexes with int64); slot n is the background
     # sentinel, pointing at itself so that a jump from background stays put
     fg_ext = torch.cat([fg, fg.new_zeros(1)])
-    lbl = torch.where(fg_ext, torch.arange(n + 1, device=mask.device), n)
+    ids = torch.arange(n + 1, device=mask.device)
+    if init_labels is not None:
+        seeded = init_labels.reshape(-1).to(torch.int64) - 1
+        seeded = torch.where(seeded >= 0, torch.minimum(seeded, ids[:n]),
+                             ids[:n])
+        ids = torch.cat([seeded, ids[n:]])
+    lbl = torch.where(fg_ext, ids, n)
     while True:
         best = _neighbour_min(lbl[:n].view(h, w), n, connectivity).reshape(-1)
         best = torch.where(fg, best, n)
@@ -69,3 +84,32 @@ def connected_components(mask: torch.Tensor, connectivity: int = 2):
         lbl = new
     out = torch.where(fg_ext, lbl + 1, BACKGROUND)[:n]
     return out.view(h, w).to(torch.int32)
+
+
+def connected_components_host(mask, connectivity: int = 2) -> np.ndarray:
+    """Host labelling by the native union-find
+    (:func:`plumekit_torch.native.ccl_label`; ``scipy.ndimage.label``
+    where the library is not built): compact int32 labels 1..N in raster
+    order, the same partition as :func:`connected_components` with other
+    label values."""
+    from plumekit_torch import native
+
+    return native.ccl_label(np.asarray(mask) != 0, connectivity)[0]
+
+
+def component_sizes(labels: torch.Tensor) -> torch.Tensor:
+    """Pixel count of every component, addressed by label value: an
+    (H·W + 1,) int32 map, index 0 counting the background."""
+    h, w = labels.shape
+    return torch.bincount(labels.reshape(-1).to(torch.int64),
+                          minlength=h * w + 1).to(torch.int32)
+
+
+def remove_small_components(labels: torch.Tensor,
+                            min_size: int) -> torch.Tensor:
+    """Zero the components smaller than ``min_size`` pixels (skimage's
+    ``remove_small_objects`` on the fire-cluster rasters)."""
+    sizes = component_sizes(labels)
+    keep = sizes[labels.to(torch.int64)] >= min_size
+    return torch.where(keep & (labels != BACKGROUND), labels,
+                       torch.zeros_like(labels))

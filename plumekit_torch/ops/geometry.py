@@ -1,6 +1,6 @@
 """Plume geometry (``plumekit/ops/geometry.py``): the closed-form 2×2
-symmetric eigendecomposition behind the principal-axis gate, and the host
-convex hull."""
+symmetric eigendecomposition behind the principal-axis gate, point in
+convex polygon, and the host convex hull."""
 
 from __future__ import annotations
 
@@ -43,6 +43,25 @@ def principal_axes(cov_rr, cov_rc, cov_cc):
     Returns ``(d_major, d_minor, v_major, v_minor)``, vectors as (y, x)."""
     l_max, l_min, v_max, v_min = eig2x2_sym(cov_rr, cov_rc, cov_cc)
     return 2.0 * l_max, 2.0 * l_min, v_max, v_min
+
+
+def points_in_convex_hull(points: torch.Tensor, hull_vertices: torch.Tensor,
+                          n_valid) -> torch.Tensor:
+    """Containment of ``points`` (N, 2) in the convex polygon whose
+    vertices, in hull order (scipy's ``ConvexHull.vertices`` are
+    counter-clockwise), are the first ``n_valid`` rows of
+    ``hull_vertices`` (K, 2); the rest pad. Boundary points are inside
+    (Delaunay ``find_simplex >= 0``); either winding is accepted. A hull
+    of fewer than 3 vertices contains nothing."""
+    k = hull_vertices.shape[0]
+    idx = torch.arange(k, device=hull_vertices.device)
+    nxt = torch.where(idx + 1 < n_valid, idx + 1, 0)
+    edge = hull_vertices[nxt] - hull_vertices               # (K, 2)
+    rel = points[:, None, :] - hull_vertices[None, :, :]   # (N, K, 2)
+    cross = edge[None, :, 0] * rel[:, :, 1] - edge[None, :, 1] * rel[:, :, 0]
+    cross = torch.where((idx < n_valid)[None, :], cross, 0.0)
+    inside = (cross >= 0.0).all(1) | (cross <= 0.0).all(1)
+    return inside & (n_valid >= 3)
 
 
 def convex_hull_vertices_host(points: np.ndarray) -> np.ndarray:

@@ -8,11 +8,13 @@ uint8. Used by the streaming inference (``--quantize``,
 ``--quantize-output``) and the quantized training transfers
 (``quantize_transfer``).
 
-The host encoder is the JAX package's numpy path (its native codec is bit
-for bit the same, and not copied). The card takes no uint16 arithmetic in
-every PyTorch build, so a uint16 payload travels as its int16 bit pattern
-(:func:`uint16_bits`) and :func:`dequantize` widens and masks it on the
-device.
+The host encoder of C-contiguous float32 is the native single-pass codec
+(:func:`plumekit_torch.native.quantize_uint16`), which equals the JAX
+package's numpy path bit for bit and takes it where the library is not
+built. The card takes no
+uint16 arithmetic in every PyTorch build, so a uint16 payload travels as
+its int16 bit pattern (:func:`uint16_bits`) and :func:`dequantize` widens
+and masks it on the device.
 """
 
 from __future__ import annotations
@@ -27,7 +29,21 @@ def quantize_uint16(channels: np.ndarray):
     Returns ``(q uint16, lo (C,) float32, scale (C,) float32)`` with
     ``value ≈ lo + q · scale`` (max error scale/2). Non-finite input is
     refused: NaN would poison ``lo``/``scale`` and cast to an arbitrary
-    uint16."""
+    uint16.
+
+    C-contiguous float32 input takes the native codec (two passes, no
+    temporaries), as in the JAX package; anything else
+    :func:`quantize_uint16_numpy`, which the native codec equals bit for
+    bit."""
+    if channels.dtype == np.float32 and channels.flags.c_contiguous:
+        from plumekit_torch import native
+
+        return native.quantize_uint16(channels)
+    return quantize_uint16_numpy(channels)
+
+
+def quantize_uint16_numpy(channels: np.ndarray):
+    """The numpy codec of :func:`quantize_uint16` (the JAX package's)."""
     c = channels.shape[-1]
     flat = channels.reshape(-1, c)
     if not np.isfinite(flat).all():
@@ -74,4 +90,4 @@ def dequantize_probs_uint8(q: np.ndarray) -> np.ndarray:
 
 
 __all__ = ["dequantize", "dequantize_probs_uint8", "quantize_probs_uint8",
-           "quantize_uint16", "uint16_bits"]
+           "quantize_uint16", "quantize_uint16_numpy", "uint16_bits"]

@@ -8,6 +8,7 @@ candidates is one call (the JAX package vmaps instead).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from plumekit_torch.ops.ccl import BACKGROUND
@@ -66,6 +67,15 @@ def masked_moments_cov(mask: torch.Tensor):
     c_rc = (dr * dc).sum((-2, -1)) / denom
     c_cc = (dc * dc).sum((-2, -1)) / denom
     return c_rr, c_rc, c_cc, n
+
+
+def window_distance_matrix(win_half: int) -> np.ndarray:
+    """Euclidean pixel-distance matrix of a (2w+1)² window, float32: the
+    reference's precomputed ``DISTANCE_MATRIX``
+    (``plume_identifier_rg.py:28-32``)."""
+    x = np.arange(-win_half, win_half + 1)
+    dx, dy = np.meshgrid(x, x)
+    return np.sqrt(dx**2 + dy**2).astype(np.float32)
 
 
 def window_starts(r: torch.Tensor, c: torch.Tensor, h: int, w: int,

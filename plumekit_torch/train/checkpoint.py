@@ -8,10 +8,10 @@ temporary sibling and moved in place with ``os.replace``, so a reader sees
 the old file or the new one and never half of one; a crash leaves at most
 a temporary file, which readers ignore and the next writer removes.
 
-Orbax ``step_*`` directories written by the JAX trainer are not read here
-yet: reading them needs JAX on the reading side (ROADMAP.md, queue A:
-'orbax checkpoint import'). ``plumekit_torch.convert.from_flax`` carries
-restored flax variables over where JAX is at hand.
+Orbax ``step_*`` directories written by the JAX trainer are not read here:
+reading them needs JAX and orbax. ``python tools/orbax_to_torch.py
+CKPT_DIR OUT_DIR [--step N]``, run where ``plumekit`` is installed,
+converts one into ``weights.pt`` and ``model_config.json``.
 """
 
 from __future__ import annotations

@@ -197,13 +197,15 @@ def quantize_samples(samples: List[GranuleSample]) -> List[GranuleSample]:
     """Granules encoded once for the quantized transfers: uint16 channels
     (:func:`plumekit_torch.ops.quant.quantize_uint16`, per granule) with
     ``lo``/``scale`` sidecar attributes, and masks as
-    ``rint(clip(m, 0, 1) · 255)`` uint8 (exact for {0, 1} labels)."""
+    ``rint(clip(m, 0, 1) · 255)`` uint8 (exact for {0, 1} labels), by
+    :func:`plumekit_torch.native.quantize_mask_uint8`."""
+    from plumekit_torch import native
     from plumekit_torch.ops.quant import quantize_uint16
 
     out = []
     for s in samples:
         q, lo, scale = quantize_uint16(s.channels)
-        m8 = np.rint(np.clip(s.mask, 0.0, 1.0) * 255.0).astype(np.uint8)
+        m8 = native.quantize_mask_uint8(s.mask)
         qs = GranuleSample(channels=q, mask=m8)
         qs.lo, qs.scale = lo, scale
         out.append(qs)

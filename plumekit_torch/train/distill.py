@@ -58,9 +58,9 @@ def load_teacher(ckpt_dir: str, prune_level: Optional[int] = None,
     elif ckpt.has_orbax_steps(ckpt_dir):
         raise ValueError(
             f"{ckpt_dir} holds orbax step_* checkpoints of the JAX trainer, "
-            "which plumekit_torch does not read yet (ROADMAP.md, queue A: "
-            "'orbax checkpoint import'); convert them with "
-            "plumekit_torch.convert.from_flax")
+            "which plumekit_torch does not read; convert them where "
+            "plumekit is installed with `python tools/orbax_to_torch.py "
+            f"{ckpt_dir} OUT_DIR` and pass OUT_DIR as the teacher")
     else:
         raise ValueError(f"no checkpoints under {ckpt_dir!r}")
     logger.info("teacher: %s %s (arch=%s ds=%s prune=%s)", ckpt_dir, source,

@@ -1,23 +1,10 @@
-"""Logging setup (the format string of ``plumekit/utils/logging.py``) and
-the per-step metrics CSV of ``plumekit/utils/metrics.py``."""
+"""The per-step metrics CSV of ``plumekit/utils/metrics.py``."""
 
 from __future__ import annotations
 
 import csv
-import logging
 import os
 from typing import Dict, Optional
-
-_FMT = "%(asctime)s - %(name)s - %(levelname)s - %(message)s"
-_CONFIGURED = False
-
-
-def get_logger(name: str) -> logging.Logger:
-    global _CONFIGURED
-    if not _CONFIGURED:
-        logging.basicConfig(level=logging.INFO, format=_FMT)
-        _CONFIGURED = True
-    return logging.getLogger(name)
 
 
 class MetricsWriter:

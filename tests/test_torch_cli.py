@@ -7,6 +7,7 @@ the JAX CLI does on the same 256² roots."""
 import json
 import logging
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -201,14 +202,27 @@ def test_predict_model_threshold_resolution(tmp_path):
                                           pred["probs"] > pred["threshold"])
 
 
+def _without_matplotlib(monkeypatch):
+    """Make ``import matplotlib`` fail, as on the card's machine."""
+    for mod in [m for m in sys.modules if m.split(".")[0] == "matplotlib"]:
+        monkeypatch.delitem(sys.modules, mod)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+
+
 @pytest.mark.parametrize("flags", [["--plot"]])
 def test_unported_flag_exits_1_naming_its_roadmap_item(tmp_path, caplog,
-                                                       flags):
+                                                       monkeypatch, flags):
+    """``--plot`` is ported; where matplotlib is absent it exits 1 naming
+    matplotlib, before any granule is served."""
+    root, _ckpt = _root(tmp_path)
+    _without_matplotlib(monkeypatch)
     with caplog.at_level(logging.ERROR):
-        rc = cli.main(["predict_model", "--root", str(tmp_path),
+        rc = cli.main(["predict_model", "--root", root,
                        "--device", "cpu"] + flags)
     assert rc == 1
-    assert "not ported" in caplog.text and "ROADMAP.md" in caplog.text
+    assert "needs matplotlib" in caplog.text
+    assert "not ported" not in caplog.text
+    assert not os.path.exists(os.path.join(root, "processed"))
 
 
 def _save_jax_initial_weights(ckpt, kw=KW):
@@ -610,12 +624,18 @@ def test_build_features_resumes_from_its_log(tmp_path, caplog):
 
 
 @pytest.mark.parametrize("flags", [["--plot"]])
-def test_build_features_unported_flag_exits_1(tmp_path, caplog, flags):
+def test_build_features_unported_flag_exits_1(tmp_path, caplog, monkeypatch,
+                                              flags):
+    """``--plot`` is ported; where matplotlib is absent it exits 1 naming
+    matplotlib, before any granule is decoded (no work log is written)."""
+    _without_matplotlib(monkeypatch)
     with caplog.at_level(logging.ERROR):
         rc = cli.main(["build_features", "--root", str(tmp_path),
                        "--device", "cpu"] + flags)
     assert rc == 1
-    assert "not ported" in caplog.text and "ROADMAP.md" in caplog.text
+    assert "needs matplotlib" in caplog.text
+    assert "not ported" not in caplog.text
+    assert not os.path.exists(tmp_path / "raw")
 
 
 def test_build_features_without_cuda_or_fires_exits_1(tmp_path, caplog):

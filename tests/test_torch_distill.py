@@ -183,7 +183,7 @@ def test_load_teacher_sources_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="no checkpoints"):
         tdist.load_teacher(empty, device="cpu")
     os.makedirs(os.path.join(empty, "step_00000010"))
-    with pytest.raises(ValueError, match="orbax checkpoint import"):
+    with pytest.raises(ValueError, match="tools/orbax_to_torch.py"):
         tdist.load_teacher(empty, device="cpu")
 
 

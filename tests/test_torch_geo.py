@@ -2,8 +2,8 @@
 ``plumekit/geo`` on seeded random inputs: the haversine, both directions
 of the sinusoidal projection (with the round trip), the off-lens NaN and
 the granule grid, each bit for bit (numpy float64 on both sides). The JAX
-package's ``grid_indexes`` and ``parse_struct_metadata`` have no port:
-nothing on the port's paths calls them."""
+package's ``parse_struct_metadata`` has no port (it parses HDF4 metadata);
+``grid_indexes`` is held in ``tests/test_torch_small_ops.py``."""
 
 import numpy as np
 import pytest

@@ -1,8 +1,11 @@
 """plumekit_torch imports neither JAX nor the JAX package: the machine with
 the card has no jax, flax, orbax, pandas, matplotlib or h5py (which the
-review export, the quicklooks and the ``.h5`` readers and writers import
-when they run, not at import). Checked in a fresh interpreter, because this
-test process has JAX loaded (tests/conftest.py)."""
+review export, the quicklooks, ``--plot``, the report's figure and the
+``.h5`` readers and writers import when they run, not at import). Every
+module is imported, the new ones of each slice named in ``needed``, and
+none may load matplotlib. Checked in a fresh interpreter, because this
+test process has JAX loaded (tests/conftest.py). ``tools/orbax_to_torch.py``
+is outside the package and imports JAX by design."""
 
 import os
 import subprocess
@@ -44,7 +47,13 @@ needed = {"plumekit_torch.models.kernels.unet_mega",
           "plumekit_torch.parallel.halo",
           "plumekit_torch.parallel.data_parallel",
           "plumekit_torch.parallel.launch", "plumekit_torch.infer.sharded",
-          "plumekit_torch.identify.batch"}
+          "plumekit_torch.identify.batch", "plumekit_torch.utils",
+          "plumekit_torch.utils.logging", "plumekit_torch.utils.metrics",
+          "plumekit_torch.utils.timers", "plumekit_torch.utils.debugging",
+          "plumekit_torch.native", "plumekit_torch.native.build",
+          "plumekit_torch.viz", "plumekit_torch.viz.plots",
+          "plumekit_torch.viz.report", "plumekit_torch.entry",
+          "plumekit_torch.experiments.profiler_sessions"}
 banned = {"jax", "jaxlib", "flax", "orbax", "pandas", "plumekit",
           "matplotlib", "h5py"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)

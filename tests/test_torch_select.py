@@ -337,8 +337,8 @@ def test_export_review_batch_matches_jax(tmp_path, granules, ranked):
 def test_export_without_matplotlib_refuses(tmp_path, granules, monkeypatch,
                                            caplog):
     """Where matplotlib is missing (the card's machine), the export raises
-    ImportError and ``select`` without ``--decisions`` exits 1 naming the
-    ROADMAP item; ``select --decisions`` needs no matplotlib."""
+    ImportError and ``select`` without ``--decisions`` exits 1 naming
+    matplotlib; ``select --decisions`` needs no matplotlib."""
     for mod in [m for m in sys.modules if m.split(".")[0] == "matplotlib"]:
         monkeypatch.delitem(sys.modules, mod)
     monkeypatch.setitem(sys.modules, "matplotlib", None)
@@ -348,7 +348,7 @@ def test_export_without_matplotlib_refuses(tmp_path, granules, monkeypatch,
     root = _select_root(tmp_path)
     with caplog.at_level(logging.ERROR):
         assert cli.main(["select", "--root", root]) == 1
-    assert "queue A: 'Curation'" in caplog.text
+    assert "needs matplotlib" in caplog.text
     assert not os.path.exists(os.path.join(root, "review"))
     dec = str(tmp_path / "dec.csv")
     pd.DataFrame({"id": [0], "datetime": ["layer0"], "keep": [1]}).to_csv(

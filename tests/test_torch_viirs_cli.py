@@ -197,14 +197,13 @@ def _parser_tree(parser):
 
 
 def test_parsers_differ_from_the_jax_cli_only_by_design():
-    """Every JAX command but ``report`` is here with the JAX flags and
-    defaults; the port adds ``--device`` (and ``evaluate_model
+    """Every JAX command is here (all 15, ``report`` too) with the JAX
+    flags and defaults; the port adds ``--device`` (and ``evaluate_model
     --batch-tiles``) and exports for the card by default."""
     port, ref = _parser_tree(cli.build_parser()), \
         _parser_tree(jax_cli.build_parser())
-    assert sorted(set(ref) - set(port)) == ["report"]
-    assert set(port) <= set(ref)
-    for command in set(ref) - {"report"}:
+    assert set(ref) == set(port) and len(ref) == 15
+    for command in set(ref):
         for dest, spec in ref[command].items():
             if (command, dest) == ("export_model", "platforms"):
                 assert port[command][dest][1] == "gpu,cpu"
