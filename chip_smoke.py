@@ -55,8 +55,8 @@ paths:
   2, 4 for the plain forward, a ``use_pallas`` copy (K6 9 launches per
   forward), a ``use_mega`` copy (K7 1, K6 0) and ``--int8`` (Q1 18, Q2 4,
   ``torch._int_mm`` 0), every candidate timed, with its ranked table, peak
-  memory and seconds; ``predict_model --tuned`` of each sweep over the four
-  2048² granules against the winner's flags given explicitly, and ``serve
+  memory and seconds; ``predict_model --tuned`` of each sweep over two of
+  the 2048² granules against the winner's flags given explicitly, and ``serve
   --once --tuned`` against it (bit for bit for K6, Q1 and Q2, within the
   serving gate for cuDNN and K7), beside the default geometry's rate;
   ``serve`` resumed after a fifth granule lands, a corrupt upload
@@ -161,7 +161,7 @@ paths:
   the plain bf16 UNet++ forward; ``make_dataset`` then ``train_model --arch
   unetpp --deep-supervision --weak-labels`` for 40 steps of 16 × 512² (K1
   and K3 label; the last 20 steps' rate, TFLOP/s, peak memory, the
-  recorded config); the trained checkpoint served over four 2048² granules
+  recorded config); the trained checkpoint served over two 2048² granules
   plain, ``--int8`` (masks flip under 1% against plain), ``--prune-level
   4`` (bit for bit the unpruned call), ``--prune-level 2`` and ``--int8
   --prune-level 2`` (Q1 12 and Q2 3 launches per forward), and
@@ -599,7 +599,8 @@ def serve(root, *flags):
         raise AssertionError(f"predict_model {argv} exited {rc}")
     out = os.path.join(root, "processed", "predictions")
     preds = {}
-    for i in range(GRANULES):
+    for i in range(len(os.listdir(os.path.join(
+            root, "raw", "plume_identification", "maiac")))):
         with np.load(os.path.join(out, f"g{i}_pred.npz")) as d:
             probs, mask, th = d["probs"], d["mask"], float(d["threshold"])
         if probs.shape != (GRANULE_PX, GRANULE_PX) or \
@@ -650,15 +651,16 @@ def serving_split(root, model, out_dir, apply_fn, icfg, label,
     return split
 
 
-def serving_root(model, rng, tmp):
-    """A root of 4 synthetic 2048² granules and the model's checkpoint."""
+def serving_root(model, rng, tmp, n=GRANULES):
+    """A root of ``n`` synthetic 2048² granules and the model's
+    checkpoint."""
     root = os.path.join(tmp, "root")
     maiac = os.path.join(root, "raw", "plume_identification", "maiac")
     os.makedirs(maiac)
     lat, lon = np.meshgrid(np.linspace(30, 40, GRANULE_PX, dtype=np.float32),
                            np.linspace(-120, -110, GRANULE_PX,
                                        dtype=np.float32), indexing="ij")
-    for i, aod in enumerate(synthetic_channels(rng, GRANULES)):
+    for i, aod in enumerate(synthetic_channels(rng, n)):
         save_granule(os.path.join(maiac, f"g{i}.npz"),
                      Granule({"2020001A": aod}, lat, lon, name=f"g{i}"))
     ckpt = os.path.join(root, "models", "checkpoints")
@@ -667,12 +669,12 @@ def serving_root(model, rng, tmp):
     return root
 
 
-def serving_geometry(icfg):
-    """(tiles per granule, forwards of one call), from the serving geometry
-    itself."""
+def serving_geometry(icfg, n=GRANULES):
+    """(tiles per granule, forwards of one call over ``n`` granules), from
+    the serving geometry itself."""
     n_tiles, per_group, _ = geometry_forwards(tune_mod.Geometry(
         icfg.tile_size, icfg.overlap, icfg.batch_tiles, BATCH_GRANULES))
-    return n_tiles, -(-GRANULES // BATCH_GRANULES) * per_group
+    return n_tiles, -(-n // BATCH_GRANULES) * per_group
 
 
 def compare_served(got, want):
@@ -1332,9 +1334,10 @@ OUT_ATOL = 1 / 510 + 1e-7
 def read_split(out_dir):
     """{granule: probs} of the prediction files in ``out_dir``."""
     preds = {}
-    for i in range(GRANULES):
-        with np.load(os.path.join(out_dir, f"g{i}_pred.npz")) as d:
-            preds[f"g{i}"] = d["probs"]
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith("_pred.npz"):
+            with np.load(os.path.join(out_dir, name)) as d:
+                preds[name[:-len("_pred.npz")]] = d["probs"]
     return preds
 
 
@@ -3199,6 +3202,7 @@ PP_CFG = UNetConfig(arch="unetpp", deep_supervision=True)
 PP_PRUNE = 2                          # the pruned level served besides depth
 # train_model logs every 20 steps: the second window is the timed one
 PP_TRAIN_STEPS = 40
+PP_GRANULES = 2                       # 2048² granules the trained net serves
 
 
 def pp_counts(level):
@@ -3327,15 +3331,16 @@ def unetpp_train(tmp):
 
 
 def unetpp_serving(root):
-    """The trained UNet++ checkpoint served over the 4 × 2048² granules:
+    """The trained UNet++ checkpoint served over ``PP_GRANULES`` 2048²
+    granules (one forward; the call is bound by its ``.npz`` writes):
     plain; ``--int8`` (Q1 30 and Q2 10 launches per forward, mask flips
     under ``INT8_MAX_FLIP_SHARE`` against plain); ``--prune-level 4`` (bit
     for bit the unpruned call); ``--prune-level 2`` and ``--int8
     --prune-level 2`` (Q1 12 and Q2 3 per forward); ``--fused``, which
     exits 1."""
-    _n_tiles, forwards = serving_geometry(ICFG)
-    mpix = GRANULES * GRANULE_PX**2 / 1e6
-    res = {"forwards": forwards, "seconds": {}}
+    _n_tiles, forwards = serving_geometry(ICFG, PP_GRANULES)
+    mpix = PP_GRANULES * GRANULE_PX**2 / 1e6
+    res = {"granules": PP_GRANULES, "forwards": forwards, "seconds": {}}
     res["seconds"]["plain"], plain = serve(root)
 
     def int8_call(label, level, *flags):
@@ -3373,7 +3378,7 @@ def unetpp_serving(root):
     if cli.main(["predict_model", "--root", root, "--fused"]) != 1:
         raise AssertionError("--fused on a UNet++ checkpoint did not exit 1")
     res["mpix_s"] = {k: mpix / v for k, v in res["seconds"].items()}
-    print(f"UNet++ predict_model {GRANULES}x{GRANULE_PX}^2 ({forwards} "
+    print(f"UNet++ predict_model {PP_GRANULES}x{GRANULE_PX}^2 ({forwards} "
           "forwards): " + ", ".join(f"{k} {v:.2f} s ({res['mpix_s'][k]:.2f}"
                                     " MPix/s)"
                                     for k, v in res["seconds"].items())
@@ -3410,7 +3415,7 @@ def unetpp_phase(rng, tmp):
     trained.load_state_dict(torch.load(os.path.join(ckpt, "weights.pt")))
     serve_dir = os.path.join(tmp, "pp_serve")
     os.makedirs(serve_dir)
-    root = serving_root(trained, rng, serve_dir)
+    root = serving_root(trained, rng, serve_dir, PP_GRANULES)
     serving = unetpp_serving(root)
     split_dir = os.path.join(serve_dir, "split")
     os.makedirs(split_dir)
@@ -3608,6 +3613,7 @@ def check_tuner_tiles(model, rng):
                 "max_abs_err": max(r["max_abs_err"] for r in rows)}
         summary["q1"]["bf16_cudnn_ms"] = sum(r["bf16_cudnn_ms"] for r in q1)
         summary["q2"]["int_mm_ms"] = sum(r["int_mm_ms"] for r in q2)
+        summary["q2"]["launch_ms"] = sum(r["launch_ms"] for r in q2)
         summary["k7"] = {k: k7[k] for k in ("ms", "bound_ms", "bound_by",
                                               "plain_ms", "library_ms",
                                               "max_abs_err")}
@@ -3763,9 +3769,11 @@ def tuned_and_served(root, tmp, sweeps, default_mpix):
     winner's four flags given explicitly, and ``serve --once --tuned``
     against ``predict_model --tuned``: bit for bit for the hand-kernel
     forwards (K6, Q1 and Q2), within ``compare_served``'s gate for cuDNN
-    and K7; the rates beside the default geometry's."""
-    mpix = GRANULES * GRANULE_PX**2 / 1e6
-    names = [f"g{i}" for i in range(GRANULES)]
+    and K7; the rates beside the default geometry's. ``root`` holds
+    ``TUNED_GRANULES`` of the serving granules."""
+    names = sorted(f[:-4] for f in os.listdir(os.path.join(
+        root, "raw", "plume_identification", "maiac")))
+    mpix = len(names) * GRANULE_PX**2 / 1e6
     out = {}
     for label, _cfg_flags, flags, serve_flags in ENTRY_FORWARDS:
         sweep = sweeps[label]
@@ -3795,7 +3803,7 @@ def tuned_and_served(root, tmp, sweeps, default_mpix):
             raise AssertionError(f"serve --once {label}: exit {rc}, log "
                                  f"{read_log(root, 'served_granules.txt')}")
         per_forward = expected_launches(label, sweep["cfg"])
-        forwards = -(-GRANULES // best["granules"]) * geometry_forwards(
+        forwards = -(-len(names) // best["granules"]) * geometry_forwards(
             tune_mod.Geometry(best["tile"], best["overlap"],
                               best["batch_tiles"], best["granules"]))[1]
         want = {k: v * forwards for k, v in per_forward.items()}
@@ -4027,7 +4035,9 @@ def entry_phase(model, rng, root, tmp, default_mpix):
         sweeps[label]["checkpoint"] = path
         sweeps[label]["cfg"] = load_model_config(path)
     t_tune = time.perf_counter() - t0 - t_tiles
-    served = tuned_and_served(root, tmp, sweeps, default_mpix)
+    tuned_root = os.path.join(tmp, "tuned_root")
+    link_root(root, tuned_root, [f"g{i}" for i in range(TUNED_GRANULES)])
+    served = tuned_and_served(tuned_root, tmp, sweeps, default_mpix)
     t_served = time.perf_counter() - t0 - t_tiles - t_tune
     behaviour = serve_behaviour(root, tmp)
     parts = {"tiles": t_tiles, "tune": t_tune, "tuned_and_served": t_served,
@@ -4046,6 +4056,7 @@ def entry_phase(model, rng, root, tmp, default_mpix):
 # ------------------------------------------ exported serving artifacts
 
 EXPORT_GRANULES = 4                   # granules per exported program
+TUNED_GRANULES = 2                    # granules --tuned and serve serve
 #: per forward: the checkpoint's config flags, the geometry, export_model's
 #: extra flags and whether its served probabilities must equal the earlier
 #: phases' bit for bit (cuDNN's plain forward may pick other algorithms for
@@ -4907,7 +4918,7 @@ def main() -> int:
 
     sources = ["unet_mega.cu", "fused_double_conv.cu", "fused_conv.cu",
                "scalar_gather_probe.cu", "ccl_sweep.cu", "label_counts.cu",
-               "int8_conv.cu"]
+               "int8_conv.cu", "int8_upsample.cu"]
     t0 = time.perf_counter()
     cuda_build.load_libraries(sources)
     build_s = time.perf_counter() - t0
@@ -5227,7 +5238,7 @@ def main() -> int:
                      f"{INT8_BATCH} tiles of {ICFG.tile_size}x"
                      f"{ICFG.tile_size}"}, {
         "name": "int8_upsample2x2", "route": "cuda",
-        "source": "plumekit_torch/csrc/int8_conv.cu",
+        "source": "plumekit_torch/csrc/int8_upsample.cu",
         "replaces": "plumekit/models/quantized_forward.py:145 (XLA s8 "
                     "einsum with its dequant, shuffle and requant, no "
                     "Pallas)",
@@ -5245,6 +5256,9 @@ def main() -> int:
         "library_ms": None,
         "int_mm_ms": sum(r["int_mm_ms"] for r in q2_rows),
         "single_ms": sum(r["single_ms"] for r in q2_rows),
+        # queued launches without the op's dispatch (host-bound below
+        # about 0.1 ms a call)
+        "launch_ms": sum(r["launch_ms"] for r in q2_rows),
         # the trained checkpoint served with --int8
         "train_launches": chain["q2_serving_launches"],
         "tta_launches": tta_launches["q2"],
@@ -5256,6 +5270,7 @@ def main() -> int:
         "unetpp_bound_ms": sum(r["bound_ms"] for r in pp_q2),
         "unetpp_plain_ms": sum(r["plain_ms"] for r in pp_q2),
         "unetpp_int_mm_ms": sum(r["int_mm_ms"] for r in pp_q2),
+        "unetpp_launch_ms": sum(r["launch_ms"] for r in pp_q2),
         "unetpp_at": f"the 10 upsamples of one int8 forward of {PP_CFG}, "
                      f"{INT8_BATCH} tiles of {ICFG.tile_size}x"
                      f"{ICFG.tile_size}"}]

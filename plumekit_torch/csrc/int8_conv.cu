@@ -1,33 +1,26 @@
-// Q1 and Q2, the int8 forward's two kernels, for Hopper (sm_90a).
-//
-// Q1: one 3x3 SAME conv in int8 with the forward's fused epilogue:
+// Q1, the int8 forward's 3x3 conv, for Hopper (sm_90a): one 3x3 SAME conv
+// in int8 with the forward's fused epilogue:
 //   acc = conv3x3(x, w)                    s8 x s8 -> s32, exact
 //   y   = relu(float(acc) * a + b)     a: conv x BN scale, b: BN shift
 //   out = clamp(rint(y / s), -127, 127) int8, or y itself in fp32
-// Q2: one 2x2 stride-2 transposed conv in int8 with its requant:
-//   acc[b, i, j, di, dj, o] = sum_c x[b, i, j, c] * k[di, dj, c, o]
-//   out[b, 2i + di, 2j + dj, o] = clamp(rint((float(acc) * sw[o] + bias[o])
-//                                            / s), -127, 127)
 // NHWC int8 activations, weights packed once on the host (models/kernels/
-// int8_conv.py, int8_upsample.py), epilogue factors per output column in
-// fp32, s one fp32 scale read from device memory.
+// int8_conv.py), epilogue factors per output column in fp32, s one fp32
+// scale read from device memory. The forward's other int8 kernel, Q2, the
+// transposed conv with its requant, is int8_upsample.cu; the two share the
+// s8 wgmma wrappers and the requant (int8_wgmma.cuh).
 //
 // Replaces no Pallas kernel: the JAX package's int8 forward
 // (plumekit/models/quantized_forward.py) leaves Q1's conv to XLA (_qconv,
-// :133, with _qblock's epilogue :165-173) and Q2's product to an s8 einsum
-// that XLA fuses with its dequant, shuffle and requant (_upsample_q and
-// _quant_act, :145-154 and :116-118, applied at :370-372). PyTorch has no
-// int8 convolution on CUDA, and torch._int_mm leaves an int32 plane that
-// eager PyTorch pushes through eight more passes; the plain versions (the
-// Python modules) are exactly those torch._int_mm paths.
+// :133, with _qblock's epilogue :165-173). PyTorch has no int8 convolution
+// on CUDA; the plain version (the Python module) is nine torch._int_mm
+// products and the eager epilogue.
 //
-// What bounds them on an H100: a 3x3 conv does 2 * 9 * Cin * Cout integer
+// What bounds it on an H100: a 3x3 conv does 2 * 9 * Cin * Cout integer
 // operations per pixel against Cin + Cout bytes (4 * Cout for fp32 out); the
 // ridge of 1,979 TOPS over 3.35 TB/s is about 590 operations per byte. At
 // 288² tiles the convs of the 288² level, Cin = 2 and those with up to 64
 // input channels at 144² are bound by their bytes, the rest by their
-// operations. Q2 at 128 x 288² moves 956 MB once (0.29 ms) for 174 GOP (0.09
-// ms): bytes.
+// operations.
 //
 // Design: one block of two warpgroups computes a GEMM tile of R = 128 * MT
 // rows by NB columns with wgmma.mma_async m64nNBk32 .s32.s8.s8 (both
@@ -35,7 +28,7 @@
 // 16 bytes, 16 int8 channels; a k32 step spans two of them along K, as a
 // bf16 k16 step does), the accumulators in registers (NB * MT / 2 a thread:
 // a register file of 65,536 holds 32K of them per SM, so R * NB = 32K for
-// the 128-register shapes). Three modes:
+// the 128-register shapes). Two modes:
 //   * raster (Q1): the rows run over the *padded raster* of the staged input
 //     patch of g images, (th + 2) x (tw + 2) pixels each, as the bf16 conv
 //     tile code does (conv_tiles.cuh, wg_conv_tiles): tap (dy, dx) is the
@@ -46,11 +39,9 @@
 //     the 9 taps x C channels of a pixel are its one k32 row (18 of 32 bytes
 //     useful at C = 2, not 2), the rows are the tile's pixels, one wgmma per
 //     m64 tile; the patch's raw rows arrive by 4-byte cp.async and are
-//     folded in shared memory;
-//   * point (Q2): the rows are R consecutive pixels of the low-resolution
-//     plane, the columns (2 di + dj) * Cout + o, a plain GEMM over Cin.
+//     folded in shared memory.
 // The blocks are persistent (as many as fit on the card at once); each walks
-// its work items (a tile or pixel run and a pass of NB columns) chunk by
+// its work items (a tile and a pass of NB columns) chunk by
 // chunk as one sequence of steps, staged by cp.async two steps deep: while
 // the wgmmas of one 32-channel chunk run, and the epilogue and the stores of
 // an item that ends with it, the next step's input lands in the other
@@ -60,203 +51,38 @@
 // as the plain versions do (__fmul_rn, __fadd_rn, the IEEE quotient, rint:
 // no FMA contraction), so kernel and plain version agree bit for bit; the
 // int8 results pass through a stash in shared memory and leave in 16-byte
-// runs of channels (Q2: pixel-shuffled, the int32 product never reaches
-// device memory); an fp32 output leaves from the registers, 16 bytes a
+// runs of channels; an fp32 output leaves from the registers, 16 bytes a
 // thread. A decoder block's first conv reads the skip and the upsampled
 // half from two planes, so their concat is never written. NB, MT and the
-// tile come from the rules in int8_conv.py and int8_upsample.py, decided by
-// timing each conv and upsample at each shape
+// tile come from the rule in int8_conv.py, decided by timing each conv at
+// each shape
 // (experiments/int8_conv_times.py --tiles). Plain interface for ctypes; a
 // launch returns its cudaError_t.
 
 #include "conv_tiles.cuh"
+#include "int8_wgmma.cuh"
 
 namespace {
 
 using pk::cp_async16_to;
 using pk::cp_async_commit;
 using pk::cp_async_wait_all;
+using pk::fence_acc;
 using pk::fence_proxy_async;
+using pk::Quantizer;
 using pk::SmallDiv;
 using pk::smem_u32;
 using pk::wg_desc;
 using pk::wgmma_commit;
 using pk::wgmma_fence;
 using pk::wgmma_wait;
+using pk::WgS8;
 
 constexpr int kThreads = 256;      // two warpgroups
 constexpr int kKC = 32;            // input channels (bytes) per chunk, a k32 step
 constexpr int kMaxSmem = 232448;   // 227 KB opt-in limit of one block
 
-enum Mode { kRaster = 0, kFold = 1, kPoint = 2 };
-
-// d (64 x N s32 over the warpgroup) += A (64 x 32) * B (32 x N), both s8
-// from shared memory, K-major.
-template <int N>
-struct WgS8;
-
-template <>
-struct WgS8<32> {
-  __device__ __forceinline__ static void mma(int (&d)[16], uint64_t da,
-                                             uint64_t db) {
-    asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p;\n"
-      "}\n"
-      :
-        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
-      : "l"(da), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgS8<64> {
-  __device__ __forceinline__ static void mma(int (&d)[32], uint64_t da,
-                                             uint64_t db) {
-    asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p;\n"
-      "}\n"
-      :
-        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgS8<128> {
-  __device__ __forceinline__ static void mma(int (&d)[64], uint64_t da,
-                                             uint64_t db) {
-    asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p;\n"
-      "}\n"
-      :
-        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgS8<256> {
-  __device__ __forceinline__ static void mma(int (&d)[128], uint64_t da,
-                                             uint64_t db) {
-    asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p;\n"
-      "}\n"
-      :
-        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
-        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
-        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
-        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
-        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
-        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
-        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
-        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
-        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
-        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
-        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
-        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
-        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
-        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
-        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
-        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-  }
-};
-
-// Pins the accumulators in their registers across a batch of wgmmas.
-template <int MT, int R>
-__device__ __forceinline__ void fence_acc(int (&acc)[MT][R]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int e = 0; e < R; ++e) asm volatile("" : "+r"(acc[i][e])::"memory");
-}
+enum Mode { kRaster = 0, kFold = 1 };
 
 struct Args {
   const int8_t* p0;   // first source (B, H, W, c0)
@@ -266,15 +92,15 @@ struct Args {
   const float* bsh;   // epilogue shift per packed column
   const float* s_out; // output scale, or null for fp32 out (Q1)
   void* out;
-  int B, H, W;        // the input planes (Q2: the low-resolution plane)
+  int B, H, W;        // the input planes
   int c0, c0p, c1;    // channels of each source; c0p: c0 padded to 32
   int n_k;            // 32-channel chunks
-  int cout;           // output channels (Q2: of each of the four quadrants)
+  int cout;           // output channels
   int n_pass;         // passes of NB packed columns
   int th, tw, g;      // the tile of a raster or fold item
   int pitch;          // pixels per 16-channel group of a staged A chunk
   int tiles_x, tiles_y;
-  int n_items;        // tiles (Q2: pixel runs) x passes
+  int n_items;        // tiles x passes
   int buf_bytes;      // one of the two step buffers: A, weights, or stash
   int raw_off;        // the fold: where a buffer's raw input rows start
   int raw_rs;         // the fold: bytes per raw input row
@@ -283,27 +109,22 @@ struct Args {
 };
 
 // One work item: pass `pass` of NB columns over the tile at (ty0, tx0) of
-// images b0 .. b0 + g - 1 (Q1) or over the pixels from m0 on (Q2). Items
-// run (image group, tile row, tile column, pass), the pass fastest, so the
-// items that run at once share their input through L2.
+// images b0 .. b0 + g - 1. Items run (image group, tile row, tile column,
+// pass), the pass fastest, so the items that run at once share their input
+// through L2.
 struct Item {
-  int pass, b0, ty0, tx0, m0;
+  int pass, b0, ty0, tx0;
 };
 
-template <int MODE, int R>
 __device__ __forceinline__ Item decode(const Args& a, int item) {
-  Item it{item % a.n_pass, 0, 0, 0, 0};
+  Item it{item % a.n_pass, 0, 0, 0};
   int t = item / a.n_pass;
-  if constexpr (MODE == kPoint) {
-    it.m0 = t * R;
-  } else {
-    const int tx = t % a.tiles_x;
-    t /= a.tiles_x;
-    const int ty = t % a.tiles_y;
-    it.b0 = (t / a.tiles_y) * a.g;
-    it.ty0 = ty * a.th;
-    it.tx0 = tx * a.tw;
-  }
+  const int tx = t % a.tiles_x;
+  t /= a.tiles_x;
+  const int ty = t % a.tiles_y;
+  it.b0 = (t / a.tiles_y) * a.g;
+  it.ty0 = ty * a.th;
+  it.tx0 = tx * a.tw;
   return it;
 }
 
@@ -423,22 +244,6 @@ __device__ __forceinline__ void build_fold(uint32_t dst, const uint8_t* raw,
   }
 }
 
-// Q2's rows: pixels m0 .. m0 + R - 1 of the flat (B * H * W) plane, channels
-// [k0, k0 + 32); past the plane zero.
-template <int R>
-__device__ __forceinline__ void load_a_point(uint32_t dst, const Args& a,
-                                             int m0, int k0) {
-  const int M = a.B * a.H * a.W;
-  for (int i = threadIdx.x; i < R * 2; i += kThreads) {
-    const int part = i & 1;
-    const int q = i >> 1;
-    const int ch = k0 + part * 16;
-    const bool inside = m0 + q < M && ch < a.c0;
-    const int8_t* s = inside ? a.p0 + (size_t)(m0 + q) * a.c0 + ch : a.p0;
-    stage16(dst + (uint32_t)(part * a.pitch + q) * 16, s, inside, a.c0, ch);
-  }
-}
-
 // One chunk's packed weights (all taps, NB columns) into dst.
 __device__ __forceinline__ void load_w(uint32_t dst, const int8_t* src,
                                        int bytes) {
@@ -481,47 +286,6 @@ __device__ __forceinline__ void mma_wait(int (&acc)[MT][NB / 2]) {
 __device__ __forceinline__ float epilogue_f32(int acc, float a, float b) {
   return fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(acc), a), b), 0.f);
 }
-
-// clamp(rint(y / s), -127, 127) of y = relu(float(acc) * a + b) (Q1) or
-// float(acc) * a + b (Q2), with y / s the IEEE quotient, as the plain
-// version divides. The divisor is one number, so its correctly rounded
-// reciprocal r is taken once, and each quotient is y * r corrected twice by
-// its exact FMA residual: the first correction makes it faithful, the
-// second (Markstein's theorem: r = RN(1 / s), a faithful quotient, no
-// underflow) rounds it correctly. That is five full-rate operations; a
-// __fdiv_rn per result took 1 ms of a 1.5 ms conv at 288² (experiments/
-// int8_variants.py, the copy without the epilogue's arithmetic). y is
-// first clamped to +-128 s (exact: 128 is a power of two), which changes no
-// result (a quotient past +-127.5 clamps to +-127 either way), keeps the
-// quotient finite, and takes the ReLU into its lower bound; a quotient
-// small enough for the residual to underflow rounds to 0 either way.
-template <bool RELU>
-struct Quantizer {
-  float s, r, hi;
-  // (in the body: nvcc's host pass keeps member initializers, and the
-  // intrinsic is device code)
-  __device__ __forceinline__ explicit Quantizer(float s_) {
-    s = s_;
-    r = __fdiv_rn(1.f, s_);
-    hi = __fmul_rn(128.f, s_);
-  }
-  __device__ __forceinline__ int8_t operator()(int acc, float a,
-                                               float b) const {
-    const float y = fminf(fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(acc), a),
-                                          b),
-                                RELU ? 0.f : -hi),
-                          hi);
-    const float q0 = __fmul_rn(y, r);
-    float q = __fmaf_rn(__fmaf_rn(-s, q0, y), r, q0);
-    q = __fmaf_rn(__fmaf_rn(-s, q, y), r, q);
-    // clamp, then round half to even by adding 1.5 * 2^23 (where a float's
-    // ulp is 1): the same as rounding first, the bounds being integers
-    const float c = __fadd_rn(RELU ? fminf(q, 127.f)
-                                   : fminf(fmaxf(q, -127.f), 127.f),
-                              12582912.f);
-    return static_cast<int8_t>(__float_as_int(c) - 0x4B400000);
-  }
-};
 
 // The accumulators through the epilogue, quantized, into the stash: row q
 // of the item at stash + q * (NB + 16), column n at n.
@@ -570,13 +334,11 @@ __device__ __forceinline__ long long q1_pixel(const Args& a, int q, int b0,
 }
 
 // The stash to device memory, 16 bytes a thread: a run of 16 channels from
-// packed column pass * NB + n on. Q1: the row's pixel, channels n on; Q2:
-// column n is channel o of quadrant (di, dj) = (n / Cout / 2, n / Cout % 2)
-// of output pixel (2 i + di, 2 j + dj).
+// packed column pass * NB + n on, the row's pixel, channels n on.
 template <int NB, int MT, int MODE>
 __device__ __forceinline__ void store_tile(const Args& a, const uint8_t* stash,
-                                           int pass, int b0, int ty0, int tx0,
-                                           int m0) {
+                                           int pass, int b0, int ty0,
+                                           int tx0) {
   constexpr int R = 128 * MT;
   constexpr int upr = NB / 16;           // runs per stash row
   const bool runs = a.cout % 16 == 0;
@@ -585,37 +347,15 @@ __device__ __forceinline__ void store_tile(const Args& a, const uint8_t* stash,
     const int q = u / upr;
     const int n = pass * NB + (u - q * upr) * 16;
     const uint8_t* src = stash + q * (NB + 16) + (n - pass * NB);
-    if (MODE == kPoint) {
-      const int m = m0 + q;
-      if (m >= a.B * a.H * a.W || n >= 4 * a.cout) continue;
-      const int j = m % a.W, bi = m / a.W;
-      const int i = bi % a.H, b = bi / a.H;
-      if (runs) {
-        const int quad = n / a.cout, o = n - quad * a.cout;
-        const long long pix = ((long long)b * 2 * a.H + 2 * i + (quad >> 1)) *
-                                  (2 * a.W) + 2 * j + (quad & 1);
-        *reinterpret_cast<uint4*>(out + pix * a.cout + o) =
-            *reinterpret_cast<const uint4*>(src);
-      } else {
-        for (int e = 0; e < 16 && n + e < 4 * a.cout; ++e) {
-          const int quad = (n + e) / a.cout, o = n + e - quad * a.cout;
-          const long long pix =
-              ((long long)b * 2 * a.H + 2 * i + (quad >> 1)) * (2 * a.W) +
-              2 * j + (quad & 1);
-          out[pix * a.cout + o] = static_cast<int8_t>(src[e]);
-        }
-      }
+    if (n >= a.cout) continue;
+    const long long pix = q1_pixel<MODE>(a, q, b0, ty0, tx0);
+    if (pix < 0) continue;
+    if (runs) {
+      *reinterpret_cast<uint4*>(out + pix + n) =
+          *reinterpret_cast<const uint4*>(src);
     } else {
-      if (n >= a.cout) continue;
-      const long long pix = q1_pixel<MODE>(a, q, b0, ty0, tx0);
-      if (pix < 0) continue;
-      if (runs) {
-        *reinterpret_cast<uint4*>(out + pix + n) =
-            *reinterpret_cast<const uint4*>(src);
-      } else {
-        for (int e = 0; e < 16 && n + e < a.cout; ++e)
-          out[pix + n + e] = static_cast<int8_t>(src[e]);
-      }
+      for (int e = 0; e < 16 && n + e < a.cout; ++e)
+        out[pix + n + e] = static_cast<int8_t>(src[e]);
     }
   }
 }
@@ -693,7 +433,7 @@ __device__ __forceinline__ void run_items(const Args& a, uint8_t* smem) {
                         : 0;
   const int steps = items * a.n_k;
   auto item_of = [&](int s) {
-    return decode<MODE, R>(a, blockIdx.x + (s / a.n_k) * gridDim.x);
+    return decode(a, blockIdx.x + (s / a.n_k) * gridDim.x);
   };
   // step s stages into buffer s & 1: input at +0, weights (unless
   // resident) at +a_bytes
@@ -703,10 +443,8 @@ __device__ __forceinline__ void run_items(const Args& a, uint8_t* smem) {
     const uint32_t ad = base + (s & 1) * a.buf_bytes;
     if constexpr (MODE == kRaster)
       load_a_raster(ad, a, it.b0, it.ty0 - 1, it.tx0 - 1, kc * kKC);
-    else if constexpr (MODE == kFold)
-      load_raw_fold(ad + a.raw_off, a, it.b0, it.ty0 - 1, it.tx0 - 1);
     else
-      load_a_point<R>(ad, a, it.m0, kc * kKC);
+      load_raw_fold(ad + a.raw_off, a, it.b0, it.ty0 - 1, it.tx0 - 1);
     if (!a.resident)
       load_w(ad + a_bytes,
              a.wt + ((size_t)it.pass * a.n_k + kc) * w_bytes, w_bytes);
@@ -755,12 +493,11 @@ __device__ __forceinline__ void run_items(const Args& a, uint8_t* smem) {
     if (kc == a.n_k - 1) {
       const Item it = item_of(s);
       if (a.s_out == nullptr) {
-        if constexpr (MODE != kPoint) store_f32<NB, MT, MODE>(acc, a, it, wgi);
+        store_f32<NB, MT, MODE>(acc, a, it, wgi);
       } else {
-        stash_tile<NB, MT, MODE != kPoint>(acc, a, stash, it.pass, wgi);
+        stash_tile<NB, MT, true>(acc, a, stash, it.pass, wgi);
         __syncthreads();
-        store_tile<NB, MT, MODE>(a, stash, it.pass, it.b0, it.ty0, it.tx0,
-                                 it.m0);
+        store_tile<NB, MT, MODE>(a, stash, it.pass, it.b0, it.ty0, it.tx0);
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i)
@@ -786,13 +523,6 @@ int8_conv_kernel(const Args a) {
   run_items<NB, MT, MODE>(a, smem);
 }
 
-template <int NB, int MT>
-__global__ void __launch_bounds__(kThreads, min_blocks(NB, MT))
-int8_upsample_kernel(const Args a) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  run_items<NB, MT, kPoint>(a, smem);
-}
-
 // As many blocks as fit on the card at once, or one per item if fewer.
 template <int NB, int MT, int MODE>
 int launch(Args a, long long items, cudaStream_t stream) {
@@ -814,11 +544,7 @@ int launch(Args a, long long items, cudaStream_t stream) {
   if (smem > (size_t)kMaxSmem || items > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   a.n_items = (int)items;
-  const void* fn;
-  if constexpr (MODE == kPoint)
-    fn = reinterpret_cast<const void*>(int8_upsample_kernel<NB, MT>);
-  else
-    fn = reinterpret_cast<const void*>(int8_conv_kernel<NB, MT, MODE>);
+  const void* fn = reinterpret_cast<const void*>(int8_conv_kernel<NB, MT, MODE>);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -837,17 +563,13 @@ int launch(Args a, long long items, cudaStream_t stream) {
   // resident weights are one pass's: every item of a block has the pass of
   // its first (items are numbered pass fastest)
   if (a.resident) blocks -= blocks % a.n_pass;
-  if constexpr (MODE == kPoint)
-    int8_upsample_kernel<NB, MT><<<(unsigned)blocks, kThreads, smem,
+  int8_conv_kernel<NB, MT, MODE><<<(unsigned)blocks, kThreads, smem,
                                    stream>>>(a);
-  else
-    int8_conv_kernel<NB, MT, MODE><<<(unsigned)blocks, kThreads, smem,
-                                     stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The shapes the kernels are built for: (NB, MT) of the raster and point
-// modes; the fold takes (32, 4) only.
+// The shapes the kernel is built for: (NB, MT) of the raster mode; the fold
+// takes (32, 4) only.
 template <int MODE>
 int dispatch(const Args& a, int nb, int mt, long long items,
              cudaStream_t st) {
@@ -855,11 +577,10 @@ int dispatch(const Args& a, int nb, int mt, long long items,
     if (nb == 32 && mt == 4) return launch<32, 4, kFold>(a, items, st);
     return (int)cudaErrorInvalidValue;
   }
-  constexpr int M = MODE == kFold ? kRaster : MODE;
-  if (nb == 32 && mt == 4) return launch<32, 4, M>(a, items, st);
-  if (nb == 64 && mt == 2) return launch<64, 2, M>(a, items, st);
-  if (nb == 128 && mt == 2) return launch<128, 2, M>(a, items, st);
-  if (nb == 256 && mt == 1) return launch<256, 1, M>(a, items, st);
+  if (nb == 32 && mt == 4) return launch<32, 4, kRaster>(a, items, st);
+  if (nb == 64 && mt == 2) return launch<64, 2, kRaster>(a, items, st);
+  if (nb == 128 && mt == 2) return launch<128, 2, kRaster>(a, items, st);
+  if (nb == 256 && mt == 1) return launch<256, 1, kRaster>(a, items, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -913,32 +634,6 @@ int pk_int8_conv3x3(const void* x0, const void* x1, const void* wt,
   // spreads the two groups' rows over the banks
   args.pitch = round8(patch > rows + 2 * pw + 2 ? patch : rows + 2 * pw + 2) + 2;
   return dispatch<kRaster>(args, nb, mt, items, st);
-}
-
-// Q2. x: (B, h, w, Cin) int8; wt: the packed weights [Np / nb][Kp / 32][1][2]
-// [nb][16] int8, column (2 di + dj) * Cout + o, zero in every padding; a,
-// bsh: (Np,) fp32, sw and bias per column, zero padded; s_out: one fp32
-// scale on the device. out: (B, 2h, 2w, Cout) int8. Kp is a multiple of 32,
-// Np of nb and at least 4 Cout. Returns a cudaError_t.
-int pk_int8_upsample2x2(const void* x, const void* wt, const void* a,
-                        const void* bsh, const void* s_out, void* out, int B,
-                        int h, int w, int Cin, int Kp, int Cout, int Np,
-                        int nb, int mt, void* stream) {
-  if (B <= 0 || h <= 0 || w <= 0) return 0;
-  if (Cin <= 0 || Kp % kKC || Kp < Cin || Cout <= 0 || nb <= 0 || mt <= 0 ||
-      Np % nb || Np < 4 * Cout || s_out == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const int rows = 128 * mt;
-  const long long pixels = (long long)B * h * w;
-  if (pixels >= 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  Args args{static_cast<const int8_t*>(x), nullptr,
-            static_cast<const int8_t*>(wt), static_cast<const float*>(a),
-            static_cast<const float*>(bsh), static_cast<const float*>(s_out),
-            out, B, h, w, Cin, Kp, 0, Kp / kKC, Cout, Np / nb, 1, 1, 1,
-            rows + 2, 1, 1, 0, 0, 0, 0};
-  const long long items = (pixels + rows - 1) / rows * args.n_pass;
-  return dispatch<kPoint>(args, nb, mt, items,
-                          static_cast<cudaStream_t>(stream));
 }
 
 const char* pk_error_string(int err) {

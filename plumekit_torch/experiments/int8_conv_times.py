@@ -17,9 +17,12 @@ class, Q1, Q2, ``torch._int_mm`` and the other kernels by their place in the
 forward, and its busy share). With ``--tiles`` it times each conv and each
 upsample queued at every shape the kernel may take (``shape_candidates``,
 ``upsample_candidates``), each held bit for bit, beside the shape the rule
-picks. ``python -m plumekit_torch.experiments.int8_conv_times [--batch 128]
-[--tile 288] [--forward] [--tiles] [--out PATH]`` on a card; prints one line
-per case and writes ``chiprun_out/int8_conv_times.json`` (or PATH).
+picks. ``--upsamples T [T ...]`` times only Q2: each upsample at each
+tile side T, alone and at every shape it may take (the rule's table).
+``python -m plumekit_torch.experiments.int8_conv_times [--batch 128]
+[--tile 288] [--forward] [--tiles] [--upsamples 288 256 384 512] [--out
+PATH]`` on a card; prints one line per case and writes its JSON to
+``--out``.
 
 For a UNet++ config, :func:`conv_cases` and :func:`upsample_cases` list its
 int8 forward's convs and upsamples, and :func:`concat_cases` and
@@ -211,9 +214,9 @@ def int8_library_conv(device):
     return {"runs": True, "error": None}
 
 
-#: kernels of the forward's profile known by name: Q1 and Q2 (each a
-#: kernel of csrc/int8_conv.cu; neither name holds a key of the other
-#: classes), and cuBLASLt's products
+#: kernels of the forward's profile known by name: Q1 and Q2 (the kernels
+#: of csrc/int8_conv.cu and csrc/int8_upsample.cu; neither name holds a key
+#: of the other classes), and cuBLASLt's products
 Q1_KEYS = ("int8_conv_kernel",)
 Q2_KEYS = ("int8_upsample_kernel",)
 GEMM_KEYS = ("gemm", "imma", "xmma", "cutlass", "cublas")
@@ -403,6 +406,8 @@ def concat_summary(row):
 
 
 def shape_label(shape) -> str:
+    if hasattr(shape, "slices"):      # Q2's: columns a pass, slices, tiles
+        return f"{shape.nb}/{shape.slices}x{shape.mt}"
     return f"{shape.nb}x{shape.mt}" + ("-fold" if shape.fold else "")
 
 
@@ -477,6 +482,10 @@ def time_upsample(rng, case, batch, device):
                lambda: int8_upsample.int8_upsample2x2_packed(x, packed,
                                                              scale),
                calls=QUEUED),
+           # the launch alone, without the op's dispatch: where the kernel
+           # takes under about 0.1 ms, the queued op measures the host
+           "launch_ms": time_ms(
+               lambda: int8_upsample._launch(x, packed, scale), calls=QUEUED),
            "plain_ms": time_ms(
                lambda: int8_upsample.int8_upsample2x2_ref(x, kq, sw, bias,
                                                           scale), reps=5),
@@ -494,25 +503,67 @@ def time_upsample_tiles(rng, case, batch, device):
     x, kq, sw, bias, scale = upsample_inputs(rng, case, batch, device)
     ref = int8_upsample.int8_upsample2x2_ref(x, kq, sw, bias, scale)
     row = {"cin": cin, "cout": cout, "h": side, "batch": batch,
-           "picked": shape_label(int8_upsample.upsample_shape(cout)),
+           "picked": shape_label(int8_upsample.upsample_shape(cin, cout)),
            "queued_ms": {}}
-    for shape in int8_upsample.upsample_candidates(cout):
+    for shape in int8_upsample.upsample_candidates(cin, cout):
+        # the launch itself: the op takes each pass width's default item
         packed = int8_upsample.pack_upsample(kq, sw, bias, shape)
-        if not torch.equal(int8_upsample.int8_upsample2x2_packed(
-                x, packed, scale), ref):
-            raise AssertionError(f"Q2 at {shape} differs from its plain "
-                                 f"version at {case}")
+        got = int8_upsample._launch(x, packed, scale)
+        if not torch.equal(got, ref):
+            bad = (got != ref).nonzero()
+            raise AssertionError(
+                f"Q2 at {shape} differs from its plain version at {case}: "
+                f"{len(bad)} values, first (b, y, x, o) {bad[:4].tolist()}, "
+                f"rows y {bad[:, 1].unique()[:16].tolist()}")
         row["queued_ms"][shape_label(shape)] = time_ms(
-            lambda: int8_upsample.int8_upsample2x2_packed(x, packed, scale),
-            calls=QUEUED)
+            lambda: int8_upsample._launch(x, packed, scale), calls=QUEUED)
     del x, kq, ref
     return row
+
+
+#: the phases between Q2's stamps, in order
+STAMP_PHASES = ("turn", "input", "mma", "buffer", "epilogue", "store")
+
+
+def upsample_stamps(rng, case, batch, device):
+    """Where a pass of Q2's consumers goes, at the rule's shape: clocks
+    between the stamps of block 0's consumers (``int8_upsample._launch``'s
+    ``stamps``) over their first passes after two: the wait for the turn
+    (the item before seen landed), for the input, the wgmmas, the wait
+    for the output buffer, the epilogue and the stores' issue; the mean
+    of each and its share."""
+    x, kq, sw, bias, scale = upsample_inputs(rng, case, batch, device)
+    packed = int8_upsample.pack_upsample(kq, sw, bias)
+    stamps = torch.zeros((3, int8_upsample.STAMP_PASSES,
+                          int8_upsample.STAMP_POINTS), dtype=torch.int64,
+                         device=device)
+    for _ in range(2):          # the second launch is the one read
+        int8_upsample._launch(x, packed, scale, stamps)
+    torch.cuda.synchronize()
+    st = stamps.cpu().numpy()
+    rows = [r for g in range(3) for r in st[g, 2:] if r[0] and r[-1]]
+    d = np.diff(np.asarray(rows, dtype=np.float64), axis=1)
+    mean = d.mean(axis=0) if len(d) else np.zeros(len(STAMP_PHASES))
+    total = float(mean.sum())
+    return {"cin": case[0], "cout": case[1], "h": case[2], "batch": batch,
+            "shape": shape_label(packed.shape), "passes": len(rows),
+            "cycles": dict(zip(STAMP_PHASES, map(float, mean))),
+            "share": {k: float(v / total) if total else 0.0
+                      for k, v in zip(STAMP_PHASES, mean)}}
+
+
+def stamps_summary(row):
+    return (f"Q2 {row['cin']:>3}->{row['cout']:>3} {row['batch']}x"
+            f"{row['h']}^2 [{row['shape']}] clocks a pass: " + ", ".join(
+                f"{k} {row['cycles'][k]:.0f} ({100 * row['share'][k]:.0f}%)"
+                for k in STAMP_PHASES) + f" over {row['passes']} passes")
 
 
 def upsample_summary(row):
     return (f"Q2 {row['cin']:>3}->{row['cout']:>3} {row['batch']}x"
             f"{row['h']}^2 [{row['shape']}]: queued {row['queued_ms']:.3f} "
-            f"ms ({row['gb_per_s']:.0f} GB/s), single {row['single_ms']:.3f}"
+            f"ms ({row['gb_per_s']:.0f} GB/s; the launch alone "
+            f"{row['launch_ms']:.3f}), single {row['single_ms']:.3f}"
             f", bound {row['bound_ms']:.4f} by {row['bound_by']}, plain "
             f"(int_mm + glue) {row['plain_ms']:.3f}, int_mm alone "
             f"{row['int_mm_ms']:.3f}")
@@ -535,6 +586,9 @@ def main(argv=None):
                    help="also time and profile the whole int8 forward")
     p.add_argument("--tiles", action="store_true",
                    help="also time each case at every shape it may take")
+    p.add_argument("--upsamples", type=int, nargs="+", default=None,
+                   metavar="T", help="time only Q2, at these tile sides, "
+                   "at every shape it may take")
     p.add_argument("--out", default="chiprun_out/int8_conv_times.json")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -547,6 +601,25 @@ def main(argv=None):
     print(smi)
     cfg = UNetConfig()
     rng = np.random.default_rng(0)
+    if args.upsamples:
+        out = {"device": smi, "batch": args.batch, "by_tile": {}}
+        for tile in args.upsamples:
+            rows, shapes = [], []
+            for case in upsample_cases(cfg, tile):
+                rows.append(time_upsample(rng, case, args.batch, dev))
+                print(upsample_summary(rows[-1]), flush=True)
+                shapes.append(time_upsample_tiles(rng, case, args.batch,
+                                                  dev))
+                print(tiles_summary(shapes[-1], "Q2"), flush=True)
+                shapes[-1]["stamps"] = upsample_stamps(rng, case,
+                                                       args.batch, dev)
+                print(stamps_summary(shapes[-1]["stamps"]), flush=True)
+                torch.cuda.empty_cache()
+            out["by_tile"][tile] = {"rows": rows, "shapes": shapes}
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+        return 0
     library = int8_library_conv(dev)
     print(f"F.conv2d on int8 CUDA tensors: {library}")
     rows = []
@@ -567,10 +640,11 @@ def main(argv=None):
         print(upsample_summary(up_rows[-1]), flush=True)
         torch.cuda.empty_cache()
     up_totals = {k: sum(r[k] for r in up_rows)
-                 for k in ("queued_ms", "single_ms", "plain_ms", "int_mm_ms",
-                           "bound_ms", "bytes")}
+                 for k in ("queued_ms", "launch_ms", "single_ms", "plain_ms",
+                           "int_mm_ms", "bound_ms", "bytes")}
     print(f"Q2 over the {len(up_rows)} upsamples: queued "
-          f"{up_totals['queued_ms']:.3f} ms, single "
+          f"{up_totals['queued_ms']:.3f} ms (the launch alone "
+          f"{up_totals['launch_ms']:.3f}), single "
           f"{up_totals['single_ms']:.3f}, bound {up_totals['bound_ms']:.3f},"
           f" plain (int_mm + glue) {up_totals['plain_ms']:.3f}, int_mm alone"
           f" {up_totals['int_mm_ms']:.3f}")

@@ -427,9 +427,8 @@ def _launch(xq, packed: PackedInt8Conv, out_scale=None, skip=None,
 
 
 def packed_shape(wt, fold: bool) -> Shape:
-    """The kernel shape a weight packed by :func:`pack_int8_weights` (or
-    Q2's packing, never folded) was laid out for: ``nb`` rows of 16 bytes
-    per group."""
+    """The kernel shape a weight packed by :func:`pack_int8_weights` was
+    laid out for: ``nb`` rows of 16 bytes per group."""
     if wt.dim() != 6 or wt.dtype != torch.int8 or wt.shape[3:] != (
             2, wt.shape[4], 16):
         raise ValueError(f"{tuple(wt.shape)} {wt.dtype} is no packed int8 "

@@ -6,7 +6,8 @@ and a CUDA implementation and a fake one, no fallback that a CUDA tensor
 could take instead of the kernel), the entries' CPU results through the ops
 equal to the plain versions, and each op appearing in a ``torch.export``
 graph. The CUDA implementations run in ``tests/test_torch_kernels_cuda.py``
-on the card."""
+on the card, and Q2's under ``opcheck`` here (marked ``cuda``: it skips
+without a card)."""
 
 import numpy as np
 import pytest
@@ -158,3 +159,30 @@ def test_entries_refuse_devices_without_a_kernel():
     args = _args("int8_conv3x3", 0)
     with pytest.raises(ValueError, match="no kernel for device"):
         int8_conv.int8_conv3x3(args[0].to("meta"), *args[1:4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [0, 1])
+def test_opcheck_of_the_int8_upsample_kernel_on_the_card(case):
+    """Q2's CUDA implementation (``csrc/int8_upsample.cu``) under
+    ``torch.library.opcheck`` on weights packed for it: its schema, its
+    fake implementation against the kernel's output, strides included, and
+    the op under AOT dispatch. Case 0 takes the kernel's TMA path (channels
+    in whole chunks), case 1 its plain loads and stores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    card = torch.device("cuda")
+    rng = np.random.default_rng(20 + case)
+    b, h, w, cin, cout = [(2, 5, 7, 64, 32), (1, 3, 5, 16, 8)][case]
+    kq, sw, bias = (_i8(rng, (2, 2, cin, cout)).to(card),
+                    _f32(rng, (cout,), 1e-3).to(card),
+                    _f32(rng, (cout,)).to(card))
+    packed = int8_upsample.pack_upsample(kq, sw, bias)
+    x = _i8(rng, (b, h, w, cin)).to(card)
+    scale = torch.tensor(0.25, dtype=torch.float32, device=card)
+    torch.library.opcheck(int8_upsample.int8_upsample2x2_op,
+                          (x, packed.wt, packed.a, packed.b, scale, cout))
+    assert torch.equal(
+        int8_upsample.int8_upsample2x2_op(x, packed.wt, packed.a, packed.b,
+                                          scale, cout),
+        int8_upsample.int8_upsample2x2_ref(x, kq, sw, bias, scale))

@@ -186,9 +186,9 @@ def _fma32(a, b, c):
 
 
 def _kernel_quotient(y, s):
-    """csrc/int8_conv.cu's Quantizer before its rounding to an integer:
-    y clamped to ±128·s, r = RN(1/s), q0 = RN(y·r), two corrections by
-    the exact residual."""
+    """csrc/int8_wgmma.cuh's Quantizer (Q1's and Q2's requant) before its
+    rounding to an integer: y clamped to ±128·s, r = RN(1/s), q0 =
+    RN(y·r), two corrections by the exact residual."""
     hi = np.float32(128) * s
     y = min(max(y, -hi), hi)
     r = _round32(1 / Fraction(float(s)))

@@ -760,10 +760,71 @@ def test_int8_upsample_kernel_ragged_shapes(card, shape, cout):
                             ).to(card)
     scale = torch.tensor(0.02, device=card)
     want = int8_upsample.int8_upsample2x2_ref(x, kq, sw, bias, scale)
-    for s in int8_upsample.upsample_candidates(cout):
-        got = int8_upsample.int8_upsample2x2_packed(
+    for s in int8_upsample.upsample_candidates(shape[3], cout):
+        # the launch at the shape itself (the op takes the default item)
+        got = int8_upsample._launch(
             x, int8_upsample.pack_upsample(kq, sw, bias, s), scale)
         assert torch.equal(got, want), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _upsample_cases(),
+                         ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+def test_int8_upsample_kernel_at_every_shape(card, case):
+    """Q2 at each shape an upsample of UNetConfig() may take (columns a
+    pass, slices, rows an item), 8 tiles of 288²: bit for bit, one launch
+    a call."""
+    from plumekit_torch.experiments.int8_conv_times import upsample_inputs
+    from plumekit_torch.models.kernels import int8_upsample
+
+    rng = np.random.default_rng(sum(case) + 1)
+    x, kq, sw, bias, scale = upsample_inputs(rng, case, 8, card)
+    want = int8_upsample.int8_upsample2x2_ref(x, kq, sw, bias, scale)
+    for s in int8_upsample.upsample_candidates(case[0], case[1]):
+        packed = int8_upsample.pack_upsample(kq, sw, bias, s)
+        before = int8_upsample.LAUNCHES
+        got = int8_upsample._launch(x, packed, scale)
+        torch.cuda.synchronize()
+        assert int8_upsample.LAUNCHES == before + 1
+        assert torch.equal(got, want), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [288, 256, 384, 512])
+def test_int8_upsample_kernel_at_the_unetpp_and_tuner_shapes(card, tile):
+    """Q2 at the 10 upsamples of the UNet++ int8 forward at 288² and at
+    the tuner's tiles, 16 tiles a batch: bit for bit, one launch each."""
+    from plumekit_torch.experiments.int8_conv_times import (upsample_cases,
+                                                            upsample_inputs)
+    from plumekit_torch.models.kernels import int8_upsample
+
+    cfg = UNetConfig(arch="unetpp", deep_supervision=True)
+    cases = upsample_cases(cfg, tile)
+    assert len(cases) == 10
+    rng = np.random.default_rng(tile + 3)
+    for case in dict.fromkeys(cases):
+        x, kq, sw, bias, scale = upsample_inputs(rng, case, 16, card)
+        before = int8_upsample.LAUNCHES
+        got = int8_upsample.int8_upsample2x2(x, kq, sw, bias, scale)
+        torch.cuda.synchronize()
+        assert int8_upsample.LAUNCHES == before + 1
+        assert torch.equal(got, int8_upsample.int8_upsample2x2_ref(
+            x, kq, sw, bias, scale)), case
+
+
+@pytest.mark.cuda
+def test_int8_upsample_op_refuses_a_weight_packed_for_q1(card):
+    from plumekit_torch.models.kernels import int8_conv, int8_upsample
+
+    wq = torch.ones((3, 3, 64, 32), dtype=torch.int8, device=card)
+    q1 = int8_conv.pack_conv(wq, torch.ones(32, device=card),
+                             torch.zeros(32, device=card))
+    x = torch.zeros((1, 4, 4, 64), dtype=torch.int8, device=card)
+    before = int8_upsample.LAUNCHES
+    with pytest.raises(ValueError, match="no weight packed for Q2"):
+        int8_upsample.int8_upsample2x2_op(x, q1.wt, q1.a, q1.b,
+                                          torch.tensor(1.0, device=card), 32)
+    assert int8_upsample.LAUNCHES == before
 
 
 @pytest.mark.cuda
