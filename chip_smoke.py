@@ -2,7 +2,7 @@
 
 Builds the hand-written CUDA kernels of ``plumekit_torch/csrc`` (one
 ``nvcc`` per source, all at once), and the host library of
-``plumekit_torch/native`` with ``g++``, and drives the port's fourteen
+``plumekit_torch/native`` with ``g++``, and drives the port's fifteen
 paths:
 
 * megakernel serving: K7 (the whole U-Net forward in one launch) against
@@ -75,6 +75,15 @@ paths:
   serving gate for cuDNN; each program against the live program on the
   same staged granules (equal, the same launches) and their program rates
   in turns; one ragged group of 3 through the ``use_pallas`` program;
+* MAIAC HDF4 granules (``maiac_phase``, after the exported artifacts):
+  every committed ``tests/data/maiac`` fixture (written by the HDF4 C
+  library, which this machine lacks) read by the port's own reader and
+  held bit for bit against its arrays regenerated from seed 0, the broken
+  ones failing with their named errors; the full-size 4 × 1200² granule
+  through ``build_features --detector rg`` (K1, K3), ``predict_model``
+  plain and ``--int8`` (Q1, Q2) and ``verify_real_granule``, its tables,
+  masks and probabilities equal bit for bit to the same arrays read from
+  ``.npz``; the reader's host time beside the ``.npz``'s;
 * the rg weak labeller: K1/K4 (multi-threshold CCL) and K3 (label counts)
   against their plain versions, bit for bit, on the identify benchmark's
   1200² scene, 4096², 8192², a ragged 1201 × 997 scene and a serpentine,
@@ -212,6 +221,7 @@ import json
 import logging
 import math
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -4903,6 +4913,194 @@ def host_phase(tmp, codec):
     return res
 
 
+
+# ------------------------------------------------ MAIAC HDF4 granules (.hdf)
+# the committed fixtures of tests/data/maiac, written by the HDF4 C library
+# (tools/make_maiac_fixtures.py), read by the port's own reader
+# (plumekit_torch/io/hdf4.py); their contents regenerated from seed 0
+
+MAIAC_READS = 5                       # host timings: median of 5
+
+
+def maiac_fixtures():
+    """``tools/make_maiac_fixtures.py``, numpy only: the fixtures'
+    contents from seed 0 and the full-size granule's scene."""
+    from tools import make_maiac_fixtures
+
+    return make_maiac_fixtures
+
+
+def maiac_root(tmp, name, fx_mod, fx, ckpt, scene, npz):
+    """A root holding the full-size granule, as the committed ``.hdf`` or
+    as an ``.npz`` of its regenerated arrays, its fire table and a copy of
+    the serving checkpoint. Returns (root, granule path, fires path)."""
+    root = os.path.join(tmp, name)
+    maiac = os.path.join(root, "raw", "plume_identification", "maiac")
+    fires_dir = os.path.join(root, "raw", "fires")
+    os.makedirs(maiac)
+    os.makedirs(fires_dir)
+    if npz:
+        gpath = os.path.join(maiac, fx.name + ".npz")
+        save_granule(gpath, fx_mod.expected_granule(fx))
+    else:
+        gpath = os.path.join(maiac, fx.file)
+        shutil.copy(os.path.join(fx_mod.OUT_DIR, fx.file), gpath)
+    fpath = os.path.join(fires_dir, "fires.csv")
+    write_fire_csv(fpath, scene.fires)
+    shutil.copytree(ckpt, os.path.join(root, "models", "checkpoints"))
+    return root, gpath, fpath
+
+
+def served_probs(root, base, *flags):
+    """``predict_model --root root *flags``: (seconds, probs, mask)."""
+    secs = run_cli("predict_model", "--root", root, *flags)
+    with np.load(os.path.join(root, "processed", "predictions",
+                              base + "_pred.npz")) as d:
+        return secs, d["probs"], d["mask"]
+
+
+def maiac_phase(root, tmp, smi, cfg):
+    """The MAIAC HDF4 reader on the card's machine, which has no pyhdf and
+    no HDF4 library: (a) every committed fixture read and held bit for bit
+    against the arrays regenerated from seed 0, the broken ones failing
+    with their named errors; (b) ``build_features --detector rg`` on the
+    full-size ``.hdf`` granule and on an ``.npz`` of the same arrays, masks
+    and tables equal bit for bit, K1 and K3 launched; (c) ``predict_model``
+    plain and ``--int8`` over both with the serving checkpoint
+    (``cfg``), probabilities bit for bit, Q1 2(2·depth+1) and Q2 depth
+    launches per forward, no K6 or K7; (d) ``verify_real_granule
+    --detector rg`` on the ``.hdf``, every check passing; (e) the reader's
+    host time for the full-size granule beside ``load_granule`` of the
+    ``.npz``."""
+    t0 = time.perf_counter()
+    fx_mod = maiac_fixtures()
+    fixtures = fx_mod.fixtures()
+    full = fixtures[fx_mod.FULL_NAME + ".hdf"]
+    res = {"fixtures": {}}
+    for name, fx in fixtures.items():
+        path = os.path.join(fx_mod.OUT_DIR, name)
+        if fx.error is None:
+            got, want = load_granule(path), fx_mod.expected_granule(fx)
+            same = (got.name == want.name
+                    and list(got.layers) == list(want.layers)
+                    and all(got.layers[k].dtype == want.layers[k].dtype
+                            and np.array_equal(got.layers[k], want.layers[k])
+                            for k in want.layers)
+                    and np.array_equal(got.lat, want.lat)
+                    and np.array_equal(got.lon, want.lon))
+            res["fixtures"][name] = "equal" if same else "DIFFERS"
+        else:
+            try:
+                load_granule(path)
+                res["fixtures"][name] = "read (no error)"
+            except ValueError as e:
+                res["fixtures"][name] = ("named error" if re.search(
+                    fx.error, str(e)) else f"wrong error: {e}")
+    bad = {k: v for k, v in res["fixtures"].items()
+           if v not in ("equal", "named error")}
+    print(f"MAIAC fixtures: {len(fixtures)} read, "
+          f"{sum(v == 'equal' for v in res['fixtures'].values())} equal to "
+          f"seed 0's arrays, "
+          f"{sum(v == 'named error' for v in res['fixtures'].values())} "
+          f"named errors; wrong: {bad}", flush=True)
+    if bad:
+        raise AssertionError(f"MAIAC fixtures: {bad}")
+
+    scene = fx_mod.full_scene()
+    ckpt = os.path.join(root, "models", "checkpoints")
+    roots = {ext: maiac_root(tmp, f"maiac_{ext}", fx_mod, full, ckpt, scene,
+                             ext == "npz") for ext in ("hdf", "npz")}
+
+    # (b) the rg weak labeller
+    launches = {}
+    for ext, (r, _, _) in roots.items():
+        ccl_sweep.LAUNCHES = label_counts.LAUNCHES = 0
+        build_features(r, "--detector", "rg")
+        launches[ext] = {"k1": ccl_sweep.LAUNCHES, "k3": label_counts.LAUNCHES}
+    features = {ext: read_features(r, full.name)
+                for ext, (r, _, _) in roots.items()}
+    got, want = features["hdf"], features["npz"]
+    plumes = len(got["aod"]) - 1
+    if (got["aod"] != want["aod"] or got["extent"] != want["extent"]
+            or sorted(got["masks"]) != sorted(want["masks"])
+            or not all(np.array_equal(got["masks"][k], want["masks"][k])
+                       for k in want["masks"])):
+        raise AssertionError("build_features: .hdf and .npz differ")
+    if not (plumes and launches["hdf"]["k1"] and launches["hdf"]["k3"]):
+        raise AssertionError(f"build_features on the .hdf: {plumes} plumes, "
+                             f"launches {launches['hdf']}")
+    res["build_features"] = {"plumes": plumes, "launches": launches}
+    print(f"build_features rg on {full.file}: {plumes} plume(s), launches "
+          f"{launches['hdf']}; tables and masks equal the .npz's bit for "
+          "bit", flush=True)
+
+    # (c) serving, plain and int8
+    stride = ICFG.tile_size - ICFG.overlap
+    px = full.sds_shape[1]
+    padded = ICFG.tile_size + -(-(px - ICFG.tile_size) // stride) * stride
+    n_tiles = len(tile_grid(padded, ICFG.tile_size, stride)) ** 2
+    forwards = -(-n_tiles // _effective_batch(ICFG.batch_tiles, n_tiles))
+    res["serving"] = {"forwards": forwards}
+    for label, flags in (("plain", ()), ("int8", ("--int8",))):
+        probs, counts = {}, {}
+        for ext, (r, _, _) in roots.items():
+            fused_conv.LAUNCHES = unet_mega.LAUNCHES = 0
+            int8_conv.LAUNCHES = int8_upsample.LAUNCHES = 0
+            secs, p, m = served_probs(r, full.name, *flags)
+            counts[ext] = {"k6": fused_conv.LAUNCHES,
+                           "k7": unet_mega.LAUNCHES,
+                           "q1": int8_conv.LAUNCHES,
+                           "q2": int8_upsample.LAUNCHES, "seconds": secs}
+            if p.shape != (px, px) or not np.isfinite(p).all():
+                raise AssertionError(f"{label} {ext}: probs {p.shape}")
+            probs[ext] = (p, m)
+        want_q = ({"q1": 2 * (2 * cfg.depth + 1) * forwards,
+                   "q2": cfg.depth * forwards} if label == "int8"
+                  else {"q1": 0, "q2": 0})
+        for ext, c in counts.items():
+            if c["k6"] or c["k7"] or any(c[k] != v for k, v in
+                                         want_q.items()):
+                raise AssertionError(f"predict_model {label} {ext} launched "
+                                     f"{c}, not {want_q}")
+        same = (np.array_equal(probs["hdf"][0], probs["npz"][0])
+                and np.array_equal(probs["hdf"][1], probs["npz"][1]))
+        res["serving"][label] = {"launches": counts, "equal": same}
+        print(f"predict_model {label} on {full.file}: launches "
+              f"{counts['hdf']} ({forwards} forward(s)); probs "
+              f"{'equal' if same else 'DIFFER from'} the .npz's bit for bit",
+              flush=True)
+        if not same:
+            raise AssertionError(f"predict_model {label}: .hdf and .npz "
+                                 "differ")
+
+    # (d) the real-data contract register on the .hdf
+    r, gpath, fpath = roots["hdf"]
+    ccl_sweep.LAUNCHES = label_counts.LAUNCHES = 0
+    verify_s, summary = run_cli_json("verify_real_granule", gpath, "--fires",
+                                     fpath, "--detector", "rg")
+    verify_launches = {"k1": ccl_sweep.LAUNCHES, "k3": label_counts.LAUNCHES}
+    if not summary["ok"] or summary["failed"] or summary["skipped"] \
+            or not verify_launches["k1"]:
+        raise AssertionError(f"verify_real_granule on the .hdf: {summary}, "
+                             f"launches {verify_launches}")
+    res["verify"] = {"summary": summary, "seconds": verify_s,
+                     "launches": verify_launches}
+
+    # (e) the reader's host time beside the .npz's
+    reads = {ext: host_median_ms(lambda g=g: load_granule(g), MAIAC_READS)
+             for ext, (_, g, _) in roots.items()}
+    res["read_ms"] = {"hdf": reads["hdf"], "npz": reads["npz"],
+                      "granule": list(full.sds_shape), "device": smi}
+    print(f"MAIAC reader: load_granule of {full.file} "
+          f"({'x'.join(map(str, full.sds_shape))} int16, deflate) "
+          f"{reads['hdf']:.1f} ms on the host, of the same arrays as .npz "
+          f"{reads['npz']:.1f} ms (median of {MAIAC_READS}; {smi})",
+          flush=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"MAIAC HDF4 phase {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -4979,6 +5177,11 @@ def main() -> int:
         exported = export_phase(model, root, tmp, {
             **served.pop("preds"), "use_mega": mega_served.pop("preds"),
             "int8": int8_served.pop("preds")})
+        # MAIAC HDF4 granules: the committed fixtures read on the card's
+        # machine, the full-size .hdf through build_features (K1, K3),
+        # predict_model plain and --int8 (Q1, Q2) and verify_real_granule
+        torch.cuda.empty_cache()
+        maiac = maiac_phase(root, tmp, smi, model.cfg)
     del model
     torch.cuda.empty_cache()
 
@@ -5114,7 +5317,10 @@ def main() -> int:
                   train_launches=chain["launches"]["k1"],
                   unetpp_train_launches=pp_train["k1"],
                   # verify_real_granule --detector rg on the 1200² granule
-                  verify_launches=viirs["verify"]["launches"]["k1"]),
+                  verify_launches=viirs["verify"]["launches"]["k1"],
+                  # build_features rg on the full-size MAIAC .hdf granule
+                  maiac_launches=maiac["build_features"]["launches"]["hdf"][
+                      "k1"]),
         ccl_entry("multi_threshold_ccl",
                   "plumekit/ops/pallas/ccl_sweep.py:468", basic_mask,
                   basic_features["launches"]["k2"]
@@ -5136,6 +5342,7 @@ def main() -> int:
         "train_launches": chain["launches"]["k3"],
         "unetpp_train_launches": pp_train["k3"],
         "verify_launches": viirs["verify"]["launches"]["k3"],
+        "maiac_launches": maiac["build_features"]["launches"]["hdf"]["k3"],
         "max_abs_err": max(r["max_abs_err"] for r in count_rows),
         "ms": bench_counts["ms"], "plain_ms": bench_counts["plain_ms"],
         "bound_ms": bench_counts["bound_ms"],
@@ -5219,6 +5426,8 @@ def main() -> int:
         "single_ms": sum(r["single_ms"] for r in q1_rows),
         # the trained checkpoint served with --int8
         "train_launches": chain["q1_serving_launches"],
+        # predict_model --int8 over the full-size MAIAC .hdf granule
+        "maiac_launches": maiac["serving"]["int8"]["launches"]["hdf"]["q1"],
         "tta_launches": tta_launches["q1"],
         "at": f"the 18 convs of one int8 forward of UNetConfig(), "
               f"{INT8_BATCH} tiles of {ICFG.tile_size}x{ICFG.tile_size}",
@@ -5261,6 +5470,7 @@ def main() -> int:
         "launch_ms": sum(r["launch_ms"] for r in q2_rows),
         # the trained checkpoint served with --int8
         "train_launches": chain["q2_serving_launches"],
+        "maiac_launches": maiac["serving"]["int8"]["launches"]["hdf"]["q2"],
         "tta_launches": tta_launches["q2"],
         "at": f"the 4 upsamples of one int8 forward of UNetConfig(), "
               f"{INT8_BATCH} tiles of {ICFG.tile_size}x{ICFG.tile_size}",
@@ -5330,7 +5540,7 @@ def main() -> int:
                    "detectors": detectors,
                    "build_features_basic": basic_features,
                    "build_features_gaussian": gaussian_features,
-                   "viirs": viirs,
+                   "viirs": viirs, "maiac_hdf4": maiac,
                    "training": training, "curation": curation,
                    "streams": streams,
                    "unetpp": unetpp, "entry_points": entry,

@@ -1895,8 +1895,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="one granule file through the real-data contract register: "
              "decode, grid, values, UTM resample, a detector smoke run; "
              "exit 0 iff every check that ran passed")
-    vg.add_argument("granule", help="granule file (.npz, .h5; .hdf fails "
-                                    "its decode check)")
+    vg.add_argument("granule", help="granule file (.hdf/.h5/.npz)")
     vg.add_argument("--fires", default=None,
                     help="fire CSV for the detector smoke run (without it "
                          "the identify check is skipped)")

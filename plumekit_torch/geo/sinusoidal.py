@@ -4,6 +4,7 @@ only: the projection on a sphere of radius R is ``x = R·lon·cos(lat)``,
 
 from __future__ import annotations
 
+import re
 from typing import Tuple
 
 import numpy as np
@@ -42,3 +43,27 @@ def grid_from_extent(x0: float, y0: float, x1: float, y1: float, ny: int,
     xv, yv = np.meshgrid(x, y)
     lon, lat = sinusoidal_to_wgs84(xv, yv)
     return lat, lon
+
+
+_UL_RE = re.compile(
+    r"UpperLeftPointMtrs=\((?P<x>[+-]?\d+\.\d+),(?P<y>[+-]?\d+\.\d+)\)"
+)
+_LR_RE = re.compile(
+    r"LowerRightMtrs=\((?P<x>[+-]?\d+\.\d+),(?P<y>[+-]?\d+\.\d+)\)"
+)
+
+
+def parse_struct_metadata(gridmeta: str) -> Tuple[float, float, float, float]:
+    """Extract (x0, y0, x1, y1) from an HDF-EOS ``StructMetadata.0`` string
+    (``tools.py:99-115`` semantics, whitespace-tolerant)."""
+    meta = re.sub(r"\s", "", gridmeta)
+    ul = _UL_RE.search(meta)
+    lr = _LR_RE.search(meta)
+    if ul is None or lr is None:
+        raise ValueError("StructMetadata.0 missing UpperLeftPointMtrs/LowerRightMtrs")
+    return (
+        float(ul.group("x")),
+        float(ul.group("y")),
+        float(lr.group("x")),
+        float(lr.group("y")),
+    )

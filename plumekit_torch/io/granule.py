@@ -1,17 +1,26 @@
-"""Granule container and the ``.npz`` / ``.h5`` formats of
-``plumekit/io/granule.py``, in numpy only, so both packages read each
-other's files."""
+"""Granule container and the formats of ``plumekit/io/granule.py``: the
+``.npz`` / ``.h5`` fixtures, in numpy only, so both packages read each
+other's files, and MAIAC MCD19A2 ``.hdf`` (HDF4) granules, read by
+:mod:`plumekit_torch.io.hdf4` without ``pyhdf``."""
 
 from __future__ import annotations
 
 import os
+import re
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
 
+from plumekit_torch.geo.sinusoidal import (grid_from_extent,
+                                           parse_struct_metadata)
+from plumekit_torch.io.hdf4 import SDFile
+
 #: fill value for invalid AOD
 NULL_VALUE = -999.0
+
+#: MAIAC AOD scale factor (reference ``tools.py:89``)
+AOD_SCALE = 0.001
 
 #: every granule serialisation the JAX package understands, in probe order
 GRANULE_EXTENSIONS = (".npz", ".h5", ".hdf5", ".hdf")
@@ -102,13 +111,69 @@ def load_granule(path: str) -> Granule:
                            lon=np.asarray(f["lon"]),
                            name=str(f.attrs.get("name", "granule")))
     if path.endswith(".hdf"):
-        raise NotImplementedError(
-            f"{path}: MAIAC HDF4 granules are not read by plumekit_torch yet "
-            "(ROADMAP.md, queue A: 'MAIAC HDF4 reader'); convert them to "
-            ".npz with the JAX package's load_granule/save_granule")
+        return read_maiac_hdf4(path)
     with np.load(path, allow_pickle=False) as data:
         layers = {k[len("aod_"):]: data[k]
                   for k in data.files if k.startswith("aod_")}
         name = str(data["name"]) if "name" in data.files else "granule"
         return Granule(layers=layers, lat=data["lat"], lon=data["lon"],
                        name=name)
+
+
+def read_maiac_hdf4(path: str, max_layers_rule: bool = True,
+                    correct_orbit_layer: bool = False) -> Granule:
+    """Read a MAIAC MCD19A2 HDF4 granule with :class:`~plumekit_torch.io.
+    hdf4.SDFile` (no ``pyhdf``), as ``plumekit/io/granule.py``'s reader does
+    (``tools.read_modis_aod``, ``tools.py:67-130``): orbit timestamps from
+    the ``Orbit_time_stamp`` attribute; if more than four, only the first
+    "A"(qua) orbit (``tools.py:79-81``); ``Optical_Depth_055`` × 0.001 with
+    negatives set to −999 (``tools.py:89-90``); the lat/lon grid from the
+    ``StructMetadata.0`` corners.
+
+    COMPAT: when the >4-orbit rule fires, the reference stores **layer 0**
+    under the Aqua timestamp (``tools.py:84-90``); the default reproduces
+    that, ``correct_orbit_layer=True`` reads the Aqua orbit's own layer.
+    A missing global attribute raises a :class:`ValueError` naming it
+    where the JAX package's reader raises a bare ``KeyError``.
+    """
+    with SDFile(path) as hdf:
+        fattrs = hdf.attributes()
+        for key in ("Orbit_time_stamp", "StructMetadata.0"):
+            if key not in fattrs:
+                raise ValueError(f"{path}: no global attribute {key!r}")
+        timestamps = [t for t in fattrs["Orbit_time_stamp"].split(" ") if t]
+        indexed = list(enumerate(timestamps))
+        if max_layers_rule and len(timestamps) > 4:
+            indexed = [(i, t) for i, t in indexed if "A" in t][:1]
+            if not correct_orbit_layer:
+                # reference quirk: enumerate over the FILTERED list reads
+                # layer 0 regardless of which orbit the timestamp names
+                indexed = [(0, t) for _i, t in indexed]
+
+        layers: Dict[str, np.ndarray] = {}
+        for i, timestamp in indexed:
+            m = re.search(r"[0-9]{11}[A-Z]", timestamp)
+            if m is None:
+                raise ValueError(
+                    f"{path}: malformed orbit timestamp {timestamp!r} in "
+                    "Orbit_time_stamp (expected 11 digits + platform "
+                    "letter, e.g. '20172302054A')")
+            t = m.group()
+            aod = hdf.select("Optical_Depth_055")[i, :, :].astype(
+                np.float32) * AOD_SCALE
+            aod[aod < 0] = NULL_VALUE
+            layers[t] = aod
+
+        if not layers:
+            # >4-orbit granule with no Aqua ("A") stamp (e.g. a Terra-only
+            # high-latitude tile): the reference dies with an IndexError
+            raise ValueError(
+                f"{path}: {len(timestamps)} orbit timestamps and none is an "
+                "Aqua ('A') orbit — the reference's >4-layer rule "
+                "(tools.py:79-81) selects Aqua only; pass "
+                "max_layers_rule=False to keep every orbit")
+        x0, y0, x1, y1 = parse_struct_metadata(fattrs["StructMetadata.0"])
+    ny, nx = next(iter(layers.values())).shape
+    lat, lon = grid_from_extent(x0, y0, x1, y1, ny, nx)
+    return Granule(layers=layers, lat=lat, lon=lon,
+                   name=os.path.basename(path)[:-4])

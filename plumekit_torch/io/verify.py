@@ -64,9 +64,8 @@ def _check_decode(res: VerifyResult, path: str) -> Optional[Granule]:
     except ImportError as e:
         res.add("decode", False, f"missing optional dependency: {e}")
         return None
-    except (ValueError, NotImplementedError) as e:
-        # the reader's named refusals: a malformed file, and the MAIAC
-        # HDF4 format, which the port does not read
+    except ValueError as e:
+        # the readers' named refusals of a malformed file
         res.add("decode", False, str(e))
         return None
     except Exception as e:

@@ -1225,3 +1225,40 @@ def test_use_mega_artifact_exported_on_the_card_launches_k7(card, tmp_path):
                                                              before[1])
         want = live(model, images)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_rg_identify_on_the_full_size_maiac_granule(card):
+    """The committed 1200² MAIAC ``.hdf`` fixture through ``load_granule``
+    (the port's HDF4 reader), then one ``rg.identify`` on the card (K1,
+    K3) against the CPU: plume masks and integer columns bit for bit, the
+    AOD mean and sd, summed on the device in another order, to rtol 1e-5
+    (chip_smoke.py's FEATURE_RTOL)."""
+    from plumekit_torch.identify import rg
+    from plumekit_torch.io.granule import load_granule
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    from tools.make_maiac_fixtures import FULL_NAME, OUT_DIR, full_scene
+
+    g = load_granule(os.path.join(OUT_DIR, FULL_NAME + ".hdf"))
+    fires = full_scene().fires
+    args = (g.first_layer(), g.lat, g.lon, fires["date_time"][0], fires)
+    ccl_sweep.LAUNCHES = label_counts.LAUNCHES = 0
+    got = rg.identify(*args, device=card)
+    torch.cuda.synchronize()
+    assert ccl_sweep.LAUNCHES > 0 and label_counts.LAUNCHES > 0
+    want = rg.identify(*args, device="cpu")
+    assert len(got[0]) > 0, "no plume accepted"
+    for a, b in ((got[0], want[0]), (got[1], want[1])):
+        assert a.columns == b.columns and len(a.rows) == len(b.rows)
+        for j, col in enumerate(b.columns):
+            x = np.asarray([r[j] for r in a.rows], dtype=object)
+            y = np.asarray([r[j] for r in b.rows], dtype=object)
+            if col in ("plume_aod_mean", "plume_aod_sd"):
+                np.testing.assert_allclose(x.astype(float), y.astype(float),
+                                           rtol=1e-5, atol=0)
+            else:
+                assert [str(v) for v in x] == [str(v) for v in y], col
+    assert sorted(got[2]["plume_masks"]) == sorted(want[2]["plume_masks"])
+    for pid, m in want[2]["plume_masks"].items():
+        np.testing.assert_array_equal(got[2]["plume_masks"][pid], m)

@@ -53,7 +53,8 @@ needed = {"plumekit_torch.models.kernels.unet_mega",
           "plumekit_torch.native", "plumekit_torch.native.build",
           "plumekit_torch.viz", "plumekit_torch.viz.plots",
           "plumekit_torch.viz.report", "plumekit_torch.entry",
-          "plumekit_torch.experiments.profiler_sessions"}
+          "plumekit_torch.experiments.profiler_sessions",
+          "plumekit_torch.io.hdf4"}
 banned = {"jax", "jaxlib", "flax", "orbax", "pandas", "plumekit",
           "matplotlib", "h5py"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
@@ -67,4 +68,31 @@ def test_port_imports_no_jax_flax_orbax_pandas_or_plumekit():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+HDF_PROBE = """
+import sys
+sys.modules["pyhdf"] = None          # any import of it fails
+from plumekit_torch.io.granule import load_granule
+g = load_granule("tests/data/maiac/maiac_chunked_deflate.hdf")
+assert list(g.layers) == ["20172131535T", "20172131710A"], list(g.layers)
+with open("/proc/self/maps") as f:
+    maps = [line for line in f if "libdfalt" in line or "libmfhdf" in line]
+banned = {"pyhdf", "jax", "jaxlib", "plumekit"}
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in banned and sys.modules[m] is not None)
+print("libraries:", maps, "loaded:", loaded)
+sys.exit(1 if maps or loaded else 0)
+"""
+
+
+def test_hdf_granules_read_without_pyhdf_or_the_hdf4_library():
+    """A ``.hdf`` fixture through ``load_granule`` in a fresh interpreter
+    where ``pyhdf`` cannot be imported: no HDF4 C library is mapped and
+    none of pyhdf, jax or plumekit is imported."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", HDF_PROBE], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
