@@ -9,6 +9,13 @@ column, parity-class assembly) is the JAX package's, so the two agree tile
 for tile. JAX's ``lax.scan`` over tile batches is a Python loop here, and
 its ``vmap`` over granules is a leading granule dimension folded into each
 tile batch.
+
+With the recorder on (``utils/timers``), a call records the span
+``sliding.infer`` and inside it ``sliding.pad`` (edge padding, tile grid and
+weights), one ``sliding.forward`` per tile batch (the tile gather and the
+forward, with its ``tiles``) and ``sliding.stitch`` (the canvas and the
+output), the last two with their device time; and the counters
+``sliding.forwards`` and ``sliding.tiles``.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch.nn.functional as F
 
 from plumekit_torch.config.train import InferConfig
 from plumekit_torch.ops.quant import quantize_probs_uint8
+from plumekit_torch.utils import timers
 
 
 def _taper(tile: int, overlap: int) -> np.ndarray:
@@ -142,71 +150,94 @@ def make_multi_granule_infer(
 
     def forward_batch(variables, images, batch_origins, as_u8=False):
         g = images.shape[0]
-        tiles = torch.stack([images[:, oy:oy + tile, ox:ox + tile, :channels]
-                             for oy, ox in batch_origins], dim=1)
-        logits = apply_fn(variables, tiles.reshape(-1, tile, tile, channels))
-        probs = torch.sigmoid(logits[..., 0].float())
-        probs = probs.reshape(g, len(batch_origins), tile, tile)
-        return quantize_probs_uint8(probs) if as_u8 else probs
+        n = g * len(batch_origins)
+        timers.count("sliding.forwards")
+        timers.count("sliding.tiles", n)
+        with timers.span("sliding.forward", device=images.device, tiles=n):
+            tiles = torch.stack([images[:, oy:oy + tile, ox:ox + tile,
+                                        :channels]
+                                 for oy, ox in batch_origins], dim=1)
+            logits = apply_fn(variables,
+                              tiles.reshape(-1, tile, tile, channels))
+            probs = torch.sigmoid(logits[..., 0].float())
+            probs = probs.reshape(g, len(batch_origins), tile, tile)
+            return quantize_probs_uint8(probs) if as_u8 else probs
 
     @torch.no_grad()
     def infer(variables, images):
+        with timers.span("sliding.infer", granules=images.shape[0]):
+            return stitched(variables, images)
+
+    def stitched(variables, images):
         g, h, w = images.shape[0], images.shape[1], images.shape[2]
         dev = images.device
         ph, pw = max(0, tile - h), max(0, tile - w)
         if ph or pw:
-            probs, mask = infer(variables, _edge_pad(images, h + ph, w + pw))
+            with timers.span("sliding.pad"):
+                padded = _edge_pad(images, h + ph, w + pw)
+            probs, mask = stitched(variables, padded)
             return probs[:, :h, :w], mask[:, :h, :w]
 
         if tile <= 2 * stride:
             # regular-grid fast path: every tile on the stride lattice of
             # the edge-padded image, the canvas built per parity class
-            h2 = tile + -(-(h - tile) // stride) * stride
-            w2 = tile + -(-(w - tile) // stride) * stride
-            ny, nx, n, eff, origins, inv_weight = grid_and_weights(
-                h2, w2, count_padding=False, device=dev)
-            img = _edge_pad(images, h2, w2)
+            with timers.span("sliding.pad"):
+                h2 = tile + -(-(h - tile) // stride) * stride
+                w2 = tile + -(-(w - tile) // stride) * stride
+                ny, nx, n, eff, origins, inv_weight = grid_and_weights(
+                    h2, w2, count_padding=False, device=dev)
+                img = _edge_pad(images, h2, w2)
             fast_u8 = emit_u8 and cfg.overlap == 0
-            probs_all = torch.cat(
-                [forward_batch(variables, img, origins[i:i + eff], fast_u8)
-                 for i in range(0, len(origins), eff)], dim=1)[:, :n]
-            if cfg.overlap == 0:
-                # stride == tile: the taper is 1 and tiles are disjoint
-                canvas = probs_all.reshape(g, ny, nx, tile, tile) \
-                    .permute(0, 1, 3, 2, 4).reshape(g, ny * tile, nx * tile)
-                probs = canvas[:, :h, :w]
-                if fast_u8:
-                    return probs, probs > thresh_u8
-                return probs, probs > cfg.threshold
-            weight2d = torch.from_numpy(weight2d_np).to(dev)
-            probs_all = probs_all.reshape(g, ny, nx, tile, tile) * weight2d
-            pitch = 2 * stride
-            canvas = torch.zeros((g, h2 + pitch, w2 + pitch),
-                                 dtype=torch.float32, device=dev)
-            for pr in (0, 1):
-                for pc in (0, 1):
-                    if pr >= ny or pc >= nx:
-                        continue
-                    cls = probs_all[:, pr::2, pc::2]
-                    gy, gx = cls.shape[1], cls.shape[2]
-                    cls = F.pad(cls, (0, pitch - tile, 0, pitch - tile))
-                    sheet = cls.permute(0, 1, 3, 2, 4).reshape(
-                        g, gy * pitch, gx * pitch)
-                    oy, ox = pr * stride, pc * stride
-                    canvas[:, oy:oy + gy * pitch, ox:ox + gx * pitch] += sheet
-            return finish(canvas[:, :h, :w] * inv_weight[:h, :w])
+            parts = [forward_batch(variables, img, origins[i:i + eff],
+                                   fast_u8)
+                     for i in range(0, len(origins), eff)]
+            with timers.span("sliding.stitch", device=dev):
+                probs_all = torch.cat(parts, dim=1)[:, :n]
+                del parts           # the batches' memory, free for the canvas
+                if cfg.overlap == 0:
+                    # stride == tile: the taper is 1 and tiles are disjoint
+                    canvas = probs_all.reshape(g, ny, nx, tile, tile) \
+                        .permute(0, 1, 3, 2, 4) \
+                        .reshape(g, ny * tile, nx * tile)
+                    probs = canvas[:, :h, :w]
+                    if fast_u8:
+                        return probs, probs > thresh_u8
+                    return probs, probs > cfg.threshold
+                weight2d = torch.from_numpy(weight2d_np).to(dev)
+                probs_all = probs_all.reshape(g, ny, nx, tile, tile) \
+                    * weight2d
+                pitch = 2 * stride
+                canvas = torch.zeros((g, h2 + pitch, w2 + pitch),
+                                     dtype=torch.float32, device=dev)
+                for pr in (0, 1):
+                    for pc in (0, 1):
+                        if pr >= ny or pc >= nx:
+                            continue
+                        cls = probs_all[:, pr::2, pc::2]
+                        gy, gx = cls.shape[1], cls.shape[2]
+                        cls = F.pad(cls, (0, pitch - tile, 0, pitch - tile))
+                        sheet = cls.permute(0, 1, 3, 2, 4).reshape(
+                            g, gy * pitch, gx * pitch)
+                        oy, ox = pr * stride, pc * stride
+                        canvas[:, oy:oy + gy * pitch,
+                               ox:ox + gx * pitch] += sheet
+                return finish(canvas[:, :h, :w] * inv_weight[:h, :w])
 
         # general path: deep overlap, tile by tile in grid order
-        _, _, _, eff, origins, inv_weight = grid_and_weights(
-            h, w, count_padding=True, device=dev)
-        weight2d = torch.from_numpy(weight2d_np).to(dev)
-        canvas = torch.zeros((g, h, w), dtype=torch.float32, device=dev)
+        with timers.span("sliding.pad"):
+            _, _, _, eff, origins, inv_weight = grid_and_weights(
+                h, w, count_padding=True, device=dev)
+            weight2d = torch.from_numpy(weight2d_np).to(dev)
+            canvas = torch.zeros((g, h, w), dtype=torch.float32, device=dev)
         for i in range(0, len(origins), eff):
             batch_origins = origins[i:i + eff]
             probs = forward_batch(variables, images, batch_origins)
-            for k, (oy, ox) in enumerate(batch_origins):
-                canvas[:, oy:oy + tile, ox:ox + tile] += probs[:, k] * weight2d
-        return finish(canvas * inv_weight)
+            with timers.span("sliding.stitch", device=dev):
+                for k, (oy, ox) in enumerate(batch_origins):
+                    canvas[:, oy:oy + tile, ox:ox + tile] += \
+                        probs[:, k] * weight2d
+        with timers.span("sliding.stitch", device=dev):
+            return finish(canvas * inv_weight)
 
     return infer
 

@@ -13,10 +13,21 @@ granules already (the int8 calibration) hands them in through
 ``predecoded``, so that no granule is decoded twice. An exported program of
 fixed G takes whole groups (``infer_is_batched``): a ragged tail is padded
 by repeating its last granule, and the duplicates' outputs are dropped.
+
+With the recorder on (``utils/timers``), each group records the spans
+``stream.images`` (stacking and dequantizing), ``stream.infer`` (the
+program's call, and the uint8 code of its output with ``quantize_output``)
+and ``stream.readback`` with ``stream.readback.device_wait`` (the wait for
+the program's work) and ``stream.readback.copy`` (the copy to host memory)
+inside it, each with the group's index as ``group``, and the
+counters ``stream.groups``, ``stream.granules`` and
+``stream.readback.bytes``. The stager and the queue record theirs
+(``io/prefetch``).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,6 +41,7 @@ from plumekit_torch.ops.quant import (dequantize, dequantize_probs_uint8,
                                       quantize_probs_uint8, quantize_uint16,
                                       uint16_bits)
 from plumekit_torch.train.data import assemble_channels
+from plumekit_torch.utils import timers
 
 
 def decode_granule_channels(
@@ -165,19 +177,37 @@ def stream_inference(
                               scale[:, None, None, :])
         return stacked[0]
 
+    group_index = itertools.count()
+
     def flush(group):
+        # no span stays open across the yields below
         n = len(group)
+        k = next(group_index)
+        timers.count("stream.groups")
+        timers.count("stream.granules", n)
         if infer_is_batched and n < batch_granules:
             group = group + [group[-1]] * (batch_granules - n)
-        if devices is None:
-            x = images(group)
-        else:
-            x = [images(group[i * per_slot:(i + 1) * per_slot], slot)
-                 for i, slot in enumerate(slots)]
-        probs, _masks = infer_fn(variables, x)
-        if quantize_output:
-            probs = quantize_probs_uint8(probs)
-        host = readback(probs)
+        with timers.span("stream.images", group=k):
+            if devices is None:
+                x = images(group)
+            else:
+                x = [images(group[i * per_slot:(i + 1) * per_slot], slot)
+                     for i, slot in enumerate(slots)]
+        with timers.span("stream.infer", group=k):
+            probs, _masks = infer_fn(variables, x)
+            if quantize_output:
+                probs = quantize_probs_uint8(probs)
+        done = None
+        if timers.enabled() and probs.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(probs.device))
+        with timers.span("stream.readback", group=k):
+            if done is not None:
+                with timers.span("stream.readback.device_wait", group=k):
+                    done.synchronize()
+            with timers.span("stream.readback.copy", group=k):
+                host = readback(probs)
+        timers.count("stream.readback.bytes", host.nbytes)
         for i, (name, _p, (h, w)) in enumerate(group[:n]):
             p = host[i, :h, :w]
             yield name, dequantize_probs_uint8(p) if quantize_output else p

@@ -16,6 +16,14 @@ plain ``.to(device)`` on the stager thread.
 
 Errors are not swallowed: a decode worker's exception is raised at that
 item's turn, and a stager's exception at the consumer's next item.
+
+With the recorder on (``utils/timers``), the stager records a
+``stream.stage`` span per item, with ``stream.stage.pin`` (the copies into
+pinned memory) and ``stream.stage.h2d`` (issuing the uploads) inside it,
+and ``stream.stage.queue_full`` while it waits for room in the queue; the
+consumer records ``stream.queue_wait`` around each pull and the counters
+``stream.queue.gets``, ``stream.queue.empty`` (pulls that found the queue
+empty) and ``stream.queue.depth`` (the queue's size summed over pulls).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 
 from plumekit_torch.device import resolve_device
+from plumekit_torch.utils import timers
 
 T = TypeVar("T")
 U = TypeVar("U")
@@ -108,9 +117,12 @@ def make_device_put(device) -> Callable:
         tensors, pinned = [], []
 
         def move(a):
-            src = torch.as_tensor(a).pin_memory()
+            with timers.span("stream.stage.pin"):
+                src = torch.as_tensor(a).pin_memory()
+            timers.count("stream.stage.pin_bytes", src.nbytes)
             pinned.append(src)
-            tensors.append(src.to(device, non_blocking=True))
+            with timers.span("stream.stage.h2d"):
+                tensors.append(src.to(device, non_blocking=True))
             return tensors[-1]
 
         with torch.cuda.device(device), torch.cuda.stream(side):
@@ -149,8 +161,11 @@ def device_prefetch(iterable: Iterable, buffer_size: int = 2,
         it = iter(iterable)
         try:
             for item in it:
-                if not blocking_put(put(item)):
-                    return
+                with timers.span("stream.stage"):
+                    staged = put(item)
+                with timers.span("stream.stage.queue_full"):
+                    if not blocking_put(staged):
+                        return
         except BaseException as e:  # handed to the consumer, raised there
             err.append(e)
         finally:
@@ -164,7 +179,12 @@ def device_prefetch(iterable: Iterable, buffer_size: int = 2,
     in_flight: deque = deque()
     try:
         while True:
-            item = q.get()
+            if timers.enabled():
+                timers.count("stream.queue.gets")
+                timers.count("stream.queue.empty", int(q.empty()))
+                timers.count("stream.queue.depth", q.qsize())
+            with timers.span("stream.queue_wait"):
+                item = q.get()
             if item is end:
                 if err:
                     raise err[0]

@@ -42,7 +42,7 @@ from plumekit_torch.train.device_data import (build_device_dataset,
                                               make_device_multi_step)
 from plumekit_torch.train.state import create_state
 from plumekit_torch.train.step import make_eval_step, make_multi_train_step
-from plumekit_torch.utils import MetricsWriter, get_logger
+from plumekit_torch.utils import MetricsWriter, get_logger, timers
 
 logger = get_logger(__name__)
 
@@ -91,14 +91,18 @@ def host_chunks(samples, tile: int, batch_size: int, rng, device, sizes,
     tensors on ``device``. A stager thread draws, stacks and uploads them
     ``buffer_size`` chunks ahead (``io/prefetch.device_prefetch``). Under
     data parallelism every rank draws the global batches of ``batch_size``
-    and stacks and uploads only its ``part`` of each."""
+    and stacks and uploads only its ``part`` of each. With the recorder on
+    (``utils/timers``) each chunk's draw and stack is a ``train.draw``
+    span on the stager thread."""
     draw = (tile_batches_quant if quantize else tile_batches)(
         samples, tile, batch_size, rng)
 
     def chunks():
         for k in sizes:
-            yield _stacked([tuple(a[part] for a in next(draw))
-                            for _ in range(k)])
+            with timers.span("train.draw", steps=k):
+                chunk = _stacked([tuple(a[part] for a in next(draw))
+                                  for _ in range(k)])
+            yield chunk
 
     return device_prefetch(chunks(), buffer_size=buffer_size,
                            device_put=make_device_put(device))

@@ -11,6 +11,13 @@ on the device first (``_dequant_batch``). The training step
 reaches no hand-written kernel, as in the JAX package (its forward takes
 the fused routes only at inference): the forward and backward are plain
 PyTorch. The eval step runs the eval-mode forward, which takes them.
+
+With the recorder on (``utils/timers``), a step records the span
+``train.step`` and inside it, in order, ``train.augment``,
+``train.forward`` (model and loss), ``train.backward`` (clearing the
+gradients, backward, and their average under data parallelism) and
+``train.optimizer`` (AdamW and the schedule), each with its device time;
+and the counter ``train.steps``.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from plumekit_torch.models.losses import dice_bce_loss, iou
 from plumekit_torch.ops.quant import dequantize
 from plumekit_torch.train.augment import augment_batch
 from plumekit_torch.train.state import TrainState
+from plumekit_torch.utils import timers
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -72,20 +80,31 @@ def make_train_step(dice_weight: float = 0.5, augment: bool = True,
 
     def core(state: TrainState, xs, ys,
              generator: Optional[torch.Generator]):
-        if augment:
-            xs, ys = augment_batch(generator, xs, ys, shard)
-        state.model.train()
-        if group is not None:
-            dp.set_batch_stats_group(state.model, group)
-        logits = state.model(xs)
-        loss = dice_bce_loss(logits, ys, dice_weight,
-                             label_smooth=label_smooth, reduce=reduce)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if group is not None:
-            dp.average_gradients(state.model, group)
-        state.optimizer.step()
-        state.scheduler.step()
+        timers.count("train.steps")
+        with timers.span("train.step", step=state.step):
+            return one_step(state, xs, ys, generator)
+
+    def one_step(state: TrainState, xs, ys,
+                 generator: Optional[torch.Generator]):
+        dev = xs.device
+        with timers.span("train.augment", device=dev):
+            if augment:
+                xs, ys = augment_batch(generator, xs, ys, shard)
+        with timers.span("train.forward", device=dev):
+            state.model.train()
+            if group is not None:
+                dp.set_batch_stats_group(state.model, group)
+            logits = state.model(xs)
+            loss = dice_bce_loss(logits, ys, dice_weight,
+                                 label_smooth=label_smooth, reduce=reduce)
+        with timers.span("train.backward", device=dev):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if group is not None:
+                dp.average_gradients(state.model, group)
+        with timers.span("train.optimizer", device=dev):
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
         with torch.no_grad():
             metrics = {"loss": loss.detach(),
