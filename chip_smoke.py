@@ -1383,9 +1383,9 @@ class ByteCounter:
             self.granules += 1
             return out
 
-        def back(probs):
-            out = self.back(probs)
-            self.read_back += out.nbytes
+        def back(probs, sizes):
+            out = self.back(probs, sizes)
+            self.read_back += sum(a.nbytes for a, _ in out)
             return out
 
         streaming.host_payload, streaming.readback = payload, back

@@ -14,21 +14,33 @@ granules already (the int8 calibration) hands them in through
 fixed G takes whole groups (``infer_is_batched``): a ragged tail is padded
 by repeating its last granule, and the duplicates' outputs are dropped.
 
+On the card the readback lands in pinned host memory one granule at a
+time: each granule's output is copied without blocking into a pinned block
+of its own, on the stream that computed it, and is yielded once its own
+copy has landed, while the group's later copies still run. A yielded array
+is the numpy view of that block and owns it until the caller drops it, so a
+caller that keeps every granule of a long 8192² backlog keeps that much
+pinned memory. Off the card the readback is one ``.cpu()``.
+
 With the recorder on (``utils/timers``), each group records the spans
 ``stream.images`` (stacking and dequantizing), ``stream.infer`` (the
 program's call, and the uint8 code of its output with ``quantize_output``)
 and ``stream.readback`` with ``stream.readback.device_wait`` (the wait for
-the program's work) and ``stream.readback.copy`` (the copy to host memory)
-inside it, each with the group's index as ``group``, and the
-counters ``stream.groups``, ``stream.granules`` and
-``stream.readback.bytes``. The stager and the queue record theirs
-(``io/prefetch``).
+the program's work) and ``stream.readback.copy`` (issuing the copies to
+host memory and waiting for the first granule's) inside it, each with the
+group's index as ``group``; between yields, ``stream.readback_wait``
+(``group``, ``granule``), the wait for each later granule's copy on the
+card. Counters: ``stream.groups``, ``stream.granules``,
+``stream.readback.bytes`` (the bytes copied) and
+``stream.readback.pinned`` (the granules read back through pinned memory).
+The stager and the queue record theirs (``io/prefetch``).
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple
+from typing import (Callable, Iterable, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -93,9 +105,35 @@ def host_payload(channels: np.ndarray, quantize: bool) -> tuple:
     return (channels,)
 
 
-def readback(probs: torch.Tensor) -> np.ndarray:
-    """A group's probabilities (fp32, or their uint8 code) on the host."""
-    return probs.cpu().numpy()
+def readback(probs: torch.Tensor, sizes: Sequence[Tuple[int, int]]
+             ) -> List[Tuple[np.ndarray, Optional[torch.cuda.Event]]]:
+    """Start reading a group's probabilities (fp32, or their uint8 code)
+    back to the host, granule ``i`` cropped to ``sizes[i]``. Returns, per
+    granule, its host array and the event to synchronise before reading it
+    (None: ready).
+
+    A CUDA tensor is copied without blocking, on the stream that produced
+    it, each granule into a pinned block of its own from PyTorch's caching
+    host allocator, with an event after each copy; the array is the block's
+    numpy view and keeps it alive. The allocator hands a block out again
+    only after its copy's event has passed. Any other tensor is read back
+    whole by ``.cpu()``."""
+    if probs.device.type != "cuda":
+        host = probs.cpu().numpy()
+        timers.count("stream.readback.bytes", host.nbytes)
+        return [(host[i, :h, :w], None) for i, (h, w) in enumerate(sizes)]
+    out = []
+    with torch.cuda.device(probs.device):
+        stream = torch.cuda.current_stream()
+        for i, (h, w) in enumerate(sizes):
+            host = torch.empty((h, w), dtype=probs.dtype, pin_memory=True)
+            host.copy_(probs[i, :h, :w], non_blocking=True)
+            landed = torch.cuda.Event()
+            landed.record(stream)
+            out.append((host.numpy(), landed))
+    timers.count("stream.readback.bytes", sum(a.nbytes for a, _ in out))
+    timers.count("stream.readback.pinned", len(out))
+    return out
 
 
 def stream_inference(
@@ -116,7 +154,9 @@ def stream_inference(
 ) -> Iterator[Tuple[str, np.ndarray]]:
     """Run ``infer_fn(variables, images (G, H, W, C)) -> (probs, masks)``
     over the granules of ``paths``; yields (granule name, float32 probs
-    cropped to the granule's own shape) in order.
+    cropped to the granule's own shape) in order. On the card each yielded
+    array is the view of a pinned host block of its own (:func:`readback`),
+    yielded as soon as its copy has landed; keeping it keeps that block.
 
     ``decode_workers=None`` sizes the decode pool to the host
     (:func:`default_decode_workers`). ``quantize`` uploads uint16 payloads
@@ -206,10 +246,14 @@ def stream_inference(
                 with timers.span("stream.readback.device_wait", group=k):
                     done.synchronize()
             with timers.span("stream.readback.copy", group=k):
-                host = readback(probs)
-        timers.count("stream.readback.bytes", host.nbytes)
-        for i, (name, _p, (h, w)) in enumerate(group[:n]):
-            p = host[i, :h, :w]
+                host = readback(probs, [hw for _, _, hw in group[:n]])
+                if host[0][1] is not None:
+                    host[0][1].synchronize()
+        for i, ((name, _p, _hw), (p, landed)) in enumerate(
+                zip(group[:n], host)):
+            if i and landed is not None:
+                with timers.span("stream.readback_wait", group=k, granule=i):
+                    landed.synchronize()
             yield name, dequantize_probs_uint8(p) if quantize_output else p
 
     group = []

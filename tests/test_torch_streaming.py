@@ -35,6 +35,7 @@ from plumekit_torch.models import UNet
 from plumekit_torch.models.fused_forward import make_fused_apply
 from plumekit_torch.train import checkpoint
 from plumekit_torch.train.data import assemble_channels
+from plumekit_torch.utils import timers
 
 KW = dict(in_channels=2, base_features=4, depth=2, compute_dtype="float32")
 PROB_TOL = 1e-4
@@ -99,6 +100,55 @@ def test_stream_matches_jax_stream(tmp_path):
     for (_, p), (_, q) in zip(got, want):
         assert p.shape == np.asarray(q).shape
         np.testing.assert_allclose(p, np.asarray(q), atol=PROB_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("quantize_output", [False, True])
+def test_the_cpu_readback_matches_jax_with_no_pinned_granule(
+        tmp_path, quantize_output):
+    """Cropped granules (61 x 70 of a 64 x 72 stack), three a group with a
+    ragged tail, read back on the CPU: the JAX stream's probabilities, the
+    group read back whole in pageable memory, and no granule counted as
+    read back through pinned memory."""
+    paths = []
+    for i in range(5):
+        paths.append(str(tmp_path / f"g{i}.npz"))
+        _write(paths[-1], (61, 70), 10 + i, f"g{i}")
+    variables = JaxUNet(JaxUNetConfig(**KW)).init(
+        jax.random.PRNGKey(3), jnp.zeros((1, 32, 32, 2)))
+    model = UNet(UNetConfig(**KW))
+    model.load_state_dict(from_flax(jax.tree.map(np.asarray, variables)))
+    icfg = dict(tile_size=32, overlap=8, batch_tiles=4)
+    want = list(jax_stream(
+        paths, jax_sliding_infer(jax_fused_apply(JaxUNetConfig(**KW)),
+                                 JaxInferConfig(**icfg)),
+        variables, 2, batch_granules=3, decode_workers=1,
+        quantize_output=quantize_output))
+    infer = make_multi_granule_infer(make_fused_apply(UNetConfig(**KW)),
+                                     InferConfig(**icfg))
+    timers.disable()
+    timers.drain()
+    timers.enable()
+    try:
+        got = list(stream_inference(
+            paths, infer, model.eval(), 2, torch.device("cpu"),
+            batch_granules=3, decode_workers=1,
+            quantize_output=quantize_output))
+    finally:
+        timers.disable()
+    counters = timers.drain()["counters"]
+    assert [n for n, _ in got] == [n for n, _ in want] == \
+        [f"g{i}" for i in range(5)]
+    for (_, p), (_, q) in zip(got, want):
+        assert p.shape == np.asarray(q).shape == (61, 70)
+        assert p.dtype == np.float32
+        # a code either side of a rounding boundary: one step of 1/255
+        np.testing.assert_allclose(
+            p, np.asarray(q), rtol=0,
+            atol=1 / 255 + PROB_TOL if quantize_output else PROB_TOL)
+    assert counters.get("stream.readback.pinned", 0) == 0
+    assert counters["stream.granules"] == 5
+    assert counters["stream.readback.bytes"] == \
+        5 * 64 * 72 * (1 if quantize_output else 4)
 
 
 def test_model_config_files_are_shared(tmp_path, caplog):
