@@ -53,10 +53,13 @@ Usage: ``plumekit-torch <command> --root R ...`` or
   first granule with signal, through the int8 conv kernels on the card;
   ``--tta`` averages the 8 D4 views of every tile batch, ``--quantize``
   uploads uint16 channels and ``--quantize-output`` reads back uint8
-  probabilities. Granules decode on a thread pool and upload on a stager
-  thread ahead of the forwards, as in the JAX package; ``build_features``
-  decodes on the same pool; ``--tuned`` serves the geometry that ``tune``
-  measured; ``--exported DIR`` serves an ``export_model`` artifact;
+  probabilities. A SegFormer checkpoint (``model_config.json`` with
+  ``arch`` "segformer") serves its bf16 forward on the same path; its
+  unported flags exit 1 naming their ROADMAP item. Granules decode on a
+  thread pool and upload on a stager thread ahead of the forwards, as in
+  the JAX package; ``build_features`` decodes on the same pool;
+  ``--tuned`` serves the geometry that ``tune`` measured; ``--exported
+  DIR`` serves an ``export_model`` artifact;
 * ``serve`` watches the granule directory and writes the same prediction
   files for each arrival, with ``served_granules.txt`` and the quarantine
   ``failed_granules.txt`` beside them, as ``plumekit serve`` does;
@@ -106,11 +109,31 @@ THRESHOLD_BASENAME = "threshold.json"
 #: granules the int8 calibration looks at for one with signal
 INT8_CALIBRATION_CANDIDATES = 4
 
+#: what the port does not serve of a SegFormer checkpoint yet: flag or
+#: command → (ROADMAP item, what it names)
+SEGFORMER_UNPORTED = {
+    "--int8": ("S.2", "int8 serving of the SegFormer"),
+    "--fused": ("S.5", "a hand-written SegFormer forward, first the fused "
+                       "depthwise-conv + GELU kernel; --fused runs the "
+                       "U-Net's K6"),
+    "--prune-level": ("S.8", "serving-time pruning; --prune-level cuts a "
+                             "deep-supervised UNet++"),
+    "--exported": ("S.4", "exported SegFormer programs"),
+    "tune": ("S.3", "tuning a SegFormer's serving geometry"),
+    "export_model": ("S.4", "exported SegFormer programs"),
+}
+
 logger = get_logger("plumekit_torch.cli")
 
 
 class _CliError(Exception):
     """Usage or configuration error: the message is logged, exit code 1."""
+
+
+def _segformer_unported(what: str) -> _CliError:
+    item, names = SEGFORMER_UNPORTED[what]
+    return _CliError(f"{what} is not ported for the SegFormer: ROADMAP "
+                     f"{item} ({names})")
 
 
 def _write_json_atomic(path: str, payload: dict) -> None:
@@ -129,7 +152,9 @@ def _restore_model(args, device):
     untrained weights. With ``--prune-level`` the served config is the
     recorded one pruned at that level (UNet++ serving-time pruning); the
     model holds the full grid all the same, so the checkpoint loads as it
-    is and only the forward stops at the level."""
+    is and only the forward stops at the level. A SegFormer checkpoint
+    refuses the flags it does not serve (:data:`SEGFORMER_UNPORTED`)."""
+    from plumekit_torch.config.segformer import SegFormerConfig
     from plumekit_torch.models import build_model, effective_level
     from plumekit_torch.train.checkpoint import (has_orbax_steps,
                                                  load_model_config,
@@ -137,8 +162,15 @@ def _restore_model(args, device):
 
     ckpt_dir = args.checkpoint or os.path.join(
         args.root, PathsConfig().model_dir, "checkpoints")
-    unet_cfg = load_model_config(ckpt_dir) or UNetConfig()
-    if args.prune_level is not None:
+    try:
+        unet_cfg = load_model_config(ckpt_dir) or UNetConfig()
+    except ValueError as e:
+        raise _CliError(str(e))
+    if isinstance(unet_cfg, SegFormerConfig):
+        for flag in ("int8", "fused", "prune_level", "exported"):
+            if getattr(args, flag, None) not in (None, False):
+                raise _segformer_unported("--" + flag.replace("_", "-"))
+    elif args.prune_level is not None:
         unet_cfg = dataclasses.replace(unet_cfg, prune_level=args.prune_level)
         try:
             effective_level(unet_cfg)
@@ -609,6 +641,8 @@ def cmd_tune(args) -> int:
     try:
         device = resolve_device(args.device)
         unet_cfg, model = _restore_model(args, device)
+        if unet_cfg.arch == "segformer":
+            raise _segformer_unported("tune")
     except (RuntimeError, _CliError) as e:
         logger.error("%s", e)
         return 1
@@ -1444,6 +1478,8 @@ def cmd_export_model(args) -> int:
 
     try:
         unet_cfg, model = _restore_model(args, torch.device("cpu"))
+        if unet_cfg.arch == "segformer":
+            raise _segformer_unported("export_model")
     except _CliError as e:
         logger.error("%s", e)
         return 1

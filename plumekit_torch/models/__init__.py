@@ -1,4 +1,5 @@
-"""Model layer: the U-Net and UNet++ (``plumekit/models``)."""
+"""Model layer: the U-Net and UNet++ (``plumekit/models``), and the
+SegFormer (``models/segformer.py``), which the JAX package does not have."""
 
 from __future__ import annotations
 
@@ -6,21 +7,32 @@ from typing import Optional
 
 import torch
 
+from plumekit_torch.config.segformer import SegFormerConfig
 from plumekit_torch.config.train import UNetConfig
+from plumekit_torch.models.segformer import SegFormer
 from plumekit_torch.models.unet import DoubleConv, UNet, receptive_field
 from plumekit_torch.models.unetpp import UNetPP, effective_level
 
-__all__ = ["DoubleConv", "UNet", "UNetPP", "build_model", "effective_level",
-           "init_weights", "receptive_field", "replicate_model"]
+__all__ = ["DoubleConv", "SegFormer", "UNet", "UNetPP", "build_model",
+           "effective_level", "init_weights", "receptive_field",
+           "replicate_model"]
 
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
-    """Seeded initialisation in place: conv and transposed-conv kernels
-    from N(0, 1/fan_in) (flax's lecun-normal scale), biases 0, norms at
-    identity (scale 1, shift 0, running mean 0, variance 1)."""
+    """Seeded initialisation in place: conv, transposed-conv and linear
+    kernels from N(0, 1/fan_in) (flax's lecun-normal scale), biases 0,
+    norms at identity (scale 1, shift 0, running mean 0, variance 1)."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            if isinstance(m, torch.nn.Linear):
+                m.weight.copy_(torch.randn(m.weight.shape,
+                                           generator=generator)
+                               / m.in_features ** 0.5)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, torch.nn.LayerNorm):
+                m.reset_parameters()
+            elif isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
                 w = m.weight
                 fan_in = w.shape[1 if isinstance(m, torch.nn.Conv2d) else 0]
                 fan_in *= w.shape[2] * w.shape[3]
@@ -34,11 +46,17 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
                     m.reset_running_stats()
 
 
-def build_model(cfg: UNetConfig, generator: Optional[torch.Generator] = None
+def build_model(cfg, generator: Optional[torch.Generator] = None
                 ) -> torch.nn.Module:
-    """The one place ``UNetConfig.arch`` is resolved to a module, with the
-    JAX package's checks. With a ``generator`` the weights are initialised
-    from it (:func:`init_weights`)."""
+    """The one place a model config is resolved to a module: a
+    :class:`SegFormerConfig` to the SegFormer, a :class:`UNetConfig` by its
+    ``arch``, with the JAX package's checks. With a ``generator`` the
+    weights are initialised from it (:func:`init_weights`)."""
+    if isinstance(cfg, SegFormerConfig):
+        model = SegFormer(cfg)
+        if generator is not None:
+            init_weights(model, generator)
+        return model
     if cfg.deep_supervision and cfg.arch != "unetpp":
         raise ValueError(
             "deep_supervision is a UNet++ mode (side heads on the nested "

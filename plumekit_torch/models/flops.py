@@ -1,17 +1,20 @@
 """Analytic FLOP counts of the U-Net and UNet++
-(``plumekit/models/flops.py``), for
-TFLOP/s and model FLOP utilisation beside every MPix/s figure.
+(``plumekit/models/flops.py``) and of the SegFormer, for TFLOP/s and model
+FLOP utilisation beside every MPix/s figure.
 
-Convention: matmul-class FLOPs only (convs and transposed convs at
-2·MACs; norm, activation, pool and concat excluded). Counts are per
+Convention: matmul-class FLOPs only (convs, depthwise convs, transposed
+convs, linear layers and the attention's two products at 2·MACs; norm,
+activation, softmax, pool, resize and concat excluded). Counts are per
 input-resolution pixel of one forward; a training step costs three
-forwards' worth (forward, and backward to inputs and to weights).
+forwards' worth (forward, and backward to inputs and to weights). The
+SegFormer's attention grows with the tile, so its count takes the tile.
 """
 
 from __future__ import annotations
 
 import math
 
+from plumekit_torch.config.segformer import SegFormerConfig
 from plumekit_torch.config.train import UNetConfig
 from plumekit_torch.models.unetpp import decoder_nodes, effective_level
 
@@ -28,6 +31,38 @@ def _conv(cin: int, cout: int, k: int = 3) -> float:
 def _up(cin: int, cout: int) -> float:
     """FLOPs per output pixel of a 2×2 stride-2 transposed conv."""
     return 2.0 * cin * cout
+
+
+def segformer_flops(cfg: SegFormerConfig, tile: int) -> dict:
+    """Matmul-class FLOPs of one SegFormer forward on a ``tile``² tile, by
+    part: ``attention`` (q kᵀ and the probabilities times v, every head),
+    ``dwconv`` (Mix-FFN's depthwise 3×3 convs), ``encoder`` (patch
+    embeddings, q/k/v/output projections, the reduction convs and Mix-FFN's
+    two linear layers) and ``head`` (the per-stage linears, the 1×1 fuse
+    and the classifier)."""
+    parts = {"attention": 0.0, "dwconv": 0.0, "encoder": 0.0, "head": 0.0}
+    side, cin = tile, cfg.in_channels
+    d = cfg.decoder_hidden_size
+    first = None
+    for i, c in enumerate(cfg.hidden_sizes):
+        k, s, sr = cfg.patch_sizes[i], cfg.strides[i], cfg.sr_ratios[i]
+        side = (side + 2 * (k // 2) - k) // s + 1
+        n = side * side
+        first = first or n
+        n_kv = (side // sr) ** 2 if sr > 1 else n
+        hidden = c * cfg.mlp_ratios[i]
+        parts["encoder"] += 2.0 * n * k * k * cin * c
+        block = 2.0 * c * c * (2 * n + 2 * n_kv) + 4.0 * n * c * hidden
+        if sr > 1:
+            block += 2.0 * n_kv * sr * sr * c * c
+        parts["encoder"] += cfg.depths[i] * block
+        parts["attention"] += cfg.depths[i] * 4.0 * n * n_kv * c
+        parts["dwconv"] += cfg.depths[i] * 2.0 * 9 * n * hidden
+        parts["head"] += 2.0 * n * c * d
+        cin = c
+    parts["head"] += 2.0 * first * d * (len(cfg.hidden_sizes) * d
+                                        + cfg.out_channels)
+    return parts
 
 
 def model_flops_per_pixel(cfg: UNetConfig) -> float:
@@ -82,5 +117,5 @@ def mfu(mpix_s: float, flops_per_px: float, peak: str = "bf16",
             "pct_peak": round(100.0 * tflops / PEAK_TFLOPS[peak], 1)}
 
 
-__all__ = ["model_flops_per_pixel", "sliding_redundancy", "mfu",
-           "PEAK_TFLOPS"]
+__all__ = ["model_flops_per_pixel", "segformer_flops", "sliding_redundancy",
+           "mfu", "PEAK_TFLOPS"]

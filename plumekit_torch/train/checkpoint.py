@@ -24,11 +24,15 @@ from typing import Optional
 
 import torch
 
+from plumekit_torch.config.segformer import SegFormerConfig
 from plumekit_torch.config.train import UNetConfig
 from plumekit_torch.utils import get_logger
 
 WEIGHTS_BASENAME = "weights.pt"
 _STEP = re.compile(r"step_(\d{8})\.pt$")
+#: the config class of each ``arch`` a ``model_config.json`` may name
+CONFIGS = {"unet": UNetConfig, "unetpp": UNetConfig,
+           "segformer": SegFormerConfig}
 logger = get_logger(__name__)
 
 
@@ -38,7 +42,7 @@ def _atomic_save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
-def save_model_config(ckpt_dir: str, unet_cfg: UNetConfig) -> None:
+def save_model_config(ckpt_dir: str, unet_cfg) -> None:
     """Persist the architecture next to its weights (atomic write). A
     directory that holds step checkpoints of another config is refused:
     the record is what lets serving and resume rebuild those checkpoints."""
@@ -59,19 +63,27 @@ def save_model_config(ckpt_dir: str, unet_cfg: UNetConfig) -> None:
 
 
 def load_model_config(ckpt_dir: str):
-    """The persisted :class:`UNetConfig`, or ``None`` when absent. Fields
-    this code does not know are dropped with a warning."""
+    """The persisted config, or ``None`` when absent: a
+    :class:`SegFormerConfig` for ``arch`` "segformer", a
+    :class:`UNetConfig` for "unet", "unetpp" or no ``arch``. Fields this
+    code does not know are dropped with a warning; an ``arch`` it does not
+    build is refused (ValueError), not read as a U-Net."""
     path = os.path.join(ckpt_dir, "model_config.json")
     if not os.path.exists(path):
         return None
     with open(path) as f:
         d = json.load(f)
-    known = {f.name for f in dataclasses.fields(UNetConfig)}
+    arch = d.get("arch", "unet")
+    if arch not in CONFIGS:
+        raise ValueError(f"{path} names arch {arch!r}, which this code does "
+                         f"not build (known: {', '.join(CONFIGS)})")
+    cls = CONFIGS[arch]
+    known = {f.name for f in dataclasses.fields(cls)}
     dropped = set(d) - known
     if dropped:
         logger.warning("model_config.json has unknown fields %s — ignored",
                        dropped)
-    return UNetConfig(**{k: v for k, v in d.items() if k in known})
+    return cls(**{k: v for k, v in d.items() if k in known})
 
 
 def save_weights(ckpt_dir: str, model: torch.nn.Module) -> str:

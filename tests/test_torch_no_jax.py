@@ -54,7 +54,8 @@ needed = {"plumekit_torch.models.kernels.unet_mega",
           "plumekit_torch.viz", "plumekit_torch.viz.plots",
           "plumekit_torch.viz.report", "plumekit_torch.entry",
           "plumekit_torch.experiments.profiler_sessions",
-          "plumekit_torch.io.hdf4"}
+          "plumekit_torch.io.hdf4", "plumekit_torch.config.segformer",
+          "plumekit_torch.models.segformer"}
 banned = {"jax", "jaxlib", "flax", "orbax", "pandas", "plumekit",
           "matplotlib", "h5py"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
